@@ -1,0 +1,397 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's main path once on one CUDA card, and hold every
+kernel of that path against its plain PyTorch version there.
+
+    python3 chip_smoke.py
+
+Phases (each raises on failure; the exit code is 0 only if all pass):
+  1. the card's name and power limit, torch and CUDA versions;
+  2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
+     per source, all at once) and print the seconds; beside them, and only
+     to measure how far fast math moves the noise, zo_update.cu once more
+     with --use_fast_math (the package never loads that build);
+  3. each kernel against its plain version on the card: max |Δ|, kernel
+     ms, plain ms (and the library call's ms where one PyTorch call
+     computes the same function), at a set of parity shapes and at the
+     shapes of the main path;
+  4. a small round on the card against the same round on the CPU, then the
+     main path: ``repro_torch.launch.train`` at the full olmo-1b config for
+     3 rounds, with every kernel launch counter set to 0 just before and
+     read just after; then one more round under torch.profiler for the
+     device time by kernel;
+  5. one JSON line with every kernel's numbers, then the result line.
+
+Timing: CUDA events around repeated launches after a warm-up. Bounds: the
+larger of bytes / 3.35 TB/s and operations / the card's peak for their type
+(989 TFLOP/s bf16 tensor cores for attention on bf16 inputs, 67 TFLOP/s on
+the f32 CUDA cores for the noise kernels); published H100 SXM numbers at a
+700 W limit.
+"""
+from __future__ import annotations
+
+import ctypes
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import torch  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_core": 67e12}
+# operations per counter gaussian and record, counted from the formula:
+# two murmur3 finalizers (10 integer ops each), the row mix and salt (3),
+# two int->float conversions and the (h+1)·2^-32 scaling (4), then log,
+# ×-2, sqrt, ×2π, cos and the product (6, a transcendental as one), and the
+# multiply-add into the sum (2)
+GAUSS_OPS = 35
+MAIN_ARGV = ["--arch", "olmo-1b", "--clients", "2", "--tau", "2",
+             "--batch", "1", "--seq", "512", "--rounds", "3",
+             "--aggregation", "seed_replay"]
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def time_ms(fn, iters: int) -> float:
+    fn()                                            # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def check_close(name: str, got: torch.Tensor, want: torch.Tensor,
+                f32_tol: float) -> float:
+    """f32: max |Δ| <= f32_tol. bf16: every element within one bf16 ulp of
+    the plain value (|Δ| <= 2^-7·|want| + 1e-5)."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        ok = bool((d <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
+    else:
+        ok = float(d.max()) <= f32_tol
+    require(ok, f"{name}: max |Δ| {float(d.max()):.3e} outside tolerance")
+    return float(d.max())
+
+
+def bound(nbytes: float, ops: float, peak: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[peak] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_card():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    require(bool(out), "nvidia-smi printed no card")
+    print(out[0])
+    print(f"torch {torch.__version__}  CUDA {torch.version.cuda}  "
+          f"device {torch.cuda.get_device_name(0)}  "
+          f"count {torch.cuda.device_count()}")
+
+
+def phase_build():
+    """Build the package's kernel library and, at the same time, a
+    fast-math build of zo_update.cu. Returns the fast-math build's
+    zo_update_launch."""
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    fast_so = build.BUILD_ROOT / "fast_math" / "libzo_update_fast_math.so"
+    fast_so.parent.mkdir(parents=True, exist_ok=True)
+    fast = subprocess.Popen(
+        [build.nvcc_path(), *build.ARCH_FLAGS, *build.BASE_FLAGS,
+         "--use_fast_math", "-shared", str(build.CSRC / "zo_update.cu"),
+         "-o", str(fast_so)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        build.library()
+    finally:
+        out, _ = fast.communicate()
+    require(fast.returncode == 0, f"fast-math build failed:\n{out}")
+    fast_update = ctypes.CDLL(str(fast_so)).zo_update_launch
+    fast_update.argtypes = build.SIGNATURES["zo_update_launch"]
+    fast_update.restype = ctypes.c_int
+    print(f"build: {time.perf_counter() - t0:.1f}s  "
+          f"({build.compile_library().relative_to(ROOT)}; fast-math "
+          f"zo_update {fast_so.relative_to(ROOT)})")
+    return fast_update
+
+
+def phase_zo(dev, fast_update) -> dict:
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.zo_update import zo_replay_flat, zo_update_flat
+    gen = torch.Generator(device=dev).manual_seed(0)
+    res = {"zo_update": {"err": 0.0}, "zo_replay": {"err": 0.0}}
+    seed = 0x2545F491
+    coeff = torch.full((1,), 0.37, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(8192, 1024, generator=gen, device=dev).to(dtype)
+        for offset in (0, 37):
+            name = f"zo_update {str(dtype)[6:]} (8192,1024) offset {offset}"
+            got = zo_update_flat(x, seed, coeff, offset=offset)
+            want = ref.zo_update_ref(x, seed, coeff, offset)
+            err = check_close(name, got, want, 1e-5)
+            res["zo_update"]["err"] = max(res["zo_update"]["err"], err)
+            print(f"{name}: max|Δ| {err:.3e}  kernel "
+                  f"{time_ms(lambda: zo_update_flat(x, seed, coeff, offset=offset), 20):.4f} ms  "
+                  f"plain {time_ms(lambda: ref.zo_update_ref(x, seed, coeff, offset), 2):.4f} ms")
+
+    # the noise alone (0 + 1·u): the kernel, and the same source built with
+    # --use_fast_math, against the plain version
+    z = torch.zeros(8192, 1024, device=dev)
+    one = torch.ones(1, device=dev)
+    u_plain = ref.zo_update_ref(z, seed, one)
+    u_fast = torch.empty_like(z)
+    build.check(fast_update(z.data_ptr(), u_fast.data_ptr(), z.numel(), 0,
+                            seed, one.data_ptr(), 0,
+                            torch.cuda.current_stream().cuda_stream),
+                "fast-math zo_update")
+    for what, u in (("precise", zo_update_flat(z, seed, one)),
+                    ("--use_fast_math", u_fast)):
+        print(f"noise u, {what} build: max|Δu| vs plain "
+              f"{max_err(u, u_plain):.3e}")
+
+    x32 = torch.randn(8192, 1024, generator=gen, device=dev)
+    for dtype, n in ((torch.float32, 1), (torch.float32, 16),
+                     (torch.float32, 64), (torch.float32, 2500),
+                     (torch.bfloat16, 16)):
+        x = x32.to(dtype)
+        seeds = torch.randint(0, 2 ** 32, (n,), generator=torch.Generator()
+                              .manual_seed(n)).numpy().astype("uint32")
+        c = torch.randn(n, generator=gen, device=dev) * 0.01
+        name = f"zo_replay {str(dtype)[6:]} (8192,1024) N={n}"
+        got = zo_replay_flat(x, seeds, c)
+        want = ref.zo_replay_ref(x, seeds, c)
+        err = check_close(name, got, want, 1e-4)
+        res["zo_replay"]["err"] = max(res["zo_replay"]["err"], err)
+        print(f"{name}: max|Δ| {err:.3e}  kernel "
+              f"{time_ms(lambda: zo_replay_flat(x, seeds, c), 5):.4f} ms  "
+              f"plain {time_ms(lambda: ref.zo_replay_ref(x, seeds, c), 1):.4f} ms")
+
+    # main-path shapes: the largest server leaf of olmo-1b at cut 2 (the
+    # stacked MLP input weight, bf16), one perturbation record, and the
+    # server aggregation's M·τ·P = 4 records
+    x = torch.randn(14, 2048, 8192, generator=gen, device=dev).to(
+        torch.bfloat16)
+    n_el = x.numel()
+    seeds = (torch.randint(0, 2 ** 32, (4,), generator=torch.Generator()
+                           .manual_seed(4)).numpy().astype("uint32"))
+    c = torch.randn(4, generator=gen, device=dev) * 1e-3
+    for name, fn, plain, n_rec in (
+            ("zo_update", lambda: zo_update_flat(x, seed, coeff),
+             lambda: ref.zo_update_ref(x, seed, coeff), 1),
+            ("zo_replay", lambda: zo_replay_flat(x, seeds, c),
+             lambda: ref.zo_replay_ref(x, seeds, c), 4)):
+        err = check_close(f"{name} main-path (14,2048,8192) bf16", fn(),
+                          plain(), 1e-5)
+        res[name]["err"] = max(res[name]["err"], err)
+        b_ms, b_by = bound(2 * 2 * n_el + 8 * n_rec,
+                           n_el * n_rec * GAUSS_OPS, "f32_core")
+        res[name].update(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 1),
+                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                         shape=f"(14,2048,8192) bf16, N={n_rec}")
+        print(f"{name} main-path (14,2048,8192) bf16 N={n_rec}: kernel "
+              f"{res[name]['ms']:.4f} ms  plain {res[name]['plain_ms']:.4f} "
+              f"ms  bound {b_ms:.4f} ms ({b_by})")
+    return res
+
+
+def phase_flash(dev) -> dict:
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(1)
+    res = {"err": 0.0}
+
+    def qkv(B, H, Hkv, S, d):
+        return [torch.randn(B, h, S, d, generator=gen, device=dev).to(
+            torch.bfloat16) for h in (H, Hkv, Hkv)]
+
+    cases = [("causal", (2, 16, 16, 512, 128), True, 0),
+             ("window 128", (2, 16, 16, 512, 128), True, 128),
+             ("GQA 16/4", (2, 16, 4, 512, 128), True, 0),
+             ("ragged S=500", (2, 16, 16, 500, 128), True, 0),
+             ("d=64 (OPT)", (1, 32, 32, 512, 64), True, 0),
+             ("main path", (1, 16, 16, 512, 128), True, 0)]
+    for name, shape, causal, window in cases:
+        q, k, v = qkv(*shape)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = ref.flash_attention_ref(q, k, v, causal, window)
+        err = check_close(f"flash {name}", got, want, 1e-5)
+        res["err"] = max(res["err"], err)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                             window=window), 20)
+        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal,
+                                                           window), 3)
+        line = (f"flash {name} bf16 {shape}: max|Δ| {err:.3e}  kernel "
+                f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+        if name == "main path":
+            B, H, Hkv, S, d = shape
+            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True), 20)
+            pairs = S * (S + 1) // 2
+            b_ms, b_by = bound(2 * (2 * B * H * S * d + 2 * B * Hkv * S * d),
+                               4 * d * pairs * B * H, "bf16_tensor")
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape="(1,16,512,128) bf16 causal")
+            line += (f"  library (scaled_dot_product_attention) "
+                     f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
+        print(line)
+    return res
+
+
+def phase_small_round(dev):
+    """One round of a small f32 model (d_head 64) on the card against the
+    same round on the CPU, where the plain versions run."""
+    import numpy as np
+    from repro_torch.configs import SFLConfig, get_config
+    from repro_torch.core import prng
+    from repro_torch.core.splitfed import mu_splitfed_round
+    from repro_torch.models import init_params, untie_params
+    from repro_torch.utils import tree
+    cfg = get_config("olmo-1b", smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=2, dtype="float32")
+    sfl = SFLConfig(n_clients=2, tau=2, n_perturbations=2, cut_units=2,
+                    perturbation_dist="counter")
+    params = untie_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
+    outs = {}
+    for d in ("cpu", dev):
+        b = {"tokens": torch.from_numpy(toks).to(d),
+             "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(d)}
+        p = tree.tree_map(lambda a: a.to(d), params)
+        outs[str(d)] = mu_splitfed_round(
+            cfg, sfl, p, b, torch.tensor([1.0, 0.5], device=d),
+            prng.PRNGKey(3), aggregation="seed_replay")
+    (pc, mc), (pg, mg) = outs["cpu"], outs[str(dev)]
+    dp = max(max_err(a.cpu(), b) for a, b in zip(tree.leaves(pg),
+                                                 tree.leaves(pc)))
+    dm = max(max_err(getattr(mg, f).cpu(), getattr(mc, f))
+             for f in mc._fields)
+    print(f"small f32 round, card vs CPU: params max|Δ| {dp:.3e}  "
+          f"metrics max|Δ| {dm:.3e}")
+    require(dp <= 1e-4 and dm <= 1e-4, "small round: card and CPU disagree")
+
+
+def phase_main(dev):
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.models import param_count
+    from repro_torch.utils import tree
+    print(f"device memory in use before the main path: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    build.reset_launches()
+    res = train.main(MAIN_ARGV)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    print(f"main path {' '.join(MAIN_ARGV)}: round seconds "
+          f"{res.round_seconds}  losses {res.round_loss}  peak memory per "
+          f"round {[round(b / 2 ** 30, 3) for b in res.round_peak_bytes]} "
+          f"GiB  launches {launches}")
+    require(all(math.isfinite(x) for x in res.round_loss),
+            "main path: non-finite loss")
+    for name in ("zo_update", "zo_replay", "flash_attention"):
+        require(launches.get(name, 0) > 0,
+                f"main path: kernel {name} was never launched")
+    # the same seed rebuilds the initial parameters
+    run = train.setup(MAIN_ARGV)
+    print(f"olmo-1b parameters (untied head): {param_count(run.params):,}")
+    moved = 0.0
+    for a, b in zip(tree.leaves(res.params), tree.leaves(run.params)):
+        require(a.shape == b.shape and a.dtype == b.dtype,
+                "main path: parameter tree changed shape")
+        require(bool(torch.isfinite(a.float()).all()),
+                "main path: non-finite parameters")
+        moved = max(moved, max_err(a, b))
+    print(f"main path: max |Δparam| over 3 rounds {moved:.3e}")
+    require(moved > 0, "main path: parameters did not change")
+    return launches, run, res.params
+
+
+def phase_profile(run, params):
+    """One more round of the main path under torch.profiler: device time
+    by kernel, and the device's busy share of the round's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        train.train_rounds(run.cfg, run.sfl, params,
+                           run.loader.round_batch, run.args.seed, 1,
+                           aggregation=run.args.aggregation,
+                           device=run.device, log=None)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels)
+    print(f"profiled round: wall {wall_us / 1e3:.1f} ms (profiler on), "
+          f"device busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.self_device_time_total / max(busy, 1):6.1%} "
+              f"x{e.count:<5d} {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_card()
+    fast_update = phase_build()
+    zo = phase_zo(dev, fast_update)
+    flash = phase_flash(dev)
+    phase_small_round(dev)
+    launches, run, params = phase_main(dev)
+    phase_profile(run, params)
+    src = "src/repro_torch/kernels/csrc/"
+    rows = [("zo_update", src + "zo_update.cu",
+             "src/repro/kernels/zo_update.py:79", zo["zo_update"]),
+            ("zo_replay", src + "zo_update.cu",
+             "src/repro/kernels/zo_update.py:119", zo["zo_replay"]),
+            ("flash_attention", src + "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:86", flash)]
+    print(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": source, "replaces": rep,
+         "launches": launches.get(name, 0), "max_abs_err": r["err"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "shape": r["shape"]}
+        for name, source, rep, r in rows]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,16 @@
+"""PyTorch/CUDA port of the MU-SplitFed system (``repro`` is the JAX reference).
+
+Module names follow ``repro`` so each module has an obvious counterpart:
+
+    configs/      ModelConfig, SFLConfig, the olmo-1b and paper-opt-1.3b archs
+    core/prng     threefry2x32 PRNGKey / fold_in / split on raw uint32 keys
+    core/zo       counter-noise SPSA: perturb, replay, spsa_step
+    core/splitfed mu_splitfed_round (paper Algorithm 1), mu_split_round
+    kernels/      hand-written CUDA kernels (zo_update, zo_replay, flash
+                  attention), their plain PyTorch versions, the nvcc build
+    models/       dense decoder LM over stacked-unit parameter dicts
+    data/         synthetic LM data, Dirichlet partition, federated loader
+    launch/train  the synchronous training driver
+
+The package imports torch and numpy only: never jax, never ``repro``.
+"""

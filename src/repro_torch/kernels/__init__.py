@@ -1,0 +1,2 @@
+"""Hand-written CUDA kernels for Hopper (``csrc/``), their ctypes wrappers,
+their plain PyTorch versions (``ref``) and the tree-level ops layer."""

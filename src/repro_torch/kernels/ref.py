@@ -1,0 +1,118 @@
+"""Plain PyTorch versions of the kernels (counterpart of ``repro.kernels.ref``).
+
+These are what a kernel wrapper runs for a tensor on the CPU, what the CPU
+tests hold against the JAX package, and what ``chip_smoke.py`` holds each
+CUDA kernel against on the card. Nothing on the main path calls them for a
+CUDA tensor.
+
+uint32 arithmetic runs in int64: a product of two values below 2**32 wraps
+mod 2**64, which keeps its low 32 bits right, and every product is masked
+with ``& 0xFFFFFFFF`` before the next shift, so shifts see the uint32 value.
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+_M1 = 0x85EBCA6B
+_M2 = 0xC2B2AE35
+_GOLD = 0x9E3779B9
+_SALT2 = 0xA5A5A5A5
+_INV_2_32 = 1.0 / 4294967296.0
+# 2·π rounded as the reference does it: 2.0 * float32(pi), exact in f32
+_TWO_PI = 2.0 * float(np.float32(np.pi))
+
+LANE = 1024
+
+
+def _hash_u32(seed, idx: torch.Tensor) -> torch.Tensor:
+    """Murmur3 finalizer over (seed + idx·golden); int64 tensors holding
+    uint32 values in, the same out."""
+    x = (idx * _GOLD + seed) & _MASK
+    x = x ^ (x >> 16)
+    x = (x * _M1) & _MASK
+    x = x ^ (x >> 13)
+    x = (x * _M2) & _MASK
+    return x ^ (x >> 16)
+
+
+def counter_gauss(seed, idx: torch.Tensor) -> torch.Tensor:
+    """Standard normal from two hashes via Box-Muller (f32)."""
+    h1 = _hash_u32(seed, idx)
+    h2 = _hash_u32(seed ^ _SALT2, idx)
+    u1 = (h1.to(torch.float32) + 1.0) * _INV_2_32       # (0, 1]
+    u2 = h2.to(torch.float32) * _INV_2_32               # [0, 1)
+    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+
+
+def counter_gauss2(seed, hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """2-D counter gaussian over broadcast (hi, lo) uint32 index tensors."""
+    mixed = (hi * _M1 + seed) & _MASK
+    return counter_gauss(mixed, lo)
+
+
+def _counters(row0: int, n_rows: int, device):
+    hi = ((torch.arange(n_rows, dtype=torch.int64, device=device) + row0)
+          & _MASK)[:, None]
+    lo = torch.arange(LANE, dtype=torch.int64, device=device)[None, :]
+    return hi, lo
+
+
+def noise_rows(seed: int, row0: int, n_rows: int, device="cpu"
+               ) -> torch.Tensor:
+    """(n_rows, LANE) standard normals; row r uses counter row0 + r."""
+    hi, lo = _counters(row0, n_rows, device)
+    return counter_gauss2(int(seed), hi, lo)
+
+
+def zo_update_ref(x: torch.Tensor, seed: int, coeff, row_offset: int = 0
+                  ) -> torch.Tensor:
+    """y = x + coeff·u(seed) over the (row, LANE) counter layout."""
+    n = x.numel()
+    u = noise_rows(seed, row_offset, -(-n // LANE), x.device)
+    u = u.reshape(-1)[:n].reshape(x.shape)
+    coeff = torch.as_tensor(coeff, dtype=torch.float32, device=x.device)
+    return (x.to(torch.float32) + coeff.reshape(()) * u).to(x.dtype)
+
+
+def zo_replay_ref(x: torch.Tensor, seeds, coeffs: torch.Tensor,
+                  row_offset: int = 0) -> torch.Tensor:
+    """y = x + Σᵢ coeffs[i]·u(seeds[i]), accumulated in f32 in record
+    order and cast to the leaf's type once, at the end."""
+    seeds = np.asarray(seeds, np.uint32).reshape(-1)
+    coeffs = torch.as_tensor(coeffs, dtype=torch.float32,
+                             device=x.device).reshape(-1)
+    n = x.numel()
+    rows = -(-n // LANE)
+    hi, lo = _counters(row_offset, rows, x.device)
+    acc = torch.zeros((rows, LANE), dtype=torch.float32, device=x.device)
+    for i, s in enumerate(seeds.tolist()):
+        acc = acc + coeffs[i] * counter_gauss2(s, hi, lo)
+    acc = acc.reshape(-1)[:n].reshape(x.shape)
+    return (x.to(torch.float32) + acc).to(x.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, H, S, d); k, v: (B, Hkv, S, d). Returns (B, H, S, d).
+    f32 math; masked scores are -1e30; output in q's type."""
+    B, H, S, d = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    qg = q.reshape(B, Hkv, G, S, d).to(torch.float32)
+    scores = torch.einsum("bkgsd,bktd->bkgst", qg,
+                          k.to(torch.float32)) / math.sqrt(d)
+    i = torch.arange(S, device=q.device)[:, None]
+    j = torch.arange(S, device=q.device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= j <= i
+    if window > 0:
+        ok &= (i - j) < window
+    scores = torch.where(ok, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
+    return out.reshape(B, H, S, d).to(q.dtype)

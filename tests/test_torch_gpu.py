@@ -1,0 +1,78 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Every test here needs a CUDA card and skips elsewhere. The file imports
+neither jax nor the JAX package, so on a machine with a card and no jax it
+runs on its own:
+
+    python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances as in test_torch_kernels.py: f32 within 1e-5 (1e-4 for a
+300-record replay, whose sum runs with fused multiply-adds on the card),
+bf16 within one bf16 ulp of the plain value.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.flash_attention import flash_attention
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build and run only there")
+    return torch.device("cuda")
+
+
+def assert_close(got, want, tol=1e-5):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    d = (got.float() - want.float()).abs()
+    if got.dtype == torch.bfloat16:
+        assert bool((d <= 2.0 ** -7 * want.float().abs() + 1e-5).all())
+    else:
+        assert float(d.max()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_zo_kernels_match_plain(cuda, dtype):
+    """A ragged (5000, 37) leaf at a row offset; 300 records, past one
+    shared-memory tile of records."""
+    x = torch.randn(5000, 37, device=cuda).to(dtype)
+    rng = np.random.default_rng(9)
+    seeds = rng.integers(0, 2 ** 32, size=300, dtype=np.uint32)
+    c = torch.from_numpy((rng.normal(size=300) * 0.1).astype(np.float32)
+                         ).to(cuda)
+    before = dict(build.LAUNCHES)
+    got_u = ops.zo_update_leaf(x, 1234, c[:1], row_offset=5)
+    got_r = ops.zo_replay_leaf(x, seeds, c, row_offset=5)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["zo_update"] == before.get("zo_update", 0) + 1
+    assert build.LAUNCHES["zo_replay"] == before.get("zo_replay", 0) + 1
+    assert_close(got_u, ref.zo_update_ref(x, 1234, c[:1], 5))
+    assert_close(got_r, ref.zo_replay_ref(x, seeds, c, 5), tol=1e-4)
+
+
+@pytest.mark.parametrize("case", [(2, 8, 8, 200, 64, True, 0),
+                                  (1, 8, 2, 256, 128, True, 100),
+                                  (1, 4, 4, 192, 128, False, 70)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    B, H, Hkv, S, d, causal, window = case
+    q = torch.randn(B, H, S, d, device=cuda).to(dtype)
+    k = torch.randn(B, Hkv, S, d, device=cuda).to(dtype)
+    v = torch.randn(B, Hkv, S, d, device=cuda).to(dtype)
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert_close(got, ref.flash_attention_ref(q, k, v, causal, window))
+
+
+def test_kernels_raise_on_what_they_do_not_take(cuda):
+    q = torch.randn(1, 2, 64, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        ops.zo_update_leaf(torch.zeros(8, device=cuda, dtype=torch.float16),
+                           1, 0.1)
