@@ -13,25 +13,37 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   3. each kernel against its plain version on the card: max |Δ|, kernel
      ms, plain ms (and the library call's ms where one PyTorch call
      computes the same function), at a set of parity shapes and at the
-     shapes of the main path;
+     shapes of both paths below;
   4. a small round on the card against the same round on the CPU, then the
-     main path: ``repro_torch.launch.train`` at the full olmo-1b config for
-     3 rounds, with every kernel launch counter set to 0 just before and
-     read just after; then one more round under torch.profiler for the
-     device time by kernel;
-  5. one JSON line with every kernel's numbers, then the result line.
+     two main paths through the training driver (``launch.train``: setup,
+     then train_rounds), each with every kernel launch counter set to 0
+     just before and read just after, and each followed by one more round
+     under torch.profiler for the device time by kernel:
+       - olmo-1b at its full config (LayerNorm; no rmsnorm), 3 rounds;
+       - qwen3-14b at its full published width (RMSNorm, qk-norm, GQA
+         40/8), its depth cut to 16 of 40 layers, 3 rounds. A ZO round
+         holds about 3.9x the parameter bytes (olmo-1b: 9.18 GiB for 1.28 B
+         parameters), so the full 14.8 B model (27.5 GiB in bf16) would
+         need about 106 GiB; 16 layers are 6.84 B parameters;
+  5. one JSON line with every kernel's numbers (launches summed over both
+     paths), then the result line.
 
-Timing: CUDA events around repeated launches after a warm-up. Bounds: the
-larger of bytes / 3.35 TB/s and operations / the card's peak for their type
-(989 TFLOP/s bf16 tensor cores for attention on bf16 inputs, 67 TFLOP/s on
-the f32 CUDA cores for the noise kernels); published H100 SXM numbers at a
-700 W limit.
+Timing: CUDA events around repeated launches after a warm-up. The rmsnorm
+cases, whose kernels take a few microseconds, are timed by device time per
+call under torch.profiler instead (a loop of such launches is paced by the
+host), cycling through copies of their input that together exceed the 50
+MB L2, so each launch reads x from device memory. Bounds: the larger of
+bytes / 3.35 TB/s and operations / the card's peak for their type (989
+TFLOP/s bf16 tensor cores for attention on bf16 inputs, 67 TFLOP/s on the
+f32 CUDA cores for the noise kernels and the norm); published H100 SXM
+numbers at a 700 W limit.
 """
 from __future__ import annotations
 
 import ctypes
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -50,9 +62,16 @@ PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_core": 67e12}
 # ×-2, sqrt, ×2π, cos and the product (6, a transcendental as one), and the
 # multiply-add into the sum (2)
 GAUSS_OPS = 35
-MAIN_ARGV = ["--arch", "olmo-1b", "--clients", "2", "--tau", "2",
-             "--batch", "1", "--seq", "512", "--rounds", "3",
-             "--aggregation", "seed_replay"]
+# operations per RMSNorm element: the square-and-add, and the two products
+NORM_OPS = 4
+PATH_ARGV = ["--clients", "2", "--tau", "2", "--batch", "1", "--seq", "512",
+             "--rounds", "3", "--aggregation", "seed_replay"]
+OLMO_ARGV = ["--arch", "olmo-1b", *PATH_ARGV]
+QWEN_ARGV = ["--arch", "qwen3-14b", *PATH_ARGV]
+QWEN_LAYERS = 16            # of 40: the depth cut of the qwen3-14b path
+L2_BYTES = 50 * 2 ** 20
+PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|rmsnorm_warp|"
+                         r"rmsnorm_block)_kernel<[^>]*>")
 
 
 class SmokeFailure(RuntimeError):
@@ -75,6 +94,40 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_cold_ms(fn, inputs, iters: int) -> float:
+    """Like time_ms, but launch i takes inputs[i % len(inputs)], copies
+    that together exceed L2, so each launch reads its input from device
+    memory as a caller that just wrote it elsewhere would."""
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(inputs[i % len(inputs)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, inputs, iters: int) -> float:
+    """Device time per call: the time of every CUDA kernel that ``iters``
+    calls launch, under torch.profiler, over ``iters``. A call whose host
+    side outlasts its kernels (a norm of a few microseconds behind a
+    Python wrapper) is not charged for the device's idle gaps, which
+    time_cold_ms counts."""
+    from torch.profiler import ProfilerActivity, profile
+    fn(inputs[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            fn(inputs[i % len(inputs)])
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / iters
 
 
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -193,31 +246,98 @@ def phase_zo(dev, fast_update) -> dict:
               f"{time_ms(lambda: zo_replay_flat(x, seeds, c), 5):.4f} ms  "
               f"plain {time_ms(lambda: ref.zo_replay_ref(x, seeds, c), 1):.4f} ms")
 
-    # main-path shapes: the largest server leaf of olmo-1b at cut 2 (the
-    # stacked MLP input weight, bf16), one perturbation record, and the
-    # server aggregation's M·τ·P = 4 records
-    x = torch.randn(14, 2048, 8192, generator=gen, device=dev).to(
-        torch.bfloat16)
-    n_el = x.numel()
+    # main-path shapes: the largest server leaf of each path (the stacked
+    # MLP input weight, bf16): olmo-1b at cut 2 (14 units), and qwen3-14b
+    # at cut 4 of 16 layers (12 units of 5120 x 17408, 1.07e9 elements).
+    # One perturbation record, and the server aggregation's M·τ·P = 4
+    # records. The qwen3 leaf's plain version runs over row blocks of the
+    # counter layout (row_offset), so its int64 temporaries stay small; the
+    # JSON line carries the qwen3 leaf.
     seeds = (torch.randint(0, 2 ** 32, (4,), generator=torch.Generator()
                            .manual_seed(4)).numpy().astype("uint32"))
     c = torch.randn(4, generator=gen, device=dev) * 1e-3
-    for name, fn, plain, n_rec in (
-            ("zo_update", lambda: zo_update_flat(x, seed, coeff),
-             lambda: ref.zo_update_ref(x, seed, coeff), 1),
-            ("zo_replay", lambda: zo_replay_flat(x, seeds, c),
-             lambda: ref.zo_replay_ref(x, seeds, c), 4)):
-        err = check_close(f"{name} main-path (14,2048,8192) bf16", fn(),
-                          plain(), 1e-5)
-        res[name]["err"] = max(res[name]["err"], err)
-        b_ms, b_by = bound(2 * 2 * n_el + 8 * n_rec,
-                           n_el * n_rec * GAUSS_OPS, "f32_core")
-        res[name].update(ms=time_ms(fn, 10), plain_ms=time_ms(plain, 1),
-                         bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                         shape=f"(14,2048,8192) bf16, N={n_rec}")
-        print(f"{name} main-path (14,2048,8192) bf16 N={n_rec}: kernel "
-              f"{res[name]['ms']:.4f} ms  plain {res[name]['plain_ms']:.4f} "
-              f"ms  bound {b_ms:.4f} ms ({b_by})")
+    for shape in ((14, 2048, 8192), (12, 5120, 17408)):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        n_el = x.numel()
+        for name, fn, plain, n_rec in (
+                ("zo_update", lambda: zo_update_flat(x, seed, coeff),
+                 lambda x, r0: ref.zo_update_ref(x, seed, coeff, r0), 1),
+                ("zo_replay", lambda: zo_replay_flat(x, seeds, c),
+                 lambda x, r0: ref.zo_replay_ref(x, seeds, c, r0), 4)):
+            what = f"{name} main-path {shape} bf16 N={n_rec}"
+            y = fn().view(-1, ref.LANE)
+            xv = x.view(-1, ref.LANE)
+            step = 1 << 16                  # rows of 1024 per plain block
+            plain_ms = 0.0
+            for r0 in range(0, xv.shape[0], step):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                want = plain(xv[r0:r0 + step], r0)
+                torch.cuda.synchronize()
+                plain_ms += (time.perf_counter() - t0) * 1e3
+                err = check_close(what, y[r0:r0 + step], want, 1e-5)
+                res[name]["err"] = max(res[name]["err"], err)
+            del y, want
+            b_ms, b_by = bound(2 * 2 * n_el + 8 * n_rec,
+                               n_el * n_rec * GAUSS_OPS, "f32_core")
+            ms = time_ms(fn, 10)
+            print(f"{what}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
+                  f"(in row blocks)  bound {b_ms:.4f} ms ({b_by})")
+            res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None,
+                             shape=f"{shape} bf16, N={n_rec}")
+        del x
+    return res
+
+
+def phase_rmsnorm(dev) -> dict:
+    """The rmsnorm kernel against its plain version at the qwen3-14b
+    path's shapes (the block norms' rows of 5120, the qk-norm's rows of
+    128 over 40 query and 8 kv heads), f32 and bf16, and at row counts and
+    widths that take the kernel's other branches: a row count that is no
+    multiple of the 8 rows of a warp-per-row block, and widths that are no
+    multiple of a 16-byte load. F.rms_norm is timed beside it as the
+    yardstick (the port never calls it). Times are device time per call
+    (device_ms); the event-timed loop beside them is paced by the host."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("block norm (main path)", (1, 512, 5120), bf16),
+             ("qk-norm q", (1, 512, 40, 128), bf16),
+             ("qk-norm k", (1, 512, 8, 128), bf16),
+             ("block norm", (1, 512, 5120), f32),
+             ("qk-norm q", (1, 512, 40, 128), f32),
+             ("ragged rows, warp per row", (3, 7, 128), bf16),
+             ("ragged rows, block per row", (1, 300, 5120), f32),
+             ("D=100, element loads", (333, 100), bf16),
+             ("D=1030, element loads", (77, 1030), f32)]
+    res = {"err": 0.0}
+    for name, shape, dtype in cases:
+        D = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 3.0).to(dtype)
+        s = 1.0 + 0.5 * torch.randn(D, generator=gen, device=dev)
+        what = f"rmsnorm {name} {str(dtype)[6:]} {shape}"
+        err = check_close(what, rmsnorm(x, s), ref.rmsnorm_ref(x, s), 1e-5)
+        res["err"] = max(res["err"], err)
+        nbytes = 2 * x.numel() * x.element_size() + 4 * D
+        xs = [x] + [x.clone() for _ in range(L2_BYTES // nbytes + 1)]
+        ms = device_ms(lambda t: rmsnorm(t, s), xs, 100)
+        lib_ms = device_ms(lambda t: F.rms_norm(t, (D,), s, 1e-5), xs, 100)
+        plain_ms = device_ms(lambda t: ref.rmsnorm_ref(t, s), xs, 20)
+        paced_ms = time_cold_ms(lambda t: rmsnorm(t, s), xs, 100)
+        require(min(ms, lib_ms, plain_ms) > 0,
+                f"{what}: the profiler recorded no device time")
+        b_ms, b_by = bound(nbytes, NORM_OPS * x.numel(), "f32_core")
+        print(f"{what}: max|Δ| {err:.3e}  kernel {ms:.4f} ms  plain "
+              f"{plain_ms:.4f} ms  library (F.rms_norm) {lib_ms:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({b_by})  event-timed loop "
+              f"{paced_ms:.4f} ms a call")
+        if "main path" in name:
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape=f"{shape} bf16, f32 scale")
     return res
 
 
@@ -237,7 +357,9 @@ def phase_flash(dev) -> dict:
              ("GQA 16/4", (2, 16, 4, 512, 128), True, 0),
              ("ragged S=500", (2, 16, 16, 500, 128), True, 0),
              ("d=64 (OPT)", (1, 32, 32, 512, 64), True, 0),
-             ("main path", (1, 16, 16, 512, 128), True, 0)]
+             ("olmo-1b path", (1, 16, 16, 512, 128), True, 0),
+             ("qwen3-14b path, GQA 40/8 (group 5)", (1, 40, 8, 512, 128),
+              True, 0)]
     for name, shape, causal, window in cases:
         q, k, v = qkv(*shape)
         got = flash_attention(q, k, v, causal=causal, window=window)
@@ -250,16 +372,17 @@ def phase_flash(dev) -> dict:
                                                            window), 3)
         line = (f"flash {name} bf16 {shape}: max|Δ| {err:.3e}  kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
-        if name == "main path":
+        if "path" in name:
             B, H, Hkv, S, d = shape
             lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True), 20)
+                q, k, v, is_causal=True, enable_gqa=H != Hkv), 20)
             pairs = S * (S + 1) // 2
             b_ms, b_by = bound(2 * (2 * B * H * S * d + 2 * B * Hkv * S * d),
                                4 * d * pairs * B * H, "bf16_tensor")
+            # the JSON line carries the qwen3-14b path's shape
             res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by,
-                       shape="(1,16,512,128) bf16 causal")
+                       shape=f"({B},{H},{S},{d}) bf16 causal, Hkv={Hkv}")
             line += (f"  library (scaled_dot_product_attention) "
                      f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
         print(line)
@@ -300,44 +423,61 @@ def phase_small_round(dev):
     require(dp <= 1e-4 and dm <= 1e-4, "small round: card and CPU disagree")
 
 
-def phase_main(dev):
+def phase_path(dev, name: str, argv, cfg, kernels) -> dict:
+    """One main path through the driver: ``train.setup`` then
+    ``train.train_rounds`` (what ``train.main`` runs), with ``cfg`` in
+    place of the --arch config where given. Launch counters are set to 0
+    just before the rounds and read just after; every kernel in ``kernels``
+    must have launched. Losses and parameters must be finite, and the
+    parameters must have moved (a sample of each leaf is kept before the
+    rounds). One more round then runs under the profiler."""
     from repro_torch.kernels import build
     from repro_torch.launch import train
     from repro_torch.models import param_count
     from repro_torch.utils import tree
-    print(f"device memory in use before the main path: "
+    print(f"{name}: device memory in use before the path "
           f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    run = train.setup(argv, cfg=cfg)
+    print(f"{name}: {run.cfg.n_layers} layers, d_model {run.cfg.d_model}, "
+          f"heads {run.cfg.n_heads}/{run.cfg.n_kv_heads}, d_head "
+          f"{run.cfg.d_head}, d_ff {run.cfg.d_ff}, vocab "
+          f"{run.cfg.vocab_size}, cut {run.sfl.cut_units}; parameters "
+          f"(untied head) {param_count(run.params):,}")
+    before = [a.reshape(-1)[:4096].clone() for a in tree.leaves(run.params)]
     build.reset_launches()
-    res = train.main(MAIN_ARGV)
+    res = train.train_rounds(run.cfg, run.sfl, run.params,
+                             run.loader.round_batch, run.args.seed,
+                             run.args.rounds,
+                             aggregation=run.args.aggregation,
+                             device=run.device)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    print(f"main path {' '.join(MAIN_ARGV)}: round seconds "
-          f"{res.round_seconds}  losses {res.round_loss}  peak memory per "
-          f"round {[round(b / 2 ** 30, 3) for b in res.round_peak_bytes]} "
-          f"GiB  launches {launches}")
+    print(f"{name} {' '.join(argv)}: round seconds {res.round_seconds}  "
+          f"losses {res.round_loss}  peak memory per round "
+          f"{[round(b / 2 ** 30, 3) for b in res.round_peak_bytes]} GiB  "
+          f"launches {launches}")
     require(all(math.isfinite(x) for x in res.round_loss),
-            "main path: non-finite loss")
-    for name in ("zo_update", "zo_replay", "flash_attention"):
-        require(launches.get(name, 0) > 0,
-                f"main path: kernel {name} was never launched")
-    # the same seed rebuilds the initial parameters
-    run = train.setup(MAIN_ARGV)
-    print(f"olmo-1b parameters (untied head): {param_count(run.params):,}")
+            f"{name}: non-finite loss")
+    for k in kernels:
+        require(launches.get(k, 0) > 0,
+                f"{name}: kernel {k} was never launched")
     moved = 0.0
-    for a, b in zip(tree.leaves(res.params), tree.leaves(run.params)):
-        require(a.shape == b.shape and a.dtype == b.dtype,
-                "main path: parameter tree changed shape")
-        require(bool(torch.isfinite(a.float()).all()),
-                "main path: non-finite parameters")
-        moved = max(moved, max_err(a, b))
-    print(f"main path: max |Δparam| over 3 rounds {moved:.3e}")
-    require(moved > 0, "main path: parameters did not change")
-    return launches, run, res.params
+    leaves = tree.leaves(res.params)
+    require(len(leaves) == len(before), f"{name}: parameter tree changed")
+    for a, b in zip(leaves, before):
+        require(bool(torch.isfinite(a).all()),
+                f"{name}: non-finite parameters")
+        moved = max(moved, max_err(a.reshape(-1)[:4096], b))
+    print(f"{name}: max |Δparam| over {len(res.round_loss)} rounds (first "
+          f"4096 elements of each leaf) {moved:.3e}")
+    require(moved > 0, f"{name}: parameters did not change")
+    phase_profile(name, run, res.params)
+    return launches
 
 
-def phase_profile(run, params):
-    """One more round of the main path under torch.profiler: device time
-    by kernel, and the device's busy share of the round's wall time."""
+def phase_profile(name: str, run, params):
+    """One more round of a path under torch.profiler: device time by
+    kernel, and the device's busy share of the round's wall time."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch import train
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -351,12 +491,18 @@ def phase_profile(run, params):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels)
-    print(f"profiled round: wall {wall_us / 1e3:.1f} ms (profiler on), "
-          f"device busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%}")
+    print(f"{name} profiled round: wall {wall_us / 1e3:.1f} ms (profiler "
+          f"on), device busy {busy / 1e3:.1f} ms = {busy / wall_us:.1%}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.self_device_time_total / max(busy, 1):6.1%} "
               f"x{e.count:<5d} {e.key[:90]}")
+    for e in kernels:           # the port's own kernels, per launch
+        m = PORT_KERNEL.search(e.key)
+        if m:
+            print(f"  {m.group(0)}: x{e.count} "
+                  f"{e.self_device_time_total / 1e3:.3f} ms, "
+                  f"{e.self_device_time_total / e.count:.2f} us a launch")
 
 
 def main() -> int:
@@ -370,16 +516,27 @@ def main() -> int:
     fast_update = phase_build()
     zo = phase_zo(dev, fast_update)
     flash = phase_flash(dev)
+    norm = phase_rmsnorm(dev)
     phase_small_round(dev)
-    launches, run, params = phase_main(dev)
-    phase_profile(run, params)
+    from repro_torch.configs import get_config
+    launches = phase_path(dev, "olmo-1b path", OLMO_ARGV, None,
+                          ("zo_update", "zo_replay", "flash_attention"))
+    torch.cuda.empty_cache()
+    qwen = get_config("qwen3-14b").replace(n_layers=QWEN_LAYERS)
+    for k, n in phase_path(dev, f"qwen3-14b path ({QWEN_LAYERS} of 40 "
+                           f"layers)", QWEN_ARGV, qwen,
+                           ("zo_update", "zo_replay", "flash_attention",
+                            "rmsnorm")).items():
+        launches[k] = launches.get(k, 0) + n
     src = "src/repro_torch/kernels/csrc/"
     rows = [("zo_update", src + "zo_update.cu",
              "src/repro/kernels/zo_update.py:79", zo["zo_update"]),
             ("zo_replay", src + "zo_update.cu",
              "src/repro/kernels/zo_update.py:119", zo["zo_replay"]),
             ("flash_attention", src + "flash_attention.cu",
-             "src/repro/kernels/flash_attention.py:86", flash)]
+             "src/repro/kernels/flash_attention.py:86", flash),
+            ("rmsnorm", src + "rmsnorm.cu",
+             "src/repro/kernels/rmsnorm.py:23", norm)]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": r["err"],

@@ -1,6 +1,6 @@
 """Architecture registry for the port: ``--arch <id>`` lookup. Only the
-dense archs of the first slice are ported; the rest are queued in
-ROADMAP.md."""
+dense attention decoders are ported (LayerNorm and RMSNorm); the other
+families are queued in ROADMAP.md."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +11,9 @@ from repro_torch.configs.base import ModelConfig
 _MODULES: Dict[str, str] = {
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "paper-opt-1.3b": "repro_torch.configs.paper_opt_1_3b",
+    "qwen3-14b": "repro_torch.configs.qwen3_14b",
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
 }
 
 

@@ -29,7 +29,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("zo_update.cu", "flash_attention.cu")
+SOURCES = ("zo_update.cu", "flash_attention.cu", "rmsnorm.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -52,6 +52,9 @@ SIGNATURES = {
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_float,
                                ctypes.c_int, ctypes.c_int, _VOIDP),
+    # x, scale, y, rows, D, dtype, eps, stream
+    "rmsnorm_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, _VOIDP),
 }
 
 

@@ -1,0 +1,195 @@
+// RMSNorm kernel for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/rmsnorm.py:rmsnorm (body
+// _rmsnorm_kernel): over the last dim D of x,
+//     y = x * rsqrt(mean(x^2) + eps) * scale
+// with the math in f32, in that order, and y in x's type. scale is (D,) f32.
+//
+// Design. The TPU kernel normalised blocks of 128 rows in VMEM and padded
+// the row count to a whole block. Here rows are independent: one warp owns
+// a row when D <= 1024 (the qk-norm's rows of d_head = 128; eight rows to a
+// block of 256 threads), and one block of 256 threads owns a row when D is
+// wider (the block norms' rows of d_model = 5120). The sum of squares is
+// reduced by warp shuffles and, for a block, through shared memory across
+// its warps. Loads and stores are 16 bytes a thread (4 f32 or 8 bf16) when D
+// is a multiple of that width and every pointer is 16-byte aligned, and one
+// element a thread otherwise. A row past the last is masked, so any row
+// count runs with no padding copy.
+//
+// Bound on this card: bytes. x is read once from device memory and y
+// written once (the second pass over a row re-reads it from L1/L2, where
+// the first pass left it: 10 KB for a bf16 row of 5120), at 3 flops an
+// element.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarpRowsMaxD = 1024;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) {
+  return v;
+}
+template <> __device__ __forceinline__ __nv_bfloat16
+from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// V consecutive elements, loaded and stored as one access of V*sizeof(T)
+// bytes (16 bytes, or one element when V = 1).
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+// This thread's share of sum(x^2) over one row, threads tid, tid + n, ...
+template <typename T, int V>
+__device__ __forceinline__ float row_sumsq(const T* __restrict__ xr, int D,
+                                           int tid, int n) {
+  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(xr);
+  float ss = 0.0f;
+  for (int i = tid; i < D / V; i += n) {
+    const Pack<T, V> p = xp[i];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float f = to_f32(p.v[j]);
+      ss = fmaf(f, f, ss);
+    }
+  }
+  return ss;
+}
+
+// y = (x * r) * scale over one row, threads tid, tid + n, ...
+template <typename T, int V>
+__device__ __forceinline__ void row_scale(const T* __restrict__ xr,
+                                          const float* __restrict__ s,
+                                          T* __restrict__ yr, int D, float r,
+                                          int tid, int n) {
+  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(xr);
+  Pack<T, V>* yp = reinterpret_cast<Pack<T, V>*>(yr);
+  for (int i = tid; i < D / V; i += n) {
+    const Pack<T, V> p = xp[i];
+    float sv[V];
+    if constexpr (V % 4 == 0) {
+      const float4* s4 = reinterpret_cast<const float4*>(s + i * V);
+#pragma unroll
+      for (int j = 0; j < V / 4; ++j) {
+        const float4 t = s4[j];
+        sv[4 * j] = t.x;
+        sv[4 * j + 1] = t.y;
+        sv[4 * j + 2] = t.z;
+        sv[4 * j + 3] = t.w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) sv[j] = s[i * V + j];
+    }
+    Pack<T, V> o;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      o.v[j] = from_f32<T>((to_f32(p.v[j]) * r) * sv[j]);
+    }
+    yp[i] = o;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// One warp per row, kThreads / 32 rows to a block.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ s,
+                    T* __restrict__ y, long long rows, int D, float eps) {
+  const int lane = threadIdx.x & 31;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= rows) return;  // the whole warp leaves: no shuffle is left open
+  const T* xr = x + row * D;
+  const float ss = warp_sum(row_sumsq<T, V>(xr, D, lane, 32));
+  const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+  row_scale<T, V>(xr, s, y + row * D, D, r, lane, 32);
+}
+
+// One block per row.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ s,
+                     T* __restrict__ y, int D, float eps) {
+  __shared__ float warp_ss[kThreads / 32];
+  const long long row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const T* xr = x + row * D;
+  const float ss = warp_sum(row_sumsq<T, V>(xr, D, threadIdx.x, kThreads));
+  if (lane == 0) warp_ss[warp] = ss;
+  __syncthreads();
+  if (warp == 0) {
+    const float t = warp_sum(lane < kThreads / 32 ? warp_ss[lane] : 0.0f);
+    if (lane == 0) warp_ss[0] = t;
+  }
+  __syncthreads();
+  const float r = rsqrtf(warp_ss[0] / static_cast<float>(D) + eps);
+  row_scale<T, V>(xr, s, y + row * D, D, r, threadIdx.x, kThreads);
+}
+
+template <typename T, int V>
+cudaError_t launch(const void* x, const void* s, void* y, long long rows,
+                   int D, float eps, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  const float* sf = static_cast<const float*>(s);
+  T* yt = static_cast<T*>(y);
+  if (D <= kWarpRowsMaxD) {
+    const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
+    rmsnorm_warp_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                st>>>(xt, sf, yt, rows, D, eps);
+  } else {
+    rmsnorm_block_kernel<T, V><<<static_cast<unsigned>(rows), kThreads, 0,
+                                 st>>>(xt, sf, yt, D, eps);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch(const void* x, const void* s, void* y, long long rows,
+                     int D, float eps, cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  const bool aligned =
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(s) |
+        reinterpret_cast<uintptr_t>(y)) % 16) == 0;
+  if (aligned && D % V == 0) return launch<T, V>(x, s, y, rows, D, eps, st);
+  return launch<T, 1>(x, s, y, rows, D, eps, st);
+}
+
+}  // namespace
+
+// x, y: (rows, D) contiguous; scale: (D,) f32. dtype: 0 = float32,
+// 1 = bfloat16. Returns cudaGetLastError() after the launch.
+extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y,
+                              long long rows, int D, int dtype, float eps,
+                              void* stream) {
+  if (rows <= 0 || D <= 0 || rows > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dispatch<float>(x, scale, y, rows, D, eps, st);
+  } else if (dtype == 1) {
+    err = dispatch<__nv_bfloat16>(x, scale, y, rows, D, eps, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
 from repro_torch.kernels.zo_update import zo_replay_flat, zo_update_flat
 from repro_torch.utils import tree
 
@@ -61,3 +62,7 @@ def zo_replay_leaf(x: torch.Tensor, seeds, coeffs: torch.Tensor, *,
 
 def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0):
     return flash_attention(q, k, v, causal=causal, window=window)
+
+
+def rmsnorm_op(x, scale, *, eps: float = 1e-5):
+    return rmsnorm(x, scale, eps=eps)

@@ -8,6 +8,17 @@ CUDA tensor.
 uint32 arithmetic runs in int64: a product of two values below 2**32 wraps
 mod 2**64, which keeps its low 32 bits right, and every product is masked
 with ``& 0xFFFFFFFF`` before the next shift, so shifts see the uint32 value.
+
+On the CPU the float part of the counter gaussian (Box-Muller) runs in
+numpy, on the calling thread. PyTorch splits a CPU float op over its OpenMP
+worker threads (log, sqrt and cos from 4096 elements up, arithmetic from
+65536), and each worker keeps a floating-point state of its own: under
+pytest-xdist the suite once drew noise off by up to 3.8e-5 in exactly the
+rows of an (8, 1024) block that workers computed, with the calling thread's
+rows exact; and workers started under another rounding mode put noise
+thousands of ulps off (tests/test_torch_kernels.py). Integer hashing is
+exact on any thread and stays in PyTorch. On the card the plain version
+runs PyTorch's CUDA ops, which the kernel matches bit for bit.
 """
 from __future__ import annotations
 
@@ -39,10 +50,22 @@ def _hash_u32(seed, idx: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def _box_muller_cpu(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    """counter_gauss's float part for CPU tensors, in numpy f32 on the
+    calling thread (see the module note)."""
+    u1 = (h1.numpy().astype(np.float32) + np.float32(1.0)) \
+        * np.float32(_INV_2_32)
+    u2 = h2.numpy().astype(np.float32) * np.float32(_INV_2_32)
+    return torch.from_numpy(np.sqrt(np.float32(-2.0) * np.log(u1))
+                            * np.cos(np.float32(_TWO_PI) * u2))
+
+
 def counter_gauss(seed, idx: torch.Tensor) -> torch.Tensor:
     """Standard normal from two hashes via Box-Muller (f32)."""
     h1 = _hash_u32(seed, idx)
     h2 = _hash_u32(seed ^ _SALT2, idx)
+    if h1.device.type == "cpu":
+        return _box_muller_cpu(h1, h2)
     u1 = (h1.to(torch.float32) + 1.0) * _INV_2_32       # (0, 1]
     u2 = h2.to(torch.float32) * _INV_2_32               # [0, 1)
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
@@ -116,3 +139,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
     return out.reshape(B, H, S, d).to(q.dtype)
+
+
+def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+                ) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·scale over the last dim, f32 math, output in
+    x's type: the formula of the reference norms (``apply_norm`` for
+    'rmsnorm', ``rms_norm_simple``) and of the Pallas ``_rmsnorm_kernel``."""
+    xf = x.to(torch.float32)
+    var = xf.square().mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)

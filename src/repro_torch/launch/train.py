@@ -16,6 +16,8 @@ Runs on the card unless ``--device cpu`` is given:
     python -m repro_torch.launch.train --arch olmo-1b --clients 2 --tau 2 \\
         --batch 1 --seq 512 --rounds 3 --aggregation seed_replay
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
+        --smoke --device cpu --rounds 2 --seq 16
 """
 from __future__ import annotations
 
@@ -113,15 +115,18 @@ class Run(NamedTuple):
     device: torch.device
 
 
-def setup(argv=None) -> Run:
+def setup(argv=None, cfg: Optional[ModelConfig] = None) -> Run:
     """Parse the flags and build config, random parameters (seeded) and
-    the data loader on the chosen device."""
+    the data loader on the chosen device. ``cfg``, if given, is run in
+    place of the config that ``--arch`` names (``chip_smoke.py`` runs
+    qwen3-14b with its depth cut this way)."""
     args = build_parser().parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to run the plain versions on the CPU")
     device = torch.device(args.device)
-    cfg = get_config(args.arch, smoke=args.smoke)
+    if cfg is None:
+        cfg = get_config(args.arch, smoke=args.smoke)
     sfl = SFLConfig(n_clients=args.clients, tau=args.tau,
                     cut_units=args.cut or cfg.default_cut_units,
                     lr_server=args.lr_server, lr_client=args.lr_client,

@@ -2,8 +2,9 @@
 ``repro.models.layers``).
 
 Plain functions over dicts of tensors. Norm math runs in f32 and casts back
-to the input type. Init draws from a ``torch.Generator`` with the
-reference's shapes, dtypes and scales (not its numbers).
+to the input type; RMSNorm runs through ``kernels.ops.rmsnorm_op``. Init
+draws from a ``torch.Generator`` with the reference's shapes, dtypes and
+scales (not its numbers).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -71,25 +73,23 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model: int, d_ff: int,
 
 def apply_norm(cfg: ModelConfig, p, x: torch.Tensor, eps: float = 1e-5
                ) -> torch.Tensor:
-    xf = x.to(torch.float32)
+    """RMSNorm goes through the rmsnorm kernel; the LayerNorms (no Pallas
+    kernel in the reference) stay plain PyTorch."""
     if cfg.norm_type == "rmsnorm":
-        var = xf.square().mean(-1, keepdim=True)
-        out = xf * torch.rsqrt(var + eps) * p["scale"]
-    else:  # layernorm / nonparam_ln
-        mu = xf.mean(-1, keepdim=True)
-        var = xf.var(-1, keepdim=True, correction=0)
-        out = (xf - mu) * torch.rsqrt(var + eps)
-        if cfg.norm_type == "layernorm":
-            out = out * p["scale"] + p["bias"]
+        return ops.rmsnorm_op(x, p["scale"], eps=eps)
+    xf = x.to(torch.float32)
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    if cfg.norm_type == "layernorm":
+        out = out * p["scale"] + p["bias"]
     return out.to(x.dtype)
 
 
 def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
                     ) -> torch.Tensor:
-    """Standalone RMSNorm (qk-norm)."""
-    xf = x.to(torch.float32)
-    var = xf.square().mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+    """Standalone RMSNorm (qk-norm), through the rmsnorm kernel."""
+    return ops.rmsnorm_op(x, scale, eps=eps)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ runs on its own:
 
 Tolerances as in test_torch_kernels.py: f32 within 1e-5 (1e-4 for a
 300-record replay, whose sum runs with fused multiply-adds on the card),
-bf16 within one bf16 ulp of the plain value.
+bf16 within one bf16 ulp of the plain value. RMSNorm in f32 within 1e-5
+(|y| <= ~20 here; the sums of squares run in another order).
 """
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
 
 pytestmark = pytest.mark.gpu
 
@@ -69,6 +71,24 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     assert_close(got, ref.flash_attention_ref(q, k, v, causal, window))
 
 
+@pytest.mark.parametrize("shape", [(1, 512, 5120), (1, 512, 40, 128),
+                                   (1, 512, 8, 128), (3, 7, 128),
+                                   (1, 300, 5120), (333, 100), (77, 1030)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_matches_plain(cuda, shape, dtype):
+    """The qwen3-14b path's block-norm and qk-norm shapes, a row count
+    that is no multiple of the 8 rows of a warp-per-row block (21), and
+    widths with no 16-byte loads (100, 1030)."""
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3.0).to(dtype)
+    s = 1.0 + 0.5 * torch.randn(shape[-1], generator=gen, device=cuda)
+    before = build.LAUNCHES["rmsnorm"]
+    got = rmsnorm(x, s)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm"] == before + 1
+    assert_close(got, ref.rmsnorm_ref(x, s))
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.randn(1, 2, 64, 32, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -76,3 +96,11 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(TypeError, match="float32/bfloat16"):
         ops.zo_update_leaf(torch.zeros(8, device=cuda, dtype=torch.float16),
                            1, 0.1)
+    x = torch.randn(4, 256, device=cuda)
+    s = torch.ones(256, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        rmsnorm(x[:, ::2], s[:128])
+    with pytest.raises(ValueError, match="scale"):
+        rmsnorm(x, s[:128])
+    with pytest.raises(ValueError, match="scale"):
+        rmsnorm(x, s.to(torch.bfloat16))

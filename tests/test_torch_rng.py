@@ -3,8 +3,8 @@
 
 Tolerances: the hash and the keys are integer functions and must agree bit
 for bit. The gaussians go through f32 log and cos, whose last bits differ
-between XLA's CPU code and PyTorch's: max |Δ| is 4.8e-7 (one f32 ulp at
-|u| ~ 4) over 10^5 draws, alone and under pytest-xdist. Every draw must be
+between XLA's CPU code and numpy's (the port's CPU Box-Muller): max |Δ| is
+4.8e-7 (one f32 ulp at |u| ~ 4) over 10^6 draws. Every draw must be
 within GAUSS_TOL = 1e-5, twenty such ulps; a wrong stream, salt or offset
 moves draws by O(1).
 """

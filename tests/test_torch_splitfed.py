@@ -1,6 +1,7 @@
 """Port parity: one MU-SplitFed round and a 3-round driver run of
 ``repro_torch`` against the JAX package, with counter noise, in f32 on the
-olmo-1b SMOKE model; and the port's import closure.
+olmo-1b SMOKE model; one round of the qwen3-14b SMOKE model (RMSNorm and
+qk-norm through the rmsnorm op); and the port's import closure.
 
 Tolerances: merged parameters and the round-start losses within 1e-5;
 server deltas and client coefficients within 1e-5 absolute (they are
@@ -45,12 +46,21 @@ TOL = 1e-5
 ROOT = Path(__file__).resolve().parents[1]
 
 
-@pytest.fixture(scope="module")
-def setup():
-    jcfg = j_get_config("olmo-1b", smoke=True).replace(dtype="float32")
-    tcfg = t_get_config("olmo-1b", smoke=True).replace(dtype="float32")
+def _f32_models(arch):
+    jcfg = j_get_config(arch, smoke=True).replace(dtype="float32")
+    tcfg = t_get_config(arch, smoke=True).replace(dtype="float32")
     params = j_untie(jcfg, j_init(jcfg, jax.random.PRNGKey(0)))
     return jcfg, tcfg, params, from_jax_params(params)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _f32_models("olmo-1b")
+
+
+@pytest.fixture(scope="module")
+def qwen3_setup():
+    return _f32_models("qwen3-14b")
 
 
 def _maxdiff(t_tree, j_tree):
@@ -61,20 +71,20 @@ def _maxdiff(t_tree, j_tree):
                for a, b in zip(got, want))
 
 
-@pytest.mark.parametrize("aggregation", ["dense", "seed_replay"])
-def test_round_matches_reference(setup, aggregation):
-    jcfg, tcfg, jp, tp = setup
+def _round_matches_reference(models, aggregation, cut_units):
+    jcfg, tcfg, jp, tp = models
+    sfl_kw = dict(SFL, cut_units=cut_units)
     rng = np.random.default_rng(0)
     toks = rng.integers(0, jcfg.vocab_size, size=(M, 2, 16)).astype(np.int32)
     host = {"tokens": toks, "labels": np.roll(toks, -1, axis=-1)}
     mask = np.array([1.0, 0.0, 1.0], np.float32)       # client 1 dropped
     rk = jax.random.PRNGKey(7)
-    sfl = JSFL(**SFL)
+    sfl = JSFL(**sfl_kw)
     j_fn = jax.jit(lambda p, b, m, k: j_round(jcfg, sfl, p, b, m, k,
                                               aggregation=aggregation))
     jp_new, jm = j_fn(jp, {k: jnp.asarray(v) for k, v in host.items()},
                       jnp.asarray(mask), rk)
-    tp_new, tm = t_round(tcfg, TSFL(**SFL), tp,
+    tp_new, tm = t_round(tcfg, TSFL(**sfl_kw), tp,
                          t_train.to_device_batch(host, "cpu"),
                          torch.from_numpy(mask), np.asarray(rk),
                          aggregation=aggregation)
@@ -84,6 +94,20 @@ def test_round_matches_reference(setup, aggregation):
         got, want = getattr(tm, field).numpy(), np.asarray(getattr(jm, field))
         assert got.shape == want.shape, field
         assert np.abs(got - want).max() <= TOL, field
+
+
+@pytest.mark.parametrize("aggregation", ["dense", "seed_replay"])
+def test_round_matches_reference(setup, aggregation):
+    _round_matches_reference(setup, aggregation, SFL["cut_units"])
+
+
+@pytest.mark.parametrize("aggregation", ["dense", "seed_replay"])
+def test_qwen3_round_matches_reference(qwen3_setup, aggregation):
+    """qwen3-14b SMOKE at its own cut (4 of 4 units on the client, as
+    ``default_cut_units`` says; the server keeps the final norm and head),
+    and at cut 2, which puts RMSNorm blocks on both sides."""
+    for cut in (qwen3_setup[0].default_cut_units, 2):
+        _round_matches_reference(qwen3_setup, aggregation, cut)
 
 
 def test_driver_loss_trajectory_matches_engine(setup):
