@@ -9,7 +9,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them, and only
      to measure how far fast math moves the noise, zo_update.cu once more
-     with --use_fast_math (the package never loads that build);
+     with --use_fast_math (the package never loads that build), and
+     flash_attention.cu with -Xptxas -v: its kernels' registers, shared
+     memory and spills are printed (the bf16 kernels must not spill), and
+     the built library's SASS must hold HMMA (tensor-core) instructions in
+     the bf16 flash kernels (cuobjdump -sass; the check says so if the
+     toolkit has no cuobjdump);
   3. each kernel against its plain version on the card: max |Δ|, kernel
      ms, plain ms (and the library call's ms where one PyTorch call
      computes the same function), at a set of parity shapes and at the
@@ -29,10 +34,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      paths), then the result line.
 
 Timing: CUDA events around repeated launches after a warm-up. The rmsnorm
-cases, whose kernels take a few microseconds, are timed by device time per
-call under torch.profiler instead (a loop of such launches is paced by the
-host), cycling through copies of their input that together exceed the 50
-MB L2, so each launch reads x from device memory. Bounds: the larger of
+and flash cases, whose kernels take microseconds to tens of microseconds,
+are timed by device time per call under torch.profiler instead (a loop of
+such launches is paced by the host), cycling through copies of their
+inputs that together exceed the 50 MB L2, so each launch reads them from
+device memory; the event-timed loop is printed beside them, labelled as
+host-paced. Bounds: the larger of
 bytes / 3.35 TB/s and operations / the card's peak for their type (989
 TFLOP/s bf16 tensor cores for attention on bf16 inputs, 67 TFLOP/s on the
 f32 CUDA cores for the noise kernels and the norm); published H100 SXM
@@ -70,8 +77,8 @@ OLMO_ARGV = ["--arch", "olmo-1b", *PATH_ARGV]
 QWEN_ARGV = ["--arch", "qwen3-14b", *PATH_ARGV]
 QWEN_LAYERS = 16            # of 40: the depth cut of the qwen3-14b path
 L2_BYTES = 50 * 2 ** 20
-PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|rmsnorm_warp|"
-                         r"rmsnorm_block)_kernel<[^>]*>")
+PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
+                         r"rmsnorm_warp|rmsnorm_block)_kernel<[^>]*>")
 
 
 class SmokeFailure(RuntimeError):
@@ -181,18 +188,83 @@ def phase_build():
          "--use_fast_math", "-shared", str(build.CSRC / "zo_update.cu"),
          "-o", str(fast_so)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    # the flash kernels' registers, shared memory and spills, from ptxas
+    ptxas_o = build.BUILD_ROOT / "ptxas" / "flash_attention.o"
+    ptxas_o.parent.mkdir(parents=True, exist_ok=True)
+    ptxas = subprocess.Popen(
+        [build.nvcc_path(), *build.ARCH_FLAGS, *build.BASE_FLAGS, "-Xptxas",
+         "-v", "-c", str(build.CSRC / "flash_attention.cu"), "-o",
+         str(ptxas_o)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     try:
         build.library()
     finally:
         out, _ = fast.communicate()
+        ptxas_out, _ = ptxas.communicate()
     require(fast.returncode == 0, f"fast-math build failed:\n{out}")
+    require(ptxas.returncode == 0, f"-Xptxas -v build failed:\n{ptxas_out}")
     fast_update = ctypes.CDLL(str(fast_so)).zo_update_launch
     fast_update.argtypes = build.SIGNATURES["zo_update_launch"]
     fast_update.restype = ctypes.c_int
     print(f"build: {time.perf_counter() - t0:.1f}s  "
           f"({build.compile_library().relative_to(ROOT)}; fast-math "
           f"zo_update {fast_so.relative_to(ROOT)})")
+    report_ptxas(ptxas_out)
+    lib = build.library()
+    for d in (64, 128):
+        print(f"flash_fwd_bf16_kernel<{d}>: dynamic shared memory "
+              f"{lib.flash_attention_smem_bytes(d, 1)} bytes, "
+              f"{lib.flash_attention_blocks_per_sm(d, 1)} blocks per SM")
+    check_sass(build.compile_library())
     return fast_update
+
+
+FLASH_KERNEL = re.compile(r"(flash_fwd(?:_bf16)?_kernel)ILi(\d+)E")
+
+
+def report_ptxas(out: str) -> None:
+    """Print ptxas's lines for each flash kernel; the bf16 kernels (the
+    tensor-core ones, on both paths) must not spill."""
+    name, seen = None, set()
+    for line in out.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = FLASH_KERNEL.search(line)
+            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            continue
+        if name is None or not line.strip():
+            continue
+        print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills and "bf16" in name:
+            seen.add(name)
+            require(spills.groups() == ("0", "0"),
+                    f"{name} spills registers: {line.strip()}")
+    require(seen == {"flash_fwd_bf16_kernel<64>",
+                     "flash_fwd_bf16_kernel<128>"},
+            f"ptxas -v reported no spill line for the bf16 flash kernels "
+            f"(found {sorted(seen)})")
+
+
+def check_sass(lib: Path) -> None:
+    """The bf16 flash kernels must run on the tensor cores: their SASS in
+    the built library holds HMMA instructions."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        print(f"SASS check skipped: the toolkit has no cuobjdump (looked "
+              f"for {tool}); HMMA in flash_fwd_bf16_kernel not verified")
+        return
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts = {}
+    for section in sass.split("Function : ")[1:]:
+        m = FLASH_KERNEL.search(section.split("\n", 1)[0])
+        if m and m.group(1) == "flash_fwd_bf16_kernel":
+            counts[f"{m.group(1)}<{m.group(2)}>"] = section.count("HMMA")
+    print(f"SASS ({tool.name} -sass): HMMA instructions {counts}")
+    require(len(counts) == 2 and min(counts.values()) > 0,
+            f"no HMMA in the SASS of the bf16 flash kernels: {counts}")
 
 
 def phase_zo(dev, fast_update) -> dict:
@@ -341,7 +413,24 @@ def phase_rmsnorm(dev) -> dict:
     return res
 
 
+def flash_pairs(S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs a causal / window mask leaves unmasked."""
+    n = 0
+    for i in range(S):
+        lo = max(0, i - window + 1) if window > 0 else 0
+        hi = i if causal else S - 1
+        n += hi - lo + 1
+    return n
+
+
 def phase_flash(dev) -> dict:
+    """The flash kernel against its plain version, bf16, at parity shapes
+    and at both paths' shapes, with scaled_dot_product_attention timed
+    beside it at the path shapes as the yardstick (the port never calls
+    it). Times are device time per call (device_ms), cycling through
+    copies of (q, k, v) that together exceed the 50 MB L2; the event-timed
+    loop beside them is paced by the host for calls of tens of
+    microseconds."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -357,35 +446,49 @@ def phase_flash(dev) -> dict:
              ("GQA 16/4", (2, 16, 4, 512, 128), True, 0),
              ("ragged S=500", (2, 16, 16, 500, 128), True, 0),
              ("d=64 (OPT)", (1, 32, 32, 512, 64), True, 0),
+             ("d=64, ragged S=500, window 70, not causal",
+              (1, 32, 32, 500, 64), False, 70),
+             ("B=2, GQA 40/8", (2, 40, 8, 512, 128), True, 0),
              ("olmo-1b path", (1, 16, 16, 512, 128), True, 0),
              ("qwen3-14b path, GQA 40/8 (group 5)", (1, 40, 8, 512, 128),
               True, 0)]
     for name, shape, causal, window in cases:
+        B, H, Hkv, S, d = shape
         q, k, v = qkv(*shape)
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = ref.flash_attention_ref(q, k, v, causal, window)
         err = check_close(f"flash {name}", got, want, 1e-5)
         res["err"] = max(res["err"], err)
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
-                                             window=window), 20)
-        plain_ms = time_ms(lambda: ref.flash_attention_ref(q, k, v, causal,
-                                                           window), 3)
+        nbytes = 2 * (2 * B * H * S * d + 2 * B * Hkv * S * d)
+        sets = [(q, k, v)] + [(q.clone(), k.clone(), v.clone()) for _ in
+                              range(L2_BYTES // nbytes + 1)]
+        ms = device_ms(lambda t: flash_attention(*t, causal=causal,
+                                                 window=window), sets, 50)
+        plain_ms = device_ms(lambda t: ref.flash_attention_ref(
+            *t, causal, window), sets, 10)
+        paced_ms = time_cold_ms(lambda t: flash_attention(
+            *t, causal=causal, window=window), sets, 50)
+        require(min(ms, plain_ms) > 0,
+                f"flash {name}: the profiler recorded no device time")
+        b_ms, b_by = bound(nbytes, 4 * d * flash_pairs(S, causal, window)
+                           * B * H, "bf16_tensor")
         line = (f"flash {name} bf16 {shape}: max|Δ| {err:.3e}  kernel "
-                f"{ms:.4f} ms  plain {plain_ms:.4f} ms")
+                f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
+                f"({b_by})")
         if "path" in name:
-            B, H, Hkv, S, d = shape
-            lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=H != Hkv), 20)
-            pairs = S * (S + 1) // 2
-            b_ms, b_by = bound(2 * (2 * B * H * S * d + 2 * B * Hkv * S * d),
-                               4 * d * pairs * B * H, "bf16_tensor")
+            lib_ms = device_ms(lambda t: F.scaled_dot_product_attention(
+                *t, is_causal=True, enable_gqa=H != Hkv), sets, 50)
+            require(lib_ms > 0, f"flash {name}: no device time for the "
+                    f"library call")
+            line += (f"  library (scaled_dot_product_attention) "
+                     f"{lib_ms:.4f} ms")
             # the JSON line carries the qwen3-14b path's shape
             res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by,
                        shape=f"({B},{H},{S},{d}) bf16 causal, Hkv={Hkv}")
-            line += (f"  library (scaled_dot_product_attention) "
-                     f"{lib_ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})")
-        print(line)
+        print(line + f"  event-timed loop (host-paced) {paced_ms:.4f} ms "
+              f"a call")
+        del sets
     return res
 
 

@@ -47,11 +47,14 @@ SIGNATURES = {
     # x, y, n, dtype, seeds*, coeffs*, n_records, row_offset, stream
     "zo_replay_launch": (_VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
                          _VOIDP, _VOIDP, ctypes.c_int, ctypes.c_uint, _VOIDP),
-    # q, k, v, o, B, H, Hkv, S, D, dtype, scale, causal, window, stream
-    "flash_attention_launch": (_VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                               ctypes.c_int, ctypes.c_int, _VOIDP),
+    # q, k, v, o, then the (batch, head, row) strides of q, k, v and o,
+    # B, H, Hkv, S, D, dtype, scale, causal, window, stream
+    "flash_attention_launch": (_VOIDP,) * 4 + (ctypes.c_longlong,) * 12 + (
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP),
+    # D, dtype: a launch's dynamic shared memory; blocks that fit an SM
+    "flash_attention_smem_bytes": (ctypes.c_int, ctypes.c_int),
+    "flash_attention_blocks_per_sm": (ctypes.c_int, ctypes.c_int),
     # x, scale, y, rows, D, dtype, eps, stream
     "rmsnorm_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, _VOIDP),

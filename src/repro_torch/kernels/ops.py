@@ -60,8 +60,9 @@ def zo_replay_leaf(x: torch.Tensor, seeds, coeffs: torch.Tensor, *,
     return zo_replay_flat(x.contiguous(), seeds, coeffs, offset=row_offset)
 
 
-def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0):
-    return flash_attention(q, k, v, causal=causal, window=window)
+def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
+                       out=None):
+    return flash_attention(q, k, v, causal=causal, window=window, out=out)
 
 
 def rmsnorm_op(x, scale, *, eps: float = 1e-5):

@@ -50,7 +50,9 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor,
     pos = positions[:, None, :]
     q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta)   # (B, H, S, dh)
     k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta)   # (B, Hkv, S, dh)
-    v = v.transpose(1, 2)
-    o = ops.flash_attention_op(q.contiguous(), k.contiguous(), v.contiguous(),
-                               causal=causal, window=cfg.sliding_window)
-    return o.transpose(1, 2).reshape(B, S, H * dh) @ p["wo"]
+    # v and o stay in the projections' (B, S, heads, dh) layout: the
+    # kernel takes them as strided (B, heads, S, dh) views, with no copy
+    o = torch.empty(B, S, H, dh, dtype=q.dtype, device=q.device)
+    ops.flash_attention_op(q, k, v.transpose(1, 2), causal=causal,
+                           window=cfg.sliding_window, out=o.transpose(1, 2))
+    return o.reshape(B, S, H * dh) @ p["wo"]

@@ -59,15 +59,32 @@ def test_zo_kernels_match_plain(cuda, dtype):
 
 @pytest.mark.parametrize("case", [(2, 8, 8, 200, 64, True, 0),
                                   (1, 8, 2, 256, 128, True, 100),
-                                  (1, 4, 4, 192, 128, False, 70)])
+                                  (1, 4, 4, 192, 128, False, 70),
+                                  (1, 10, 2, 512, 128, True, 0),
+                                  (2, 4, 4, 500, 64, False, 70),
+                                  (1, 5, 1, 300, 128, True, 30)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(cuda, case, dtype):
+    """d 64 and 128, ragged S (200, 300, 500), causal and not, windows,
+    GQA groups 4 and 5 (qwen3-14b's). Strided views, as the model passes
+    them: v as the transpose of a (B, S, Hkv, d) tensor, and o written
+    into a (B, S, H, d) buffer, give the contiguous call's result bit for
+    bit."""
     B, H, Hkv, S, d, causal, window = case
-    q = torch.randn(B, H, S, d, device=cuda).to(dtype)
-    k = torch.randn(B, Hkv, S, d, device=cuda).to(dtype)
-    v = torch.randn(B, Hkv, S, d, device=cuda).to(dtype)
-    got = flash_attention(q, k, v, causal=causal, window=window)
+    gen = torch.Generator(device=cuda).manual_seed(S + d + H)
+    q = torch.randn(B, H, S, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, Hkv, S, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, d, generator=gen, device=cuda).to(
+        dtype).transpose(1, 2)
+    got = flash_attention(q, k, v.contiguous(), causal=causal, window=window)
+    buf = torch.empty(B, S, H, d, dtype=dtype, device=cuda)
+    before = build.LAUNCHES["flash_attention"]
+    strided = flash_attention(q, k, v, causal=causal, window=window,
+                              out=buf.transpose(1, 2))
     torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention"] == before + 1
+    assert strided.data_ptr() == buf.data_ptr()
+    assert torch.equal(buf.transpose(1, 2), got)
     assert_close(got, ref.flash_attention_ref(q, k, v, causal, window))
 
 

@@ -168,3 +168,24 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 17
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py"])
+def test_chip_scripts_import_neither_jax_nor_repro(script):
+    """The card's machine has no jax: the scripts run there import the
+    port and torch only (checked in a fresh interpreter); the sweep's
+    edits still apply to the committed flash kernel source."""
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('s', {str(ROOT / script)!r})\n"
+        "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)\n"
+        "if hasattr(m, 'VARIANTS'):\n"
+        "    src = (m.build.CSRC / 'flash_attention.cu').read_text()\n"
+        "    for edits in m.VARIANTS.values(): m.variant_source(src, edits)\n"
+        "bad = [n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro') or n.startswith('jax')]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
