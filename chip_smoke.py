@@ -7,18 +7,20 @@ kernel of that path against its plain PyTorch version there.
 Phases (each raises on failure; the exit code is 0 only if all pass):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
-     per source, all at once) and print the seconds; beside them, and only
-     to measure how far fast math moves the noise, zo_update.cu once more
-     with --use_fast_math (the package never loads that build), and
-     flash_attention.cu with -Xptxas -v: its kernels' registers, shared
-     memory and spills are printed (the bf16 kernels must not spill), and
-     the built library's SASS must hold HMMA (tensor-core) instructions in
-     the bf16 flash kernels (cuobjdump -sass; the check says so if the
-     toolkit has no cuobjdump);
+     per source, all at once) and print the seconds; beside them,
+     flash_attention.cu and zo_update.cu with -Xptxas -v: the kernels'
+     registers, shared memory, stack frames and spills are printed (the
+     bf16 flash kernels must not spill); the built library's SASS must
+     hold HMMA (tensor-core) instructions in the bf16 flash kernels
+     (cuobjdump -sass; the check says so if the toolkit has no cuobjdump),
+     and the zo kernels' SASS mix by opcode class is printed per gaussian;
   3. each kernel against its plain version on the card: max |Δ|, kernel
      ms, plain ms (and the library call's ms where one PyTorch call
      computes the same function), at a set of parity shapes and at the
-     shapes of both paths below;
+     shapes of both paths below; the noise u bit-equal to the plain
+     version's, and both Box-Muller factors bit-equal over all 2^32 hash
+     values to libdevice's and to the plain version's torch ops
+     (zo_update.noise_exhaustive_check);
   4. a small round on the card against the same round on the CPU, then the
      two main paths through the training driver (``launch.train``: setup,
      then train_rounds), each with every kernel launch counter set to 0
@@ -33,7 +35,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   5. one JSON line with every kernel's numbers (launches summed over both
      paths), then the result line.
 
-Timing: CUDA events around repeated launches after a warm-up. The rmsnorm
+Timing: CUDA events around repeated launches after a warm-up (for the
+noise kernels at the path leaves, with the SM clock read by nvidia-smi
+while they run, and torch.add(x, 1.0) on the same leaf beside them as the
+floor of a streaming sweep). The rmsnorm
 and flash cases, whose kernels take microseconds to tens of microseconds,
 are timed by device time per call under torch.profiler instead (a loop of
 such launches is paced by the host), cycling through copies of their
@@ -47,7 +52,6 @@ numbers at a 700 W limit.
 """
 from __future__ import annotations
 
-import ctypes
 import json
 import math
 import re
@@ -137,6 +141,41 @@ def device_ms(fn, inputs, iters: int) -> float:
                ) / 1e3 / iters
 
 
+def smi(query: str) -> list:
+    """One nvidia-smi reading of the card, e.g. smi("clocks.sm,power.draw")
+    -> ["1980", "412.51"] (no units)."""
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True).stdout.strip().splitlines()
+    return [v.strip() for v in out[0].split(",")]
+
+
+def time_ms_clocked(fn, min_ms: float = 400.0):
+    """time_ms over enough launches to keep the card busy for about min_ms,
+    with the SM clock (MHz) and power draw (W) read by nvidia-smi while
+    they run. Returns (ms a call, clock, draw)."""
+    iters = max(5, math.ceil(min_ms / max(time_ms(fn, 2), 1e-3)))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    clock, draw = smi("clocks.sm,power.draw")  # the launches are in flight
+    end.synchronize()
+    return start.elapsed_time(end) / iters, float(clock), float(draw)
+
+
+def issued_per_gaussian(ms: float, clock_mhz: float, gaussians: float):
+    """Instructions a thread could have issued per gaussian in ``ms`` at
+    ``clock_mhz``: every SM's 4 schedulers issuing one warp instruction a
+    cycle, over the gaussians' warps (32 each). Equal to the instructions
+    issued per gaussian when the kernel is issue-bound, above it else."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return ms * 1e-3 * clock_mhz * 1e6 * sms * 4 / (gaussians / 32)
+
+
 def max_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.float() - want.float()).abs().max())
 
@@ -176,47 +215,36 @@ def phase_card():
 
 
 def phase_build():
-    """Build the package's kernel library and, at the same time, a
-    fast-math build of zo_update.cu. Returns the fast-math build's
-    zo_update_launch."""
+    """Build the package's kernel library and, at the same time, -Xptxas -v
+    builds of flash_attention.cu and zo_update.cu. Returns the zo kernels'
+    SASS instructions per gaussian."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    fast_so = build.BUILD_ROOT / "fast_math" / "libzo_update_fast_math.so"
-    fast_so.parent.mkdir(parents=True, exist_ok=True)
-    fast = subprocess.Popen(
-        [build.nvcc_path(), *build.ARCH_FLAGS, *build.BASE_FLAGS,
-         "--use_fast_math", "-shared", str(build.CSRC / "zo_update.cu"),
-         "-o", str(fast_so)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    # the flash kernels' registers, shared memory and spills, from ptxas
-    ptxas_o = build.BUILD_ROOT / "ptxas" / "flash_attention.o"
-    ptxas_o.parent.mkdir(parents=True, exist_ok=True)
-    ptxas = subprocess.Popen(
+    # registers, shared memory, stack frames and spills, from ptxas
+    (build.BUILD_ROOT / "ptxas").mkdir(parents=True, exist_ok=True)
+    ptxas = {src: subprocess.Popen(
         [build.nvcc_path(), *build.ARCH_FLAGS, *build.BASE_FLAGS, "-Xptxas",
-         "-v", "-c", str(build.CSRC / "flash_attention.cu"), "-o",
-         str(ptxas_o)],
+         "-v", "-c", str(build.CSRC / src), "-o",
+         str(build.BUILD_ROOT / "ptxas" / (Path(src).stem + ".o"))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in ("flash_attention.cu", "zo_update.cu")}
     try:
         build.library()
     finally:
-        out, _ = fast.communicate()
-        ptxas_out, _ = ptxas.communicate()
-    require(fast.returncode == 0, f"fast-math build failed:\n{out}")
-    require(ptxas.returncode == 0, f"-Xptxas -v build failed:\n{ptxas_out}")
-    fast_update = ctypes.CDLL(str(fast_so)).zo_update_launch
-    fast_update.argtypes = build.SIGNATURES["zo_update_launch"]
-    fast_update.restype = ctypes.c_int
+        ptxas_out = {src: p.communicate()[0] for src, p in ptxas.items()}
+    for src, p in ptxas.items():
+        require(p.returncode == 0,
+                f"-Xptxas -v build of {src} failed:\n{ptxas_out[src]}")
     print(f"build: {time.perf_counter() - t0:.1f}s  "
-          f"({build.compile_library().relative_to(ROOT)}; fast-math "
-          f"zo_update {fast_so.relative_to(ROOT)})")
-    report_ptxas(ptxas_out)
+          f"({build.compile_library().relative_to(ROOT)})")
+    report_ptxas(ptxas_out["flash_attention.cu"])
     lib = build.library()
     for d in (64, 128):
         print(f"flash_fwd_bf16_kernel<{d}>: dynamic shared memory "
               f"{lib.flash_attention_smem_bytes(d, 1)} bytes, "
               f"{lib.flash_attention_blocks_per_sm(d, 1)} blocks per SM")
     check_sass(build.compile_library())
-    return fast_update
+    return zo_sass_report(build.compile_library(), ptxas_out["zo_update.cu"])
 
 
 FLASH_KERNEL = re.compile(r"(flash_fwd(?:_bf16)?_kernel)ILi(\d+)E")
@@ -267,9 +295,152 @@ def check_sass(lib: Path) -> None:
             f"no HMMA in the SASS of the bf16 flash kernels: {counts}")
 
 
-def phase_zo(dev, fast_update) -> dict:
-    from repro_torch.kernels import build, ref
-    from repro_torch.kernels.zo_update import zo_replay_flat, zo_update_flat
+ZO_KERNEL = re.compile(r"(zo_(?:update|replay)_kernel)I(f|13__nv_bfloat16)E")
+SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                       r"([A-Z][A-Z0-9_]*)([^;]*);")
+# opcode classes of the SASS mix (opcodes not listed fall under "other")
+SASS_CLASSES = {
+    "fp32": ("FFMA", "FMUL", "FADD", "FSEL", "FSETP", "FMNMX", "FCHK"),
+    "int": ("IMAD", "IADD3", "LOP3", "SHF", "PRMT", "LEA", "SEL", "ISETP",
+            "IABS", "IMNMX", "BMSK", "SGXT", "FLO", "POPC"),
+    "conversion": ("I2F", "F2I", "I2FP", "F2IP", "FRND", "F2F"),
+    "mufu": ("MUFU",),
+    "branch": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "BREAK", "WARPSYNC",
+               "JMP", "EXIT"),
+    "local": ("LDL", "STL"),
+}
+
+
+def sass_name(m) -> str:
+    """kernel<type> from a ZO_KERNEL match."""
+    return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
+
+
+def sass_functions(sass: str, pattern) -> dict:
+    """{name: [(address, opcode, operands), ...]} for each function of a
+    ``cuobjdump -sass`` listing whose mangled name ``pattern`` matches;
+    the name is sass_name's."""
+    out = {}
+    for section in sass.split("Function : ")[1:]:
+        head, body = section.split("\n", 1)
+        m = pattern.search(head)
+        if m:
+            out[sass_name(m)] = [(int(a, 16), op, rest.strip())
+                                 for a, op, rest in SASS_INSN.findall(body)]
+    return out
+
+
+def sass_mix(insns) -> dict:
+    """Instruction counts by class, and by opcode within each class."""
+    mix = {}
+    for _, op, _ in insns:
+        cls = next((c for c, ops in SASS_CLASSES.items() if op in ops),
+                   "other")
+        mix.setdefault(cls, {}).setdefault(op, 0)
+        mix[cls][op] += 1
+    return {c: {"total": sum(v.values()), **v} for c, v in mix.items()}
+
+
+def branch_target(op: str, rest: str):
+    """The address a BRA jumps to, else None."""
+    t = re.match(r"(?:\S+\s+)?0x([0-9a-f]+)", rest)
+    return int(t.group(1), 16) if op == "BRA" and t else None
+
+
+def rsq_count(insns) -> int:
+    """MUFU.RSQ instructions: every gaussian takes exactly one (the square
+    root's seed)."""
+    return sum(op == "MUFU" and ".RSQ" in rest for _, op, rest in insns)
+
+
+def per_gaussian(insns) -> tuple:
+    """The static work per counter gaussian: the body of the loop over
+    records (the innermost loop, a backward branch's range, that holds
+    MUFU.RSQ instructions), or the kernel up to its last EXIT where it has
+    no such loop. Code the fast path branches over (libdevice's slow paths)
+    is counted too. Returns (instructions, gaussians, the instructions)."""
+    loops = []
+    for a, op, rest in insns:
+        t = branch_target(op, rest)
+        if t is not None and t < a:
+            body = [i for i in insns if t <= i[0] <= a]
+            if rsq_count(body):
+                loops.append((t, a, body))
+    inner = [b for s, e, b in loops
+             if not any(s <= s2 and e2 <= e and (s2, e2) != (s, e)
+                        for s2, e2, _ in loops)]
+    if inner:
+        body = max(inner, key=rsq_count)
+    else:
+        last_exit = max(a for a, op, _ in insns if op == "EXIT")
+        body = [i for i in insns if i[0] <= last_exit]
+    return len(body), rsq_count(body), body
+
+
+def fast_path(body):
+    """``body`` less the code a forward branch jumps over where that code
+    holds a slow path's marks (a CALL, a double-precision product, local
+    memory or a loop) and no gaussian: libdevice's Payne-Hanek reduction
+    and sqrt.rn's out-of-line fix-up, which the noise never takes."""
+    cold = set()
+    for a, op, rest in body:
+        t = branch_target(op, rest)
+        if t is None or t <= a:
+            continue
+        skipped = [i for i in body if a < i[0] < t]
+        slow = any(o in ("CALL", "DMUL", "LDL", "STL") or
+                   (branch_target(o, r) or x) < x for x, o, r in skipped)
+        if slow and not rsq_count(skipped):
+            cold.update(i[0] for i in skipped)
+    return [i for i in body if i[0] not in cold]
+
+
+def zo_sass_report(lib: Path, ptxas_out: str) -> dict:
+    """Print each zo kernel's registers and stack frame (from ptxas -v)
+    and its SASS mix: the whole kernel, and the work per gaussian. Returns
+    {kernel: instructions per gaussian on the fast path}."""
+    from repro_torch.kernels import build
+    name = None
+    for line in ptxas_out.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = ZO_KERNEL.search(line)
+            name = sass_name(m) if m else None
+        elif name and line.strip() and ("stack" in line or "registers" in line):
+            print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    require(tool.exists(), f"no cuobjdump at {tool}: the zo kernels' SASS "
+            f"cannot be read")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    per = {}
+    for name, insns in sorted(sass_functions(sass, ZO_KERNEL).items()):
+        n, g, body = per_gaussian(insns)
+        require(g > 0, f"{name}: no MUFU.RSQ in its SASS")
+        fast = fast_path(body)
+        per[name] = len(fast) / g
+        print(f"SASS {name}: {len(insns)} instructions "
+              f"{ {c: v['total'] for c, v in sass_mix(insns).items()} }; "
+              f"per gaussian {n / g:.1f} ({n} over {g}), of them on the "
+              f"fast path {len(fast) / g:.1f}: {sass_mix(fast)}")
+    require(set(per) == {f"zo_{k}_kernel<{t}>" for k in ("update", "replay")
+                         for t in ("f32", "bf16")},
+            f"SASS: expected both zo kernels in f32 and bf16, found "
+            f"{sorted(per)}")
+    return per
+
+
+def phase_zo(dev, zo_sass) -> dict:
+    """The noise kernels against their plain version: parity leaves (f32
+    and bf16, row offsets, a misaligned leaf with a ragged end, replays
+    past one shared-memory tile of records), u bit-equal to the plain
+    version, both Box-Muller factors bit-equal over all 2^32 hash values to
+    libdevice's and to the plain version's torch ops, and the main path's
+    largest leaves timed with the SM clock read beside them, torch.add(x,
+    1.0) on the same leaf (one read and one write) beside them as the
+    card's floor for a streaming sweep."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.zo_update import (noise_exhaustive_check,
+                                               zo_replay_flat, zo_update_flat)
     gen = torch.Generator(device=dev).manual_seed(0)
     res = {"zo_update": {"err": 0.0}, "zo_replay": {"err": 0.0}}
     seed = 0x2545F491
@@ -285,21 +456,48 @@ def phase_zo(dev, fast_update) -> dict:
             print(f"{name}: max|Δ| {err:.3e}  kernel "
                   f"{time_ms(lambda: zo_update_flat(x, seed, coeff, offset=offset), 20):.4f} ms  "
                   f"plain {time_ms(lambda: ref.zo_update_ref(x, seed, coeff, offset), 2):.4f} ms")
+        # a leaf at an odd element offset into its buffer (no 16-byte
+        # accesses) with a ragged end
+        buf = torch.randn(1000004, generator=gen, device=dev).to(dtype)
+        x = buf[1:]
+        name = f"zo_update {str(dtype)[6:]} misaligned ({x.numel()},)"
+        err = check_close(name, zo_update_flat(x, seed, coeff, offset=3),
+                          ref.zo_update_ref(x, seed, coeff, 3), 1e-5)
+        res["zo_update"]["err"] = max(res["zo_update"]["err"], err)
+        seeds = torch.randint(0, 2 ** 32, (5,), generator=torch.Generator()
+                              .manual_seed(5)).numpy().astype("uint32")
+        c = torch.randn(5, generator=gen, device=dev) * 0.01
+        err_r = check_close(name.replace("update", "replay") + " N=5",
+                            zo_replay_flat(x, seeds, c, offset=3),
+                            ref.zo_replay_ref(x, seeds, c, 3), 1e-5)
+        res["zo_replay"]["err"] = max(res["zo_replay"]["err"], err_r)
+        print(f"{name}: max|Δ| {err:.3e}; zo_replay N=5 {err_r:.3e}")
 
-    # the noise alone (0 + 1·u): the kernel, and the same source built with
-    # --use_fast_math, against the plain version
+    # the noise alone (0 + 1·u) against the plain version
     z = torch.zeros(8192, 1024, device=dev)
     one = torch.ones(1, device=dev)
+    u = zo_update_flat(z, seed, one)
     u_plain = ref.zo_update_ref(z, seed, one)
-    u_fast = torch.empty_like(z)
-    build.check(fast_update(z.data_ptr(), u_fast.data_ptr(), z.numel(), 0,
-                            seed, one.data_ptr(), 0,
-                            torch.cuda.current_stream().cuda_stream),
-                "fast-math zo_update")
-    for what, u in (("precise", zo_update_flat(z, seed, one)),
-                    ("--use_fast_math", u_fast)):
-        print(f"noise u, {what} build: max|Δu| vs plain "
-              f"{max_err(u, u_plain):.3e}")
+    print(f"noise u: max|Δu| vs plain {max_err(u, u_plain):.3e}")
+    require(torch.equal(u, u_plain),
+            "noise u: the kernel's u is not bit-equal to the plain version's")
+    del z, u, u_plain
+    for reference, what in (
+            ("libdevice", "libdevice's sqrtf(-2 logf(u1)) and cosf(2 pi u2) "
+                          "compiled beside the kernels"),
+            ("plain", "the plain version's torch.sqrt(-2 torch.log(u1)) and "
+                      "torch.cos(2 pi u2)")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        check = noise_exhaustive_check(dev, reference)
+        print(f"noise factors over all 2^32 hash values, bit for bit against "
+              f"{what} ({time.perf_counter() - t0:.2f} s): radial mismatches "
+              f"{check['radial'][0]} (first h {check['radial'][1]}), angular "
+              f"mismatches {check['angular'][0]} (first h "
+              f"{check['angular'][1]})")
+        require(check == {"radial": (0, None), "angular": (0, None)},
+                f"noise factors differ from {reference}: {check}")
+    torch.cuda.empty_cache()
 
     x32 = torch.randn(8192, 1024, generator=gen, device=dev)
     for dtype, n in ((torch.float32, 1), (torch.float32, 16),
@@ -352,12 +550,21 @@ def phase_zo(dev, fast_update) -> dict:
             del y, want
             b_ms, b_by = bound(2 * 2 * n_el + 8 * n_rec,
                                n_el * n_rec * GAUSS_OPS, "f32_core")
-            ms = time_ms(fn, 10)
+            ms, clock, draw = time_ms_clocked(fn)
+            static = zo_sass[f"{name}_kernel<bf16>"]
             print(f"{what}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms "
-                  f"(in row blocks)  bound {b_ms:.4f} ms ({b_by})")
+                  f"(in row blocks)  bound {b_ms:.4f} ms ({b_by})  at "
+                  f"{clock:.0f} MHz, {draw:.0f} W: issue-rate figure "
+                  f"{issued_per_gaussian(ms, clock, n_el * n_rec):.1f} "
+                  f"instructions per gaussian (SASS fast path {static:.1f}; "
+                  f"the bound counts {GAUSS_OPS} operations)")
             res[name].update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                              bound_by=b_by, library_ms=None,
                              shape=f"{shape} bf16, N={n_rec}")
+        ms, clock, draw = time_ms_clocked(lambda: torch.add(x, 1.0))
+        print(f"torch.add(x, 1.0) {shape} bf16 (streaming floor, one read "
+              f"and one write; not the noise): {ms:.4f} ms at {clock:.0f} "
+              f"MHz, {draw:.0f} W; {4 * n_el / ms / 1e9:.3f} TB/s")
         del x
     return res
 
@@ -616,8 +823,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
-    fast_update = phase_build()
-    zo = phase_zo(dev, fast_update)
+    zo = phase_zo(dev, phase_build())
     flash = phase_flash(dev)
     norm = phase_rmsnorm(dev)
     phase_small_round(dev)

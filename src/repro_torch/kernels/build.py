@@ -47,6 +47,11 @@ SIGNATURES = {
     # x, y, n, dtype, seeds*, coeffs*, n_records, row_offset, stream
     "zo_replay_launch": (_VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
                          _VOIDP, _VOIDP, ctypes.c_int, ctypes.c_uint, _VOIDP),
+    # out (4 device uint64), stream: the exhaustive check of the noise factors
+    "zo_noise_exhaustive_launch": (_VOIDP, _VOIDP),
+    # h0, n, r*, a*, stream: the noise factors at h0 .. h0 + n - 1
+    "zo_noise_factors_launch": (ctypes.c_uint, ctypes.c_longlong, _VOIDP,
+                                _VOIDP, _VOIDP),
     # q, k, v, o, then the (batch, head, row) strides of q, k, v and o,
     # B, H, Hkv, S, D, dtype, scale, causal, window, stream
     "flash_attention_launch": (_VOIDP,) * 4 + (ctypes.c_longlong,) * 12 + (

@@ -60,15 +60,28 @@ def _box_muller_cpu(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
                             * np.cos(np.float32(_TWO_PI) * u2))
 
 
+def radial(h1: torch.Tensor) -> torch.Tensor:
+    """Box-Muller's radial factor sqrt(-2·log(u1)) of hashes h1 (int64
+    tensors holding uint32 values), as counter_gauss computes it off the
+    CPU."""
+    u1 = (h1.to(torch.float32) + 1.0) * _INV_2_32       # (0, 1]
+    return torch.sqrt(-2.0 * torch.log(u1))
+
+
+def angular(h2: torch.Tensor) -> torch.Tensor:
+    """Box-Muller's angular factor cos(2π·u2) of hashes h2, as
+    counter_gauss computes it off the CPU."""
+    u2 = h2.to(torch.float32) * _INV_2_32               # [0, 1)
+    return torch.cos(_TWO_PI * u2)
+
+
 def counter_gauss(seed, idx: torch.Tensor) -> torch.Tensor:
     """Standard normal from two hashes via Box-Muller (f32)."""
     h1 = _hash_u32(seed, idx)
     h2 = _hash_u32(seed ^ _SALT2, idx)
     if h1.device.type == "cpu":
         return _box_muller_cpu(h1, h2)
-    u1 = (h1.to(torch.float32) + 1.0) * _INV_2_32       # (0, 1]
-    u2 = h2.to(torch.float32) * _INV_2_32               # [0, 1)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    return radial(h1) * angular(h2)
 
 
 def counter_gauss2(seed, hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:

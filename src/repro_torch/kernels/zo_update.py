@@ -4,6 +4,11 @@
     zo_update_flat   y = x + c·u(seed)            (one record)
     zo_replay_flat   y = x + Σᵢ cᵢ·u(seedᵢ)       (batched seed replay)
 
+and ``noise_exhaustive_check``, which holds the kernels' two Box-Muller
+factors bit for bit over all 2^32 hash values against libdevice's precise
+logf/sqrtf/cosf compiled beside them, or against the plain version's own
+torch ops (on a CUDA device only).
+
 ``x`` is any contiguous f32 or bf16 tensor, read as its flattened elements
 on the (row, lane) = (offset + e // 1024, e % 1024) counter layout: an
 (R, 1024) array is the reference kernels' layout, and any other shape is
@@ -21,6 +26,9 @@ from repro_torch.kernels import ref as _ref
 
 LANE = _ref.LANE
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# hash values a step of the plain-reference exhaustive check: their int64
+# tensor takes 2 GiB, each f32 temporary of the plain version 1 GiB
+_CHECK_BLOCK = 1 << 28
 
 
 def _checked(x: torch.Tensor, what: str) -> int:
@@ -86,3 +94,53 @@ def zo_replay_flat(x: torch.Tensor, seeds, coeffs: torch.Tensor, *,
     build.check(err, "zo_replay_flat")
     build.LAUNCHES["zo_replay"] += 1
     return y
+
+
+def noise_exhaustive_check(device="cuda", reference: str = "libdevice"
+                           ) -> dict:
+    """Every hash value h in [0, 2^32) through the kernels' radial factor
+    sqrtf(-2·logf(u1(h))) and angular factor cosf(2π·u2(h)), compared bit
+    for bit with ``reference``: "libdevice", the precise functions compiled
+    beside the kernels (one kernel walks all h), or "plain", the plain
+    version's ``ref.radial`` / ``ref.angular`` on the card (torch's log,
+    sqrt and cos; _CHECK_BLOCK hash values at a time). Returns
+    {"radial": (mismatches, first failing h or None), "angular": (...)}.
+    Runs on a CUDA device only: there is no CPU version."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"noise_exhaustive_check: needs a CUDA device, got "
+                         f"{device}")
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if reference == "libdevice":
+        out = torch.tensor([0, 0, 1 << 32, 1 << 32], dtype=torch.int64,
+                           device=device)
+        err = build.library().zo_noise_exhaustive_launch(out.data_ptr(),
+                                                         stream)
+        build.check(err, "noise_exhaustive_check")
+        n_r, n_a, first_r, first_a = out.tolist()
+        return {"radial": (n_r, None if first_r == 1 << 32 else first_r),
+                "angular": (n_a, None if first_a == 1 << 32 else first_a)}
+    if reference != "plain":
+        raise ValueError(f"noise_exhaustive_check: reference "
+                         f"{reference!r} is not 'libdevice' or 'plain'")
+    got = {name: torch.empty(_CHECK_BLOCK, dtype=torch.float32,
+                             device=device)
+           for name in ("radial", "angular")}
+    res = {"radial": (0, None), "angular": (0, None)}
+    for h0 in range(0, 1 << 32, _CHECK_BLOCK):
+        err = build.library().zo_noise_factors_launch(
+            h0, _CHECK_BLOCK, got["radial"].data_ptr(),
+            got["angular"].data_ptr(), stream)
+        build.check(err, "noise_exhaustive_check")
+        h = torch.arange(h0, h0 + _CHECK_BLOCK, dtype=torch.int64,
+                         device=device)
+        for name, plain in (("radial", _ref.radial),
+                            ("angular", _ref.angular)):
+            bad = (got[name].view(torch.int32)
+                   != plain(h).view(torch.int32)).nonzero()
+            count, first = res[name]
+            if bad.numel():
+                res[name] = (count + bad.numel(),
+                             first if first is not None
+                             else h0 + int(bad[0]))
+    return res

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, ops, ref, zo_update
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm
 
@@ -38,11 +38,26 @@ def assert_close(got, want, tol=1e-5):
         assert float(d.max()) <= tol
 
 
+def _leaf(case, dtype, device):
+    """The parity leaves of the noise kernels: 'ragged' (5000, 37); an
+    'aligned' (8192, 1024), whole 16-byte groups; 'misaligned', a view at
+    an odd element offset into its buffer (no 16-byte accesses) whose size
+    is no multiple of 8."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    if case == "ragged":
+        return torch.randn(5000, 37, generator=gen, device=device).to(dtype)
+    if case == "aligned":
+        return torch.randn(8192, 1024, generator=gen, device=device).to(dtype)
+    return torch.randn(100004, generator=gen, device=device).to(dtype)[1:]
+
+
+@pytest.mark.parametrize("case", ["ragged", "aligned", "misaligned"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_zo_kernels_match_plain(cuda, dtype):
-    """A ragged (5000, 37) leaf at a row offset; 300 records, past one
-    shared-memory tile of records."""
-    x = torch.randn(5000, 37, device=cuda).to(dtype)
+def test_zo_kernels_match_plain(cuda, dtype, case):
+    """Each leaf at a row offset; 300 records, past one shared-memory tile
+    of records. The noise alone (x = 0, coefficient 1) equals the plain
+    version's bit for bit."""
+    x = _leaf(case, dtype, cuda)
     rng = np.random.default_rng(9)
     seeds = rng.integers(0, 2 ** 32, size=300, dtype=np.uint32)
     c = torch.from_numpy((rng.normal(size=300) * 0.1).astype(np.float32)
@@ -55,6 +70,23 @@ def test_zo_kernels_match_plain(cuda, dtype):
     assert build.LAUNCHES["zo_replay"] == before.get("zo_replay", 0) + 1
     assert_close(got_u, ref.zo_update_ref(x, 1234, c[:1], 5))
     assert_close(got_r, ref.zo_replay_ref(x, seeds, c, 5), tol=1e-4)
+    z = torch.zeros_like(x)
+    one = torch.ones(1, device=cuda)
+    assert torch.equal(ops.zo_update_leaf(z, 77, one, row_offset=5),
+                       ref.zo_update_ref(z, 77, one, 5))
+
+
+@pytest.mark.parametrize("reference", ["libdevice", "plain"])
+def test_zo_noise_bit_equal_over_all_hash_values(cuda, reference):
+    """The kernels' radial factor sqrtf(-2·logf(u1)) and angular factor
+    cosf(2π·u2), specialised to their domain, equal bit for bit at every
+    one of the 2^32 hash values libdevice's precise functions compiled
+    beside them, and the plain version's torch ops; u is their one rounded
+    product, so u is bit-equal too."""
+    assert zo_update.noise_exhaustive_check(cuda, reference) == {
+        "radial": (0, None), "angular": (0, None)}
+    with pytest.raises(ValueError, match="CUDA device"):
+        zo_update.noise_exhaustive_check("cpu")
 
 
 @pytest.mark.parametrize("case", [(2, 8, 8, 200, 64, True, 0),

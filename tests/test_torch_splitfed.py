@@ -170,17 +170,18 @@ def test_port_imports_neither_jax_nor_repro():
     assert len(mods) >= 17
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
+                                    "tools/zo_sweep.py"])
 def test_chip_scripts_import_neither_jax_nor_repro(script):
     """The card's machine has no jax: the scripts run there import the
-    port and torch only (checked in a fresh interpreter); the sweep's
-    edits still apply to the committed flash kernel source."""
+    port and torch only (checked in a fresh interpreter); each sweep's
+    edits still apply to the committed kernel source it names."""
     code = (
         "import importlib.util, sys\n"
         f"spec = importlib.util.spec_from_file_location('s', {str(ROOT / script)!r})\n"
         "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)\n"
         "if hasattr(m, 'VARIANTS'):\n"
-        "    src = (m.build.CSRC / 'flash_attention.cu').read_text()\n"
+        "    src = (m.build.CSRC / m.SOURCE).read_text()\n"
         "    for edits in m.VARIANTS.values(): m.variant_source(src, edits)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') or n.startswith('jax')]\n"
@@ -189,3 +190,26 @@ def test_chip_scripts_import_neither_jax_nor_repro(script):
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_zo_sweep_alu_u32_to_float_is_exact():
+    """tools/zo_sweep.py's "ALU u32->float" variant takes float(h) as two
+    exact 16-bit magic numbers and one rounded add; emulated in numpy f32
+    (the variant's fused multiply-add has an exact product and an exact
+    sum) it equals np.float32(h), round to nearest even, at 2^24 seeded hash
+    values and the edges: 0, 1, 2^24 ± 1, round-to-even ties, and the top
+    of the range, where float(h) rounds up to 2^32 (h >= 2^32 - 128)."""
+    f32 = np.float32
+    edges = np.array(
+        [0, 1, 2, 2 ** 24 - 1, 2 ** 24, 2 ** 24 + 1, 2 ** 24 + 3, 2 ** 25 + 2,
+         2 ** 25 + 6, 0x7FFFFFC0, 0x80000080, 0x80000180, 2 ** 32 - 257,
+         2 ** 32 - 256, 2 ** 32 - 129, 2 ** 32 - 128, 2 ** 32 - 2,
+         2 ** 32 - 1], np.uint32)
+    h = np.concatenate([edges, np.random.default_rng(20260).integers(
+        0, 2 ** 32, size=2 ** 24, dtype=np.uint64).astype(np.uint32)])
+    hi = ((h >> 16) | 0x4B000000).view(f32) * f32(65536.0) - f32(2.0 ** 39)
+    lo = ((h & 0xFFFF) | 0x4B000000).view(f32) - f32(2.0 ** 23)
+    got, want = hi + lo, h.astype(f32)
+    bad = np.flatnonzero(got.view(np.uint32) != want.view(np.uint32))
+    assert bad.size == 0, (f"{bad.size} values differ, first at h = "
+                           f"{h[bad[0]]}: {got[bad[0]]!r} vs {want[bad[0]]!r}")

@@ -33,6 +33,7 @@ import chip_smoke  # noqa: E402
 from repro_torch.kernels import build, ref  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 
+SOURCE = "flash_attention.cu"
 LOOP_TOP = """    const int next = (t + 1) & 1;  // the stage of tile t + 1
     cp_async_wait<1>();  // K of tile t (V of tile t may still be in flight)
     __syncthreads();     // ... and every warp is done with tile t - 1's K
@@ -194,9 +195,11 @@ SHAPES = [("olmo-1b path", (1, 16, 16, 512, 128)),
 
 
 def variant_source(src: str, edits) -> str:
+    """``src`` with each (old, new) edit applied; stops if one does not
+    apply."""
     for old, new in edits:
         if old not in src:
-            raise SystemExit(f"flash_sweep: edit does not apply:\n{old}")
+            raise SystemExit(f"edit does not apply:\n{old}")
         src = src.replace(old, new)
     return src
 
@@ -205,7 +208,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("flash_sweep: no CUDA device available", file=sys.stderr)
         return 1
-    src = (build.CSRC / "flash_attention.cu").read_text()
+    src = (build.CSRC / SOURCE).read_text()
     out_dir = build.BUILD_ROOT / "sweep"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
