@@ -8,31 +8,47 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them,
-     flash_attention.cu and zo_update.cu with -Xptxas -v: the kernels'
-     registers, shared memory, stack frames and spills are printed (the
-     bf16 flash kernels must not spill); the built library's SASS must
-     hold HMMA (tensor-core) instructions in the bf16 flash kernels
-     (cuobjdump -sass; the check says so if the toolkit has no cuobjdump),
-     and the zo kernels' SASS mix by opcode class is printed per gaussian;
+     flash_attention.cu, zo_update.cu and threefry.cu with -Xptxas -v: the
+     kernels' registers, shared memory, stack frames and spills are
+     printed (the bf16 flash kernels must not spill); the built library's
+     SASS must hold HMMA (tensor-core) instructions in the bf16 flash
+     kernels (cuobjdump -sass; the check says so if the toolkit has no
+     cuobjdump), the zo kernels' SASS mix by opcode class is printed per
+     gaussian, and the threefry kernels' per element (the loop body: all
+     instructions, those on the half-rate ALU pipe and on MUFU), from which
+     the threefry row's bound comes;
   3. each kernel against its plain version on the card: max |Δ|, kernel
      ms, plain ms (and the library call's ms where one PyTorch call
      computes the same function), at a set of parity shapes and at the
-     shapes of both paths below; the noise u bit-equal to the plain
+     shapes of the paths below; the counter noise u bit-equal to the plain
      version's, and both Box-Muller factors bit-equal over all 2^32 hash
      values to libdevice's and to the plain version's torch ops
-     (zo_update.noise_exhaustive_check);
-  4. a small round on the card against the same round on the CPU, then the
-     two main paths through the training driver (``launch.train``: setup,
-     then train_rounds), each with every kernel launch counter set to 0
-     just before and read just after, and each followed by one more round
-     under torch.profiler for the device time by kernel:
-       - olmo-1b at its full config (LayerNorm; no rmsnorm), 3 rounds;
+     (zo_update.noise_exhaustive_check); the threefry bits, gaussian and
+     updates bit-equal to the plain version's at ragged, aligned and
+     misaligned leaves, the gaussian over all 2^23 values of its uniform
+     (threefry.normal_table_check), and its sum of squares within 1e-5; the
+     pair norm against two plain norms at the qwen3-14b qk-norm shapes;
+  4. small f32 rounds on the card against the same rounds on the CPU
+     (counter, gaussian and sphere noise; dense and seed_replay), then the
+     three main paths through the training driver (``launch.train``:
+     setup, then run_engine, which runs engine.run_rounds), each with every
+     kernel launch counter set to 0 just before and read just after, and
+     each followed by one more round under torch.profiler for the device
+     time by kernel:
+       - olmo-1b at its full config (LayerNorm; no rmsnorm), counter
+         noise, full participation, 3 rounds, one a chunk;
        - qwen3-14b at its full published width (RMSNorm, qk-norm, GQA
-         40/8), its depth cut to 16 of 40 layers, 3 rounds. A ZO round
-         holds about 3.9x the parameter bytes (olmo-1b: 9.18 GiB for 1.28 B
-         parameters), so the full 14.8 B model (27.5 GiB in bf16) would
-         need about 106 GiB; 16 layers are 6.84 B parameters;
-  5. one JSON line with every kernel's numbers (launches summed over both
+         40/8), its depth cut to 16 of 40 layers, as the first. A ZO
+         round holds about 3.9x the parameter bytes (olmo-1b: 9.18 GiB
+         for 1.28 B parameters), so the full 14.8 B model (27.5 GiB in
+         bf16) would need about 106 GiB; 16 layers are 6.84 B
+         parameters;
+       - the reference driver's default run: olmo-1b at its full config
+         with its default threefry gaussian noise and dense aggregation,
+         4 rounds in chunks of 2, on a straggler
+         schedule (4 clients, participation 0.75, exponential delays) with
+         adaptive tau; masks, simulated times and tau decisions printed;
+  5. one JSON line with every kernel's numbers (launches summed over the
      paths), then the result line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
@@ -52,6 +68,8 @@ numbers at a 700 W limit.
 """
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import math
 import re
@@ -76,13 +94,23 @@ GAUSS_OPS = 35
 # operations per RMSNorm element: the square-and-add, and the two products
 NORM_OPS = 4
 PATH_ARGV = ["--clients", "2", "--tau", "2", "--batch", "1", "--seq", "512",
-             "--rounds", "3", "--aggregation", "seed_replay"]
+             "--rounds", "3", "--chunk-size", "1", "--aggregation",
+             "seed_replay"]
 OLMO_ARGV = ["--arch", "olmo-1b", *PATH_ARGV]
 QWEN_ARGV = ["--arch", "qwen3-14b", *PATH_ARGV]
 QWEN_LAYERS = 16            # of 40: the depth cut of the qwen3-14b path
+# path 3: the reference driver's default run (gaussian noise, dense
+# aggregation) on a straggler schedule with adaptive tau
+DRIVER_ARGV = ["--arch", "olmo-1b", "--clients", "4", "--tau", "2",
+               "--batch", "1", "--seq", "512", "--rounds", "4",
+               "--chunk-size", "2", "--participation", "0.75",
+               "--straggler-scale", "2.0", "--t-server", "0.5", "--t-gen",
+               "0.3", "--t-comm", "0.2", "--adaptive-tau", "--tau-max", "4"]
 L2_BYTES = 50 * 2 ** 20
 PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
-                         r"rmsnorm_warp|rmsnorm_block)_kernel<[^>]*>")
+                         r"rmsnorm_block|rmsnorm_pair|"
+                         r"threefry_update|threefry_sumsq)_kernel<[^>]*>|"
+                         r"threefry_sumsq_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -123,22 +151,31 @@ def time_cold_ms(fn, inputs, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, inputs, iters: int) -> float:
+def device_ms(fn, inputs, iters: int, attempts: int = 3) -> float:
     """Device time per call: the time of every CUDA kernel that ``iters``
     calls launch, under torch.profiler, over ``iters``. A call whose host
     side outlasts its kernels (a norm of a few microseconds behind a
     Python wrapper) is not charged for the device's idle gaps, which
-    time_cold_ms counts."""
+    time_cold_ms counts. A profiling session that recorded no device time
+    at all (it happened once in three runs of this script, to the library
+    attention call) is run again, up to ``attempts`` sessions, and said
+    so; 0 comes back only if every session recorded nothing, and the
+    callers fail on it."""
     from torch.profiler import ProfilerActivity, profile
     fn(inputs[0])
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for i in range(iters):
-            fn(inputs[i % len(inputs)])
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               ) / 1e3 / iters
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                fn(inputs[i % len(inputs)])
+            torch.cuda.synchronize()
+        total = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+        if total > 0:
+            return total / 1e3 / iters
+        print(f"device_ms: the profiler recorded no device time in session "
+              f"{attempt} of {attempts}")
+    return 0.0
 
 
 def smi(query: str) -> list:
@@ -216,8 +253,9 @@ def phase_card():
 
 def phase_build():
     """Build the package's kernel library and, at the same time, -Xptxas -v
-    builds of flash_attention.cu and zo_update.cu. Returns the zo kernels'
-    SASS instructions per gaussian."""
+    builds of flash_attention.cu, zo_update.cu and threefry.cu. Returns the
+    zo kernels' SASS instructions per gaussian and the threefry kernels'
+    per element."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     # registers, shared memory, stack frames and spills, from ptxas
@@ -227,7 +265,7 @@ def phase_build():
          "-v", "-c", str(build.CSRC / src), "-o",
          str(build.BUILD_ROOT / "ptxas" / (Path(src).stem + ".o"))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("flash_attention.cu", "zo_update.cu")}
+        for src in ("flash_attention.cu", "zo_update.cu", "threefry.cu")}
     try:
         build.library()
     finally:
@@ -244,7 +282,9 @@ def phase_build():
               f"{lib.flash_attention_smem_bytes(d, 1)} bytes, "
               f"{lib.flash_attention_blocks_per_sm(d, 1)} blocks per SM")
     check_sass(build.compile_library())
-    return zo_sass_report(build.compile_library(), ptxas_out["zo_update.cu"])
+    return (zo_sass_report(build.compile_library(), ptxas_out["zo_update.cu"]),
+            threefry_sass_report(build.compile_library(),
+                                 ptxas_out["threefry.cu"]))
 
 
 FLASH_KERNEL = re.compile(r"(flash_fwd(?:_bf16)?_kernel)ILi(\d+)E")
@@ -316,17 +356,17 @@ def sass_name(m) -> str:
     return f"{m.group(1)}<{'f32' if m.group(2) == 'f' else 'bf16'}>"
 
 
-def sass_functions(sass: str, pattern) -> dict:
+def sass_functions(sass: str, pattern, name_of=sass_name) -> dict:
     """{name: [(address, opcode, operands), ...]} for each function of a
     ``cuobjdump -sass`` listing whose mangled name ``pattern`` matches;
-    the name is sass_name's."""
+    the name is name_of(match)."""
     out = {}
     for section in sass.split("Function : ")[1:]:
         head, body = section.split("\n", 1)
         m = pattern.search(head)
         if m:
-            out[sass_name(m)] = [(int(a, 16), op, rest.strip())
-                                 for a, op, rest in SASS_INSN.findall(body)]
+            out[name_of(m)] = [(int(a, 16), op, rest.strip())
+                               for a, op, rest in SASS_INSN.findall(body)]
     return out
 
 
@@ -427,6 +467,110 @@ def zo_sass_report(lib: Path, ptxas_out: str) -> dict:
             f"SASS: expected both zo kernels in f32 and bf16, found "
             f"{sorted(per)}")
     return per
+
+
+TF_KERNEL = re.compile(r"(threefry_(?:update|sumsq)_kernel)"
+                       r"(?:I(f|13__nv_bfloat16)E)?")
+# opcodes that issue to the ALU pipe, 16 lanes a scheduler: a warp's
+# instruction holds it two cycles (FP32 products and IMAD go to the FMA
+# pipe at full rate; MUFU takes eight cycles a warp)
+ALU_PIPE = ("IADD3", "LOP3", "SHF", "LEA", "ISETP", "SEL", "PRMT", "FSEL",
+            "FSETP", "FMNMX", "IMNMX", "IABS", "SGXT", "BMSK", "PLOP3",
+            "FLO", "POPC")
+
+
+def tf_name(m) -> str:
+    t = {"f": "<f32>", "13__nv_bfloat16": "<bf16>", None: ""}[m.group(2)]
+    return m.group(1) + t
+
+
+def threefry_sass_report(lib: Path, ptxas_out: str) -> dict:
+    """Print the threefry kernels' registers, stack and spills (from ptxas
+    -v; none may spill) and the SASS of their element loop (the grid-stride
+    loop, less code branched over to libdevice's slow paths): instructions
+    an element, those on the ALU pipe and on MUFU. Returns {kernel:
+    (instructions, alu, mufu)}."""
+    from repro_torch.kernels import build
+    name = None
+    for line in ptxas_out.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = TF_KERNEL.search(line)
+            name = tf_name(m) if m else None
+        elif name and line.strip() and ("stack" in line or "registers" in line):
+            print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+            spills = re.search(r"(\d+) bytes spill stores", line)
+            require(spills is None or spills.group(1) == "0",
+                    f"{name} spills registers: {line.strip()}")
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    require(tool.exists(), f"no cuobjdump at {tool}: the threefry kernels' "
+            f"SASS cannot be read")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    per = {}
+    for name, insns in sorted(sass_functions(sass, TF_KERNEL,
+                                             tf_name).items()):
+        # the element loop: the innermost loop that holds a MUFU (sqrt's
+        # seed, log1p's logarithm); the sum kernel's loop over partial sums
+        # holds none
+        loops = [(t, a) for a, op, rest in insns
+                 if (t := branch_target(op, rest)) is not None and t < a
+                 and any(o == "MUFU" for x, o, _ in insns if t <= x <= a)]
+        require(bool(loops), f"{name}: no element loop in its SASS")
+        t, a = min(loops, key=lambda ta: ta[1] - ta[0])
+        body = fast_path([i for i in insns if t <= i[0] <= a])
+        alu = sum(op in ALU_PIPE for _, op, _ in body)
+        mufu = sum(op == "MUFU" for _, op, _ in body)
+        per[name] = (len(body), alu, mufu)
+        print(f"SASS {name}: {len(insns)} instructions; the element loop "
+              f"{len(body)} an element, {alu} on the ALU pipe, {mufu} MUFU: "
+              f"{sass_mix(body)}")
+    require({"threefry_update_kernel<bf16>", "threefry_update_kernel<f32>",
+             "threefry_sumsq_kernel"} <= set(per),
+            f"SASS: threefry kernels not found, found {sorted(per)}")
+    return per
+
+
+def issue_bound_ms(n: float, per_element, clock_mhz: float) -> float:
+    """The least time n elements take at ``per_element`` = (instructions,
+    alu, mufu) an element: a warp of 32 elements holds its scheduler
+    max(instructions, 2·alu, 8·mufu) cycles, 4 schedulers an SM, every SM
+    at clock_mhz."""
+    total, alu, mufu = per_element
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cycles = max(total, 2 * alu, 8 * mufu)
+    return n / 32 * cycles / (sms * 4 * clock_mhz * 1e6) * 1e3
+
+
+# Issue slots per threefry gaussian, counted from the function, not from
+# the kernel's SASS (a transcendental as one, as for the counter gaussian):
+# the cipher's 20 rounds of add, rotate and xor, its five key injections of
+# two adds, the two words' first key adds and the final xor (73: 32 adds,
+# which can go to the FMA pipe as IMAD, and 41 rotates and xors on the
+# half-rate ALU pipe); the uniform's shift and or (ALU), minus 1, times 2,
+# plus lo and max (ALU) (6); erfinv's x·-x, log1p (MUFU), w < 5 (ALU),
+# w - 2.5, 8 multiply-adds and p·x (13); times sqrt 2 (1). sqrt(w) and its
+# -3 replace w - 2.5 only where w >= 5 (TF_SQRT_SHARE of the uniforms).
+TF_OPS, TF_ALU, TF_MUFU = 73 + 6 + 13 + 1, 41 + 3 + 1, 1
+TF_MODE_OPS = {"update": 6,   # load, widen, times c, plus x, narrow, store
+               "sumsq": 1}    # z·z + acc
+
+
+def tf_sqrt_share() -> float:
+    """The share of the 2^23 uniforms the threefry kernel draws from whose
+    w = -log1p(-x²) is >= 5, the branch that takes sqrt(w)."""
+    import numpy as np
+    f = np.arange(1 << 23, dtype=np.float32) / np.float32(1 << 23)
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    x = np.maximum(lo, f * np.float32(2) + lo).astype(np.float64)
+    return float(np.mean(-np.log1p(-x * x) >= 5.0))
+
+
+def tf_bound_ms(n: float, mode: str, clock_mhz: float, share: float):
+    """The threefry kernel's least time for n elements in ``mode``: the
+    function's own issue slots (TF_OPS) at the card's issue rate."""
+    per_element = (TF_OPS + TF_MODE_OPS[mode] + 2 * share, TF_ALU,
+                   TF_MUFU + share)
+    return issue_bound_ms(n, per_element, clock_mhz), per_element[0]
 
 
 def phase_zo(dev, zo_sass) -> dict:
@@ -569,18 +713,130 @@ def phase_zo(dev, zo_sass) -> dict:
     return res
 
 
+def phase_threefry(dev, tf_sass) -> dict:
+    """The threefry kernels against their plain version: bits, gaussian and
+    updates (gaussian, and the sphere's scaled form) bit-equal at a ragged,
+    an aligned and a misaligned leaf in f32 and bf16, at an element offset;
+    the sum of squares within 1e-5 of a float64 sum and the same on a second
+    run; the gaussian over all 2^23 values of its uniform; then both paths'
+    largest leaves, each compared with the plain version in blocks of 2^24
+    elements and timed (update and sum of squares) with the SM clock read
+    beside, torch.add(x, 1.0) on the same leaf as the streaming floor. No
+    PyTorch call computes this function (torch.randn is Philox)."""
+    import numpy as np
+    from repro_torch.kernels import ref, threefry
+    gen = torch.Generator(device=dev).manual_seed(3)
+    key = np.array([0x2545F491, 0x9E3779B9], np.uint32)
+    c = torch.full((1,), 0.37, device=dev)
+    sc = torch.full((1,), 1.0625, device=dev)
+    res = {"err": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        leaves = {
+            "ragged (5000, 37)": torch.randn(5000, 37, generator=gen,
+                                             device=dev).to(dtype),
+            "aligned (8192, 1024)": torch.randn(8192, 1024, generator=gen,
+                                                device=dev).to(dtype),
+            "misaligned (1000003,)": torch.randn(
+                1000004, generator=gen, device=dev).to(dtype)[1:]}
+        for case, x in leaves.items():
+            what = f"threefry {str(dtype)[6:]} {case} offset 3"
+            n = x.numel()
+            bits, z = threefry.threefry_noise(n, key, dev, offset=3)
+            require(torch.equal(bits, ref.threefry_bits_ref(key, n, 3, dev)),
+                    f"{what}: bits differ from the plain version's")
+            require(torch.equal(z, ref.threefry_normal_ref(key, n, 3, dev)),
+                    f"{what}: gaussian differs from the plain version's")
+            for scale in (None, sc):
+                got = threefry.threefry_update(x, key, c, scale=scale,
+                                               offset=3)
+                want = ref.threefry_update_ref(x, key, c, scale, 3)
+                require(torch.equal(got, want), f"{what}: update (scale "
+                        f"{scale is not None}) differs from the plain "
+                        f"version's")
+                res["err"] = max(res["err"], max_err(got, want))
+            sums = [float(threefry.threefry_sumsq(
+                n, key, torch.zeros(1, device=dev), offset=3))
+                for _ in range(2)]
+            want = float((z.double() ** 2).sum())
+            require(abs(sums[0] - want) <= 1e-5 * want and sums[0] == sums[1],
+                    f"{what}: sum of squares {sums} against {want}")
+            print(f"{what}: bits, gaussian and updates equal to the plain "
+                  f"version's; sum of squares {sums[0]:.6f} (float64 "
+                  f"{want:.6f}, the same on a second run)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    check = threefry.normal_table_check(dev)
+    print(f"threefry gaussian over all 2^23 uniforms, bit for bit against "
+          f"the plain version's torch ops ({time.perf_counter() - t0:.2f} "
+          f"s): {check['mismatches']} mismatches (first {check['first']}), "
+          f"max |Δ| {check['max_abs_err']:.3e}")
+    require(check["mismatches"] == 0, f"threefry gaussian: {check}")
+    fmax = float(smi("clocks.max.sm")[0])
+    share = tf_sqrt_share()
+    print(f"threefry bound: {TF_OPS} issue slots a gaussian ({TF_ALU} on "
+          f"the ALU pipe, {TF_MUFU} MUFU) plus {TF_MODE_OPS} by mode, and "
+          f"2 for sqrt(w) - 3 on the {share:.6f} of uniforms with w >= 5")
+    for shape in ((14, 2048, 8192), (12, 5120, 17408)):
+        x = torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+        n = x.numel()
+        y = threefry.threefry_update(x, key, c).view(-1)
+        xf, step, plain_ms = x.view(-1), 1 << 24, 0.0
+        for e0 in range(0, n, step):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = ref.threefry_update_ref(xf[e0:e0 + step], key, c, None, e0)
+            torch.cuda.synchronize()
+            plain_ms += (time.perf_counter() - t0) * 1e3
+            require(torch.equal(y[e0:e0 + step], want),
+                    f"threefry update {shape}: elements {e0}.. differ from "
+                    f"the plain version's")
+        del y, want
+        ms, clock, draw = time_ms_clocked(
+            lambda: threefry.threefry_update(x, key, c))
+        acc = torch.zeros(1, device=dev)
+        sq_ms, sq_clock, _ = time_ms_clocked(
+            lambda: threefry.threefry_sumsq(n, key, acc))
+        add_ms, _, _ = time_ms_clocked(lambda: torch.add(x, 1.0))
+        b_ops, slots = tf_bound_ms(n, "update", fmax, share)
+        b_bytes = 4 * n / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = (b_ops, "operations") if b_ops >= b_bytes else \
+            (b_bytes, "bytes")
+        sq_bound, sq_slots = tf_bound_ms(n, "sumsq", fmax, share)
+        # diagnostic: the same issue model over the kernel's own SASS
+        sass_ms = issue_bound_ms(n, tf_sass["threefry_update_kernel<bf16>"],
+                                 fmax)
+        sq_sass_ms = issue_bound_ms(n, tf_sass["threefry_sumsq_kernel"],
+                                    fmax)
+        print(f"threefry update {shape} bf16: kernel {ms:.4f} ms at "
+              f"{clock:.0f} MHz, {draw:.0f} W  plain {plain_ms:.4f} ms (in "
+              f"blocks of 2^24, equal bit for bit)  bound {b_ms:.4f} ms "
+              f"({b_by}; the function's {slots:.4f} issue slots an element "
+              f"at {fmax:.0f} MHz {b_ops:.4f} ms, bytes {b_bytes:.4f} ms)  "
+              f"{ms / b_ms:.2f}x the bound; the kernel's SASS element loop "
+              f"at the same rate {sass_ms:.4f} ms ({ms / sass_ms:.2f}x); sum "
+              f"of squares {sq_ms:.4f} ms at {sq_clock:.0f} MHz (bound "
+              f"{sq_bound:.4f} ms from {sq_slots:.4f} slots, its SASS "
+              f"{sq_sass_ms:.4f} ms); torch.add(x, 1.0) {add_ms:.4f} ms")
+        if shape[0] == 14:      # path 3's largest leaf: the JSON row's
+            res.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                       bound_by=b_by, library_ms=None,
+                       shape=f"{shape} bf16, update")
+        del x
+    return res
+
+
 def phase_rmsnorm(dev) -> dict:
     """The rmsnorm kernel against its plain version at the qwen3-14b
     path's shapes (the block norms' rows of 5120, the qk-norm's rows of
     128 over 40 query and 8 kv heads), f32 and bf16, and at row counts and
     widths that take the kernel's other branches: a row count that is no
-    multiple of the 8 rows of a warp-per-row block, and widths that are no
+    multiple of the 16 rows of a block of half-warp rows, and widths that are no
     multiple of a 16-byte load. F.rms_norm is timed beside it as the
     yardstick (the port never calls it). Times are device time per call
     (device_ms); the event-timed loop beside them is paced by the host."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_pair
     gen = torch.Generator(device=dev).manual_seed(2)
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [("block norm (main path)", (1, 512, 5120), bf16),
@@ -588,7 +844,7 @@ def phase_rmsnorm(dev) -> dict:
              ("qk-norm k", (1, 512, 8, 128), bf16),
              ("block norm", (1, 512, 5120), f32),
              ("qk-norm q", (1, 512, 40, 128), f32),
-             ("ragged rows, warp per row", (3, 7, 128), bf16),
+             ("ragged rows, half-warp per row", (3, 7, 128), bf16),
              ("ragged rows, block per row", (1, 300, 5120), f32),
              ("D=100, element loads", (333, 100), bf16),
              ("D=1030, element loads", (77, 1030), f32)]
@@ -617,6 +873,42 @@ def phase_rmsnorm(dev) -> dict:
             res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by,
                        shape=f"{shape} bf16, f32 scale")
+    # the qk-norm of the qwen3-14b path: q and k in one launch
+    D = 128
+    xq, xk = [(torch.randn(sh, generator=gen, device=dev) * 3.0).to(bf16)
+              for sh in ((1, 512, 40, D), (1, 512, 8, D))]
+    sq, sk = [1.0 + 0.5 * torch.randn(D, generator=gen, device=dev)
+              for _ in range(2)]
+    yq, yk = rmsnorm_pair(xq, sq, xk, sk)
+    wq, wk = ref.rmsnorm_pair_ref(xq, sq, xk, sk)
+    err = max(check_close("rmsnorm pair q", yq, wq, 1e-5),
+              check_close("rmsnorm pair k", yk, wk, 1e-5))
+    require(torch.equal(yq, rmsnorm(xq, sq))
+            and torch.equal(yk, rmsnorm(xk, sk)),
+            "rmsnorm pair: differs from the two single-tensor launches")
+    res["err"] = max(res["err"], err)
+    nbytes = 2 * (xq.numel() + xk.numel()) * 2 + 2 * 4 * D
+    sets = [(xq, xk)] + [(xq.clone(), xk.clone())
+                         for _ in range(L2_BYTES // nbytes + 1)]
+    pair_ms = device_ms(lambda t: rmsnorm_pair(t[0], sq, t[1], sk), sets, 100)
+    q_ms = device_ms(lambda t: rmsnorm(t[0], sq), sets, 100)
+    k_ms = device_ms(lambda t: rmsnorm(t[1], sk), sets, 100)
+    plain_ms = device_ms(lambda t: ref.rmsnorm_pair_ref(t[0], sq, t[1], sk),
+                         sets, 20)
+    lib_ms = device_ms(lambda t: (F.rms_norm(t[0], (D,), sq, 1e-5),
+                                  F.rms_norm(t[1], (D,), sk, 1e-5)), sets, 100)
+    require(min(pair_ms, q_ms, k_ms, plain_ms, lib_ms) > 0,
+            "rmsnorm pair: the profiler recorded no device time")
+    b_ms, b_by = bound(nbytes, NORM_OPS * (xq.numel() + xk.numel()),
+                       "f32_core")
+    print(f"rmsnorm pair (qk-norm) q {tuple(xq.shape)} + k "
+          f"{tuple(xk.shape)} bf16: max|Δ| {err:.3e}  one launch "
+          f"{pair_ms:.4f} ms against the single launches q {q_ms:.4f} + k "
+          f"{k_ms:.4f} = {q_ms + k_ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"library (two F.rms_norm) {lib_ms:.4f} ms  bound {b_ms:.4f} ms "
+          f"({b_by})")
+    res["pair"] = dict(ms=pair_ms, q_ms=q_ms, k_ms=k_ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=b_ms)
     return res
 
 
@@ -699,9 +991,15 @@ def phase_flash(dev) -> dict:
     return res
 
 
+SMALL_ROUNDS = (("counter", "seed_replay"), ("gaussian", "dense"),
+                ("gaussian", "seed_replay"), ("sphere", "dense"),
+                ("sphere", "seed_replay"))
+
+
 def phase_small_round(dev):
     """One round of a small f32 model (d_head 64) on the card against the
-    same round on the CPU, where the plain versions run."""
+    same round on the CPU, where the plain versions run, for each noise
+    and aggregation in SMALL_ROUNDS."""
     import numpy as np
     from repro_torch.configs import SFLConfig, get_config
     from repro_torch.core import prng
@@ -710,70 +1008,80 @@ def phase_small_round(dev):
     from repro_torch.utils import tree
     cfg = get_config("olmo-1b", smoke=True).replace(
         d_model=128, n_heads=2, n_kv_heads=2, dtype="float32")
-    sfl = SFLConfig(n_clients=2, tau=2, n_perturbations=2, cut_units=2,
-                    perturbation_dist="counter")
     params = untie_params(cfg, init_params(
         cfg, torch.Generator().manual_seed(0)))
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
-    outs = {}
-    for d in ("cpu", dev):
-        b = {"tokens": torch.from_numpy(toks).to(d),
-             "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(d)}
-        p = tree.tree_map(lambda a: a.to(d), params)
-        outs[str(d)] = mu_splitfed_round(
-            cfg, sfl, p, b, torch.tensor([1.0, 0.5], device=d),
-            prng.PRNGKey(3), aggregation="seed_replay")
-    (pc, mc), (pg, mg) = outs["cpu"], outs[str(dev)]
-    dp = max(max_err(a.cpu(), b) for a, b in zip(tree.leaves(pg),
-                                                 tree.leaves(pc)))
-    dm = max(max_err(getattr(mg, f).cpu(), getattr(mc, f))
-             for f in mc._fields)
-    print(f"small f32 round, card vs CPU: params max|Δ| {dp:.3e}  "
-          f"metrics max|Δ| {dm:.3e}")
-    require(dp <= 1e-4 and dm <= 1e-4, "small round: card and CPU disagree")
+    for dist, aggregation in SMALL_ROUNDS:
+        sfl = SFLConfig(n_clients=2, tau=2, n_perturbations=2, cut_units=2,
+                        perturbation_dist=dist)
+        outs = {}
+        for d in ("cpu", dev):
+            b = {"tokens": torch.from_numpy(toks).to(d),
+                 "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(d)}
+            p = tree.tree_map(lambda a: a.to(d), params)
+            outs[str(d)] = mu_splitfed_round(
+                cfg, sfl, p, b, torch.tensor([1.0, 0.5], device=d),
+                prng.PRNGKey(3), aggregation=aggregation)
+        (pc, mc), (pg, mg) = outs["cpu"], outs[str(dev)]
+        dp = max(max_err(a.cpu(), b) for a, b in zip(tree.leaves(pg),
+                                                     tree.leaves(pc)))
+        dm = max(max_err(getattr(mg, f).cpu(), getattr(mc, f))
+                 for f in mc._fields)
+        print(f"small f32 round ({dist}, {aggregation}), card vs CPU: params "
+              f"max|Δ| {dp:.3e}  metrics max|Δ| {dm:.3e}")
+        require(dp <= 1e-4 and dm <= 1e-4,
+                f"small round ({dist}, {aggregation}): card and CPU disagree")
 
 
-def phase_path(dev, name: str, argv, cfg, kernels) -> dict:
-    """One main path through the driver: ``train.setup`` then
-    ``train.train_rounds`` (what ``train.main`` runs), with ``cfg`` in
-    place of the --arch config where given. Launch counters are set to 0
-    just before the rounds and read just after; every kernel in ``kernels``
-    must have launched. Losses and parameters must be finite, and the
-    parameters must have moved (a sample of each leaf is kept before the
-    rounds). One more round then runs under the profiler."""
+def drive(dev, name: str, run, sfl, kernels) -> tuple:
+    """Rounds of a path through the driver's engine (``train.run_engine``
+    on ``run`` with ``sfl``): every launch counter set to 0 just before and
+    read just after, and every kernel in ``kernels`` must have launched.
+    Each chunk's seconds (ending in the chunk's flush, a synchronise) and
+    peak memory are printed with its masks. Losses and parameters must be
+    finite, and the parameters must have moved (a sample of each leaf is
+    kept before the rounds). One more round at the last tau then runs under
+    the profiler. Returns (EngineResult, controller or None, launches)."""
     from repro_torch.kernels import build
     from repro_torch.launch import train
     from repro_torch.models import param_count
     from repro_torch.utils import tree
-    print(f"{name}: device memory in use before the path "
-          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
-    run = train.setup(argv, cfg=cfg)
     print(f"{name}: {run.cfg.n_layers} layers, d_model {run.cfg.d_model}, "
           f"heads {run.cfg.n_heads}/{run.cfg.n_kv_heads}, d_head "
           f"{run.cfg.d_head}, d_ff {run.cfg.d_ff}, vocab "
-          f"{run.cfg.vocab_size}, cut {run.sfl.cut_units}; parameters "
-          f"(untied head) {param_count(run.params):,}")
+          f"{run.cfg.vocab_size}, cut {sfl.cut_units}; parameters (untied "
+          f"head) {param_count(run.params):,}; noise "
+          f"{sfl.perturbation_dist}, aggregation {run.args.aggregation}")
     before = [a.reshape(-1)[:4096].clone() for a in tree.leaves(run.params)]
+    t_last = [0.0]
+
+    def on_chunk(info, p, s):
+        dt = time.perf_counter() - t_last[0]
+        print(f"{name}: rounds {info.start}-{info.stop - 1}: masks "
+              f"{info.masks.tolist()}  {dt:.3f} s, "
+              f"{dt / (info.stop - info.start):.3f} s a round, peak "
+              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats(dev)
+        t_last[0] = time.perf_counter()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
     build.reset_launches()
-    res = train.train_rounds(run.cfg, run.sfl, run.params,
-                             run.loader.round_batch, run.args.seed,
-                             run.args.rounds,
-                             aggregation=run.args.aggregation,
-                             device=run.device)
+    t_last[0] = time.perf_counter()
+    res, ctl = train.run_engine(run, sfl=sfl, chunk_callback=on_chunk)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
-    print(f"{name} {' '.join(argv)}: round seconds {res.round_seconds}  "
-          f"losses {res.round_loss}  peak memory per round "
-          f"{[round(b / 2 ** 30, 3) for b in res.round_peak_bytes]} GiB  "
-          f"launches {launches}")
+    print(f"{name}: losses {list(res.round_loss)}  simulated round times "
+          f"{list(res.round_times)}  sim_t {res.sim_time}  tau per round "
+          f"{list(res.tau_per_round)}  launches {launches}")
     require(all(math.isfinite(x) for x in res.round_loss),
             f"{name}: non-finite loss")
     for k in kernels:
         require(launches.get(k, 0) > 0,
                 f"{name}: kernel {k} was never launched")
-    moved = 0.0
     leaves = tree.leaves(res.params)
     require(len(leaves) == len(before), f"{name}: parameter tree changed")
+    moved = 0.0
     for a, b in zip(leaves, before):
         require(bool(torch.isfinite(a).all()),
                 f"{name}: non-finite parameters")
@@ -781,22 +1089,61 @@ def phase_path(dev, name: str, argv, cfg, kernels) -> dict:
     print(f"{name}: max |Δparam| over {len(res.round_loss)} rounds (first "
           f"4096 elements of each leaf) {moved:.3e}")
     require(moved > 0, f"{name}: parameters did not change")
-    phase_profile(name, run, res.params)
+    tau = int(res.tau_per_round[-1])
+    one = run._replace(
+        args=argparse.Namespace(**{**vars(run.args), "rounds": 1,
+                                   "adaptive_tau": False}),
+        params=res.params)
+    profile_round(f"{name}, one round at tau {tau}", lambda: train.run_engine(
+        one, sfl=dataclasses.replace(sfl, tau=tau), log=None))
+    return res, ctl, launches
+
+
+def phase_path(dev, name: str, argv, cfg, kernels) -> dict:
+    """Paths 1-2: ``train.setup`` (with ``cfg`` in place of the --arch
+    config where given), counter noise set after it, then ``drive`` at full
+    participation, one round a chunk (so each round's seconds and peak
+    memory are its own). Returns the launch counts."""
+    from repro_torch.launch import train
+    print(f"{name}: device memory in use before the path "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+    run = train.setup(argv, cfg=cfg)
+    sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
+    return drive(dev, name, run, sfl, kernels)[2]
+
+
+def phase_driver(dev) -> dict:
+    """Path 3, the reference driver's default run at olmo-1b's full config:
+    ``train.setup`` then ``drive`` on the straggler schedule with adaptive
+    tau and the config's threefry gaussian noise and dense aggregation.
+    Threefry and flash attention must launch and the counter kernels must
+    not; the schedule must drop a client and adaptive tau must decide.
+    Returns the launch counts."""
+    from repro_torch.launch import train
+    name = "driver path (olmo-1b, gaussian, stragglers, adaptive tau)"
+    run = train.setup(DRIVER_ARGV)
+    require(run.sfl.perturbation_dist == "gaussian",
+            f"{name}: the driver's default noise is not gaussian")
+    res, ctl, launches = drive(dev, name, run, run.sfl,
+                               ("threefry", "flash_attention"))
+    print(f"{name}: tau decisions {ctl.trace}")
+    require(bool(ctl.trace), f"{name}: adaptive tau made no decision")
+    require(not launches.get("zo_update") and not launches.get("zo_replay"),
+            f"{name}: counter-noise kernels launched on a gaussian run")
+    require(bool((train.schedule(run).masks == 0).any()),
+            f"{name}: the schedule dropped no client")
     return launches
 
 
-def phase_profile(name: str, run, params):
-    """One more round of a path under torch.profiler: device time by
+def profile_round(name: str, fn):
+    """One round of a path (``fn``) under torch.profiler: device time by
     kernel, and the device's busy share of the round's wall time."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch import train
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  acc_events=True) as prof:
         t0 = time.perf_counter()
-        train.train_rounds(run.cfg, run.sfl, params,
-                           run.loader.round_batch, run.args.seed, 1,
-                           aggregation=run.args.aggregation,
-                           device=run.device, log=None)
+        fn()
+        torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -823,9 +1170,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_card()
-    zo = phase_zo(dev, phase_build())
+    zo_sass, tf_sass = phase_build()
+    zo = phase_zo(dev, zo_sass)
     flash = phase_flash(dev)
     norm = phase_rmsnorm(dev)
+    tf = phase_threefry(dev, tf_sass)
     phase_small_round(dev)
     from repro_torch.configs import get_config
     launches = phase_path(dev, "olmo-1b path", OLMO_ARGV, None,
@@ -837,6 +1186,9 @@ def main() -> int:
                            ("zo_update", "zo_replay", "flash_attention",
                             "rmsnorm")).items():
         launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    for k, n in phase_driver(dev).items():
+        launches[k] = launches.get(k, 0) + n
     src = "src/repro_torch/kernels/csrc/"
     rows = [("zo_update", src + "zo_update.cu",
              "src/repro/kernels/zo_update.py:79", zo["zo_update"]),
@@ -845,7 +1197,14 @@ def main() -> int:
             ("flash_attention", src + "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:86", flash),
             ("rmsnorm", src + "rmsnorm.cu",
-             "src/repro/kernels/rmsnorm.py:23", norm)]
+             "src/repro/kernels/rmsnorm.py:23", norm),
+            # no Pallas kernel: the counterpart of jax.random.normal (XLA's
+            # threefry and erfinv) in the reference's tree_noise
+            ("threefry", src + "threefry.cu", "src/repro/core/zo.py:125",
+             tf)]
+    for name, *_ in rows:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was launched on no path")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": r["err"],

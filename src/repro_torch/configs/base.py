@@ -89,9 +89,13 @@ class ModelConfig:
 @dataclass(frozen=True)
 class SFLConfig:
     """MU-SplitFed algorithm config (the paper's technique): the fields of
-    ``repro.configs.base.SFLConfig`` that the synchronous round reads, with
-    the same defaults. The straggler, semi-async and fault fields come back
-    with the slices that read them (ROADMAP.md, queue 1)."""
+    ``repro.configs.base.SFLConfig`` that the synchronous round and the
+    synchronous engine read, with the same defaults. The client fleet is
+    ``population`` (a ``repro_torch.core.population.ClientPopulation``);
+    ``straggler_rate`` / ``participation`` are the reference's deprecated
+    single-cohort shorthand, resolved by ``ClientPopulation.resolve(sfl)``.
+    The semi-async and fault fields come back with the slice that reads
+    them (ROADMAP.md, queue 1, item 10)."""
     n_clients: int = 16         # M
     tau: int = 2                # unbalanced server update steps per round
     n_perturbations: int = 1    # P (SPSA averaging)
@@ -100,4 +104,9 @@ class SFLConfig:
     lr_client: float = 5e-3     # eta_c
     lr_global: float = 0.3      # eta_g
     zo_eps: float = 5e-3        # lambda (smoothing)
-    perturbation_dist: str = "gaussian"  # only 'counter' is ported
+    participation: float = 1.0  # DEPRECATED shorthand (see population)
+    perturbation_dist: str = "gaussian"  # gaussian|sphere|counter
+    # straggler simulation
+    straggler_rate: float = 0.0     # DEPRECATED shorthand (see population)
+    deadline: float = 0.0           # drop clients beyond deadline (0 = off)
+    population: Optional[Any] = None  # None -> one cohort from the shorthand

@@ -1,1 +1,2 @@
-"""PRNG keys, ZO estimation and the MU-SplitFed round."""
+"""PRNG keys, ZO estimation, the MU-SplitFed round, straggler schedules
+and the synchronous engine."""

@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 _U32 = np.uint32
-_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = _U32(0x1BD11BDA)
 
 
@@ -31,7 +31,7 @@ def threefry2x32(key, x0, x1):
     x0 = np.asarray(x0, _U32) + ks[0]
     x1 = np.asarray(x1, _U32) + ks[1]
     for i in range(5):
-        for r in _ROTATIONS[i % 2]:
+        for r in ROTATIONS[i % 2]:
             x0 = x0 + x1
             x1 = _rotl(x1, r) ^ x0
         x0 = x0 + ks[(i + 1) % 3]

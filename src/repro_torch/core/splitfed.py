@@ -9,10 +9,12 @@ One global round:
   then:          dual aggregation (Eq. 7) with global lr η_g.
 
 The clients run as a Python loop; that is the port's form of both of the
-reference's ``client_mode``s, which compute the same function. Dense
-aggregation keeps a running f32 sum over clients (the reference's
+reference's ``client_mode``s, which compute the same function. A client
+whose mask is 0 is still computed, and weighted 0, as in the reference.
+Dense aggregation keeps a running f32 sum over clients (the reference's
 sequential form), so only one client's server copy is alive at a time.
-'seed_replay' aggregation replays all M·τ·P server records in one sweep.
+'seed_replay' aggregation replays all M·τ·P server records: in one sweep
+for counter noise, record by record for threefry noise (``replay``).
 """
 from __future__ import annotations
 
@@ -48,7 +50,7 @@ def _client_messages(cfg: ModelConfig, sfl: SFLConfig, xc: Params, batch,
 
 
 def _server_tau_steps(cfg: ModelConfig, sfl: SFLConfig, xs: Params, h, batch,
-                      skey):
+                      skey, replay: str):
     """τ ZO steps on the stale h. Returns (xs_final, deltas (τ,),
     (keys (τ, P, 2), coeffs (τ, P)))."""
     def loss_of(sp):
@@ -58,7 +60,7 @@ def _server_tau_steps(cfg: ModelConfig, sfl: SFLConfig, xs: Params, h, batch,
     for i in range(sfl.tau):
         xs, mean_delta, (pkeys, c) = zo.spsa_step(
             loss_of, xs, prng.fold_in(skey, i), sfl.zo_eps, sfl.lr_server,
-            sfl.n_perturbations, sfl.perturbation_dist)
+            sfl.n_perturbations, sfl.perturbation_dist, replay)
         deltas.append(mean_delta)
         keys.append(pkeys)
         coeffs.append(c)
@@ -66,13 +68,16 @@ def _server_tau_steps(cfg: ModelConfig, sfl: SFLConfig, xs: Params, h, batch,
 
 
 def _client_round(cfg: ModelConfig, sfl: SFLConfig, xc: Params, xs: Params,
-                  batch, mkey) -> Dict[str, Any]:
+                  batch, mkey, eval_loss: bool, replay: str
+                  ) -> Dict[str, Any]:
     ukey = prng.fold_in(mkey, 0)
     skey = prng.fold_in(mkey, 1)
     h, hp, hm = _client_messages(cfg, sfl, xc, batch, ukey)
-    loss0 = server_forward(cfg, xs, h, batch)
+    loss0 = (server_forward(cfg, xs, h, batch) if eval_loss
+             else torch.zeros((), dtype=torch.float32,
+                              device=tree.leaves(xs)[0].device))
     xs_f, deltas, (keys, coeffs) = _server_tau_steps(cfg, sfl, xs, h, batch,
-                                                     skey)
+                                                     skey, replay)
     # ZO backprop (Eq. 6): the scalar comes from the final server model
     delta_c = (server_forward(cfg, xs_f, hp, batch)
                - server_forward(cfg, xs_f, hm, batch)).to(torch.float32)
@@ -86,12 +91,21 @@ def _client_round(cfg: ModelConfig, sfl: SFLConfig, xc: Params, xs: Params,
 def mu_splitfed_round(cfg: ModelConfig, sfl: SFLConfig, params: Params,
                       batches: Dict[str, torch.Tensor],
                       active_mask: torch.Tensor, round_key, *,
-                      aggregation: str = "dense"
+                      client_mode: str = "parallel",
+                      aggregation: str = "dense", replay: str = "auto",
+                      eval_loss: bool = True
                       ) -> Tuple[Params, RoundMetrics]:
     """One global round. ``batches`` leaves have a leading M dim;
     ``active_mask`` is (M,) participation weights (0 = dropped);
-    ``round_key`` is a raw (2,) uint32 key. Returns (new_params,
-    metrics)."""
+    ``round_key`` is a raw (2,) uint32 key. ``client_mode`` ('parallel' |
+    'sequential') is accepted for the reference's signature: both are the
+    one client loop here. ``replay`` ('auto' | 'fused' | 'scan') picks how
+    records are applied (``zo.fused_replay_updates``); with ``eval_loss``
+    False the round-start losses are not computed (zeros). Returns
+    (new_params, metrics)."""
+    if client_mode not in ("parallel", "sequential"):
+        raise ValueError(f"client_mode must be parallel|sequential, got "
+                         f"{client_mode!r}")
     if aggregation not in ("dense", "seed_replay"):
         raise ValueError(f"aggregation must be dense|seed_replay, got "
                          f"{aggregation!r}")
@@ -106,7 +120,7 @@ def mu_splitfed_round(cfg: ModelConfig, sfl: SFLConfig, params: Params,
     for m in range(M):
         r = _client_round(cfg, sfl, xc, xs, {k: v[m] for k, v in
                                              batches.items()},
-                          prng.fold_in(round_key, m))
+                          prng.fold_in(round_key, m), eval_loss, replay)
         if acc is not None:
             acc = tree.tree_map(
                 lambda a, f, g: a + w[m] * (f - g).to(torch.float32),
@@ -122,12 +136,12 @@ def mu_splitfed_round(cfg: ModelConfig, sfl: SFLConfig, params: Params,
         xs_new = zo.replay_weighted_records(
             xs, np.stack([o["srv_keys"] for o in outs]),
             torch.stack([o["srv_coeffs"] for o in outs]),
-            sfl.lr_global * w, sfl.perturbation_dist)
+            sfl.lr_global * w, sfl.perturbation_dist, replay)
     # client aggregation: each client's update is one record in u_m
     ccoeff = torch.stack([o["ccoeff"] for o in outs])
     xc_new = zo.replay_weighted_records(
         xc, np.stack([o["ukey"] for o in outs]), ccoeff, sfl.lr_global * w,
-        sfl.perturbation_dist)
+        sfl.perturbation_dist, replay)
     metrics = RoundMetrics(loss=torch.stack([o["loss0"] for o in outs]),
                            server_deltas=torch.stack([o["deltas"]
                                                       for o in outs]),

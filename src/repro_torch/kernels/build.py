@@ -29,7 +29,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("zo_update.cu", "flash_attention.cu", "rmsnorm.cu")
+SOURCES = ("zo_update.cu", "flash_attention.cu", "rmsnorm.cu",
+           "threefry.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -63,6 +64,23 @@ SIGNATURES = {
     # x, scale, y, rows, D, dtype, eps, stream
     "rmsnorm_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, _VOIDP),
+    # xq, sq, yq, rows_q, xk, sk, yk, rows_k, D, dtype, eps, stream
+    "rmsnorm_pair_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong) * 2
+    + (ctypes.c_int, ctypes.c_int, ctypes.c_float, _VOIDP),
+    # x, y, n, dtype, k0, k1, coeff*, scale* (or null), offset, stream
+    "threefry_update_launch": (_VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
+                               ctypes.c_uint, ctypes.c_uint, _VOIDP, _VOIDP,
+                               ctypes.c_ulonglong, _VOIDP),
+    # n, k0, k1, offset, acc*, scratch*, stream
+    "threefry_sumsq_launch": (ctypes.c_longlong, ctypes.c_uint, ctypes.c_uint,
+                              ctypes.c_ulonglong, _VOIDP, _VOIDP, _VOIDP),
+    # (): the 32-bit words of a sumsq launch's scratch
+    "threefry_sumsq_scratch_words": (),
+    # bits*, z*, n, k0, k1, offset, stream
+    "threefry_noise_launch": (_VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_uint,
+                              ctypes.c_uint, ctypes.c_ulonglong, _VOIDP),
+    # z* (2^23 floats), stream: the gaussian of every bits >> 9
+    "threefry_normal_table_launch": (_VOIDP, _VOIDP),
 }
 
 

@@ -6,15 +6,21 @@
 // with the math in f32, in that order, and y in x's type. scale is (D,) f32.
 //
 // Design. The TPU kernel normalised blocks of 128 rows in VMEM and padded
-// the row count to a whole block. Here rows are independent: one warp owns
-// a row when D <= 1024 (the qk-norm's rows of d_head = 128; eight rows to a
-// block of 256 threads), and one block of 256 threads owns a row when D is
-// wider (the block norms' rows of d_model = 5120). The sum of squares is
-// reduced by warp shuffles and, for a block, through shared memory across
-// its warps. Loads and stores are 16 bytes a thread (4 f32 or 8 bf16) when D
-// is a multiple of that width and every pointer is 16-byte aligned, and one
-// element a thread otherwise. A row past the last is masked, so any row
-// count runs with no padding copy.
+// the row count to a whole block. Here rows are independent. A row of
+// D <= 1024 (the qk-norm's rows of d_head = 128) is owned by G lanes, 16 or
+// 32: at D = 128 a bf16 row is 16 lanes of 16 bytes, so a half-warp owns a
+// row (two rows a warp, the sum reduced by shuffles over 8, 4, 2, 1 lanes),
+// and f32 rows of 128 fill a warp. One block of 256 threads owns a row when
+// D is wider (the block norms' rows of d_model = 5120), its warps' sums
+// reduced through shared memory. Loads and stores are 16 bytes a thread
+// (4 f32 or 8 bf16) when D is a multiple of that width and every pointer is
+// 16-byte aligned, and one element a thread otherwise. A row past the last
+// is masked, so any row count runs with no padding copy.
+//
+// rmsnorm_pair_launch norms two tensors of the same row width D <= 1024,
+// each with its own scale, in one grid: the q-norm and k-norm of an
+// attention layer. rmsnorm_launch takes the same kernel with an empty
+// second tensor for D <= 1024, and the block-per-row kernel above that.
 //
 // Bound on this card: bytes. x is read once from device memory and y
 // written once (the second pass over a row re-reads it from L1/L2, where
@@ -108,21 +114,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// One warp per row, kThreads / 32 rows to a block.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_warp_kernel(const T* __restrict__ x, const float* __restrict__ s,
-                    T* __restrict__ y, long long rows, int D, float eps) {
-  const int lane = threadIdx.x & 31;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= rows) return;  // the whole warp leaves: no shuffle is left open
-  const T* xr = x + row * D;
-  const float ss = warp_sum(row_sumsq<T, V>(xr, D, lane, 32));
-  const float r = rsqrtf(ss / static_cast<float>(D) + eps);
-  row_scale<T, V>(xr, s, y + row * D, D, r, lane, 32);
-}
-
 // One block per row.
 template <typename T, int V>
 __global__ void __launch_bounds__(kThreads)
@@ -144,32 +135,92 @@ rmsnorm_block_kernel(const T* __restrict__ x, const float* __restrict__ s,
   row_scale<T, V>(xr, s, y + row * D, D, r, threadIdx.x, kThreads);
 }
 
-template <typename T, int V>
-cudaError_t launch(const void* x, const void* s, void* y, long long rows,
-                   int D, float eps, cudaStream_t st) {
-  const T* xt = static_cast<const T*>(x);
-  const float* sf = static_cast<const float*>(s);
-  T* yt = static_cast<T*>(y);
-  if (D <= kWarpRowsMaxD) {
-    const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
-    rmsnorm_warp_kernel<T, V><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                st>>>(xt, sf, yt, rows, D, eps);
-  } else {
-    rmsnorm_block_kernel<T, V><<<static_cast<unsigned>(rows), kThreads, 0,
-                                 st>>>(xt, sf, yt, D, eps);
+// The rows of two tensors (x0: rows0 rows, then x1), G lanes a row (16 or
+// 32), kThreads / G rows to a block. Lanes of a row past the last still
+// take part in the shuffles, with nothing loaded or stored.
+template <typename T, int V, int G>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_pair_kernel(const T* __restrict__ x0, const float* __restrict__ s0,
+                    T* __restrict__ y0, long long rows0,
+                    const T* __restrict__ x1, const float* __restrict__ s1,
+                    T* __restrict__ y1, long long rows1, int D, float eps) {
+  const int lane = threadIdx.x % G;
+  long long row =
+      static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
+  const bool first = row < rows0;
+  if (!first) row -= rows0;
+  const bool live = first || row < rows1;
+  const T* xr = (first ? x0 : x1) + row * D;
+  float ss = live ? row_sumsq<T, V>(xr, D, lane, G) : 0.0f;
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    ss += __shfl_xor_sync(0xffffffffu, ss, o);
   }
+  if (!live) return;
+  const float r = rsqrtf(ss / static_cast<float>(D) + eps);
+  row_scale<T, V>(xr, first ? s0 : s1, (first ? y0 : y1) + row * D, D, r,
+                  lane, G);
+}
+
+// True when every pointer is 16-byte aligned.
+template <typename... P>
+bool aligned16(P... p) {
+  return ((reinterpret_cast<uintptr_t>(p) | ...) % 16) == 0;
+}
+
+template <typename T, int V, int G>
+cudaError_t launch_pair(const void* x0, const void* s0, void* y0,
+                        long long rows0, const void* x1, const void* s1,
+                        void* y1, long long rows1, int D, float eps,
+                        cudaStream_t st) {
+  const long long rows = rows0 + rows1;
+  const long long blocks = (rows + kThreads / G - 1) / (kThreads / G);
+  rmsnorm_pair_kernel<T, V, G><<<static_cast<unsigned>(blocks), kThreads, 0,
+                                 st>>>(
+      static_cast<const T*>(x0), static_cast<const float*>(s0),
+      static_cast<T*>(y0), rows0, static_cast<const T*>(x1),
+      static_cast<const float*>(s1), static_cast<T*>(y1), rows1, D, eps);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dispatch_pair(const void* x0, const void* s0, void* y0,
+                          long long rows0, const void* x1, const void* s1,
+                          void* y1, long long rows1, int D, float eps,
+                          cudaStream_t st) {
+  constexpr int V = 16 / sizeof(T);
+  if (aligned16(x0, s0, y0, x1, s1, y1) && D % V == 0) {
+    if (D / V <= 16) {
+      return launch_pair<T, V, 16>(x0, s0, y0, rows0, x1, s1, y1, rows1, D,
+                                   eps, st);
+    }
+    return launch_pair<T, V, 32>(x0, s0, y0, rows0, x1, s1, y1, rows1, D, eps,
+                                 st);
+  }
+  return launch_pair<T, 1, 32>(x0, s0, y0, rows0, x1, s1, y1, rows1, D, eps,
+                               st);
+}
+
+template <typename T, int V>
+cudaError_t launch_block(const void* x, const void* s, void* y,
+                         long long rows, int D, float eps, cudaStream_t st) {
+  rmsnorm_block_kernel<T, V><<<static_cast<unsigned>(rows), kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const float*>(s),
+      static_cast<T*>(y), D, eps);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* x, const void* s, void* y, long long rows,
                      int D, float eps, cudaStream_t st) {
+  if (D <= kWarpRowsMaxD) {
+    return dispatch_pair<T>(x, s, y, rows, x, s, y, 0, D, eps, st);
+  }
   constexpr int V = 16 / sizeof(T);
-  const bool aligned =
-      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(s) |
-        reinterpret_cast<uintptr_t>(y)) % 16) == 0;
-  if (aligned && D % V == 0) return launch<T, V>(x, s, y, rows, D, eps, st);
-  return launch<T, 1>(x, s, y, rows, D, eps, st);
+  if (aligned16(x, s, y) && D % V == 0) {
+    return launch_block<T, V>(x, s, y, rows, D, eps, st);
+  }
+  return launch_block<T, 1>(x, s, y, rows, D, eps, st);
 }
 
 }  // namespace
@@ -188,6 +239,30 @@ extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y,
     err = dispatch<float>(x, scale, y, rows, D, eps, st);
   } else if (dtype == 1) {
     err = dispatch<__nv_bfloat16>(x, scale, y, rows, D, eps, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// Two tensors of row width D <= 1024 and one dtype in one launch: xq, yq
+// (rows_q, D) with scale sq, and xk, yk (rows_k, D) with scale sk.
+extern "C" int rmsnorm_pair_launch(const void* xq, const void* sq, void* yq,
+                                   long long rows_q, const void* xk,
+                                   const void* sk, void* yk, long long rows_k,
+                                   int D, int dtype, float eps, void* stream) {
+  if (rows_q < 0 || rows_k < 0 || rows_q + rows_k <= 0 || D <= 0 ||
+      D > kWarpRowsMaxD || rows_q + rows_k > 0x7FFFFFFFLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dispatch_pair<float>(xq, sq, yq, rows_q, xk, sk, yk, rows_k, D, eps,
+                               st);
+  } else if (dtype == 1) {
+    err = dispatch_pair<__nv_bfloat16>(xq, sq, yq, rows_q, xk, sk, yk, rows_k,
+                                       D, eps, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -3,8 +3,9 @@
 
 Each leaf of a tree draws from its own salted seed (seed ^ i·φ, i the leaf's
 index in ``jax.tree.flatten`` order) at row offset 0: the stream of
-``zo.tree_noise(dist='counter')``. Which version runs follows the tensor's
-device (see ``kernels/zo_update.py``).
+``zo.tree_noise(dist='counter')``. Threefry noise takes the leaf's own
+key instead (fold_in(key, i), ``zo.py``). Which version runs follows the
+tensor's device (see ``kernels/zo_update.py``).
 
 Unlike the reference, a replay is one kernel call whatever the number of
 records: the TPU kernel kept the records in SMEM and the reference ops layer
@@ -20,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_pair
+from repro_torch.kernels.threefry import threefry_sumsq, threefry_update
 from repro_torch.kernels.zo_update import zo_replay_flat, zo_update_flat
 from repro_torch.utils import tree
 
@@ -60,6 +62,19 @@ def zo_replay_leaf(x: torch.Tensor, seeds, coeffs: torch.Tensor, *,
     return zo_replay_flat(x.contiguous(), seeds, coeffs, offset=row_offset)
 
 
+def threefry_update_leaf(x: torch.Tensor, key, coeff, *, scale=None
+                         ) -> torch.Tensor:
+    """y = x + coeff·z(key) (or coeff·z·scale) for a leaf of any shape;
+    ``key`` is the leaf's own raw key."""
+    return threefry_update(x.contiguous(), key, coeff, scale=scale)
+
+
+def threefry_sumsq_leaf(x: torch.Tensor, key, acc: torch.Tensor
+                        ) -> torch.Tensor:
+    """acc += Σ z(key)² over a leaf shaped like x (x itself is not read)."""
+    return threefry_sumsq(x.numel(), key, acc)
+
+
 def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
                        out=None):
     return flash_attention(q, k, v, causal=causal, window=window, out=out)
@@ -67,3 +82,7 @@ def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
 
 def rmsnorm_op(x, scale, *, eps: float = 1e-5):
     return rmsnorm(x, scale, eps=eps)
+
+
+def rmsnorm_pair_op(xq, sq, xk, sk, *, eps: float = 1e-5):
+    return rmsnorm_pair(xq, sq, xk, sk, eps=eps)

@@ -19,6 +19,16 @@ rows exact; and workers started under another rounding mode put noise
 thousands of ulps off (tests/test_torch_kernels.py). Integer hashing is
 exact on any thread and stays in PyTorch. On the card the plain version
 runs PyTorch's CUDA ops, which the kernel matches bit for bit.
+
+The threefry gaussian (jax.random.normal's noise) is the same on both
+sides of that line: on the CPU the cipher and the float part run in numpy
+on the calling thread; on the card in PyTorch ops, the cipher in int64.
+XLA's erfinv contracts its polynomial into fused multiply-adds; the plain
+version takes each in float64, where the product of two float32 values is
+exact and the sum rounds once, then rounds to float32. That is the fused
+result unless the float64 rounding puts the sum exactly on a float32
+rounding tie; over the 2^23 uniforms the noise can take, every sum that
+sits on a tie is the exact sum (tests/test_torch_threefry.py checks it).
 """
 from __future__ import annotations
 
@@ -26,6 +36,8 @@ import math
 
 import numpy as np
 import torch
+
+from repro_torch.core import prng
 
 _MASK = 0xFFFFFFFF
 _M1 = 0x85EBCA6B
@@ -162,3 +174,131 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     xf = x.to(torch.float32)
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rmsnorm_pair_ref(xq: torch.Tensor, sq: torch.Tensor, xk: torch.Tensor,
+                     sk: torch.Tensor, eps: float = 1e-5):
+    """The pair norm: two RMSNorms, each with its own scale."""
+    return rmsnorm_ref(xq, sq, eps), rmsnorm_ref(xk, sk, eps)
+
+
+# ---------------------------------------------------------------------------
+# threefry gaussian noise (jax.random.normal at one leaf)
+# ---------------------------------------------------------------------------
+
+# XLA's float32 erfinv (Giles): the constants of p(t), highest power first,
+# for w < 5 and for w >= 5
+ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+              -4.39150654e-06, 0.00021858087, -0.00125372503,
+              -0.00417768164, 0.246640727, 1.50140941)
+ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+              -0.00367342844, 0.00573950773, -0.0076224613, 0.00943887047,
+              1.00167406, 2.83297682)
+# the uniform's lower end, nextafter(-1, 0), and float32(sqrt(2))
+UNIFORM_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+SQRT2_F32 = float(np.float32(np.sqrt(2.0)))
+
+
+def threefry_bits_ref(key, n: int, offset: int = 0, device="cpu"
+                      ) -> torch.Tensor:
+    """bits = b1 ^ b2 of threefry2x32(key, (e >> 32, e & 0xFFFFFFFF)) for
+    the linear indices e = offset .. offset + n - 1: (n,) int64 holding
+    uint32 values."""
+    key = np.asarray(key, np.uint32).reshape(2)
+    if torch.device(device).type != "cpu":
+        return threefry_bits_torch(key, n, offset, device)
+    e = np.arange(offset, offset + n, dtype=np.uint64)
+    b1, b2 = prng.threefry2x32(key, (e >> np.uint64(32)).astype(np.uint32),
+                               e.astype(np.uint32))
+    return torch.from_numpy((b1 ^ b2).astype(np.int64))
+
+
+def threefry_bits_torch(key, n: int, offset: int = 0, device="cpu"
+                        ) -> torch.Tensor:
+    """threefry_bits_ref in PyTorch int64 ops on ``device``: what the card
+    runs (the CPU tests run it too)."""
+    key = np.asarray(key, np.uint32).reshape(2)
+    e = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
+    k0, k1 = int(key[0]), int(key[1])
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = ((e >> 32) + ks[0]) & _MASK
+    x1 = ((e & _MASK) + ks[1]) & _MASK
+    for i in range(5):
+        for r in prng.ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = (((x1 << r) & _MASK) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK
+    return x0 ^ x1
+
+
+def _normal_of_bits_cpu(bits: torch.Tensor) -> torch.Tensor:
+    """normal_of_bits in numpy on the calling thread (see the note at the
+    top)."""
+    f32, f64 = np.float32, np.float64
+    b = bits.numpy().astype(np.uint32)
+    with np.errstate(all="ignore"):
+        f = ((b >> 9) | np.uint32(0x3F800000)).view(f32) - f32(1.0)
+        x = np.maximum(f32(UNIFORM_LO), f * f32(2.0) + f32(UNIFORM_LO))
+        w = -np.log1p(x * -x)
+        lt = w < f32(5.0)
+        t = np.where(lt, w + f32(-2.5), np.sqrt(w) + f32(-3.0))
+        p = np.where(lt, f32(ERFINV_LT5[0]), f32(ERFINV_GE5[0]))
+        for a, c in zip(ERFINV_LT5[1:], ERFINV_GE5[1:]):
+            cf = np.where(lt, f32(a), f32(c)).astype(f64)
+            p = (p.astype(f64) * t.astype(f64) + cf).astype(f32)
+        r = np.where(np.abs(x) == f32(1.0), x * f32(np.inf), p * x)
+        return torch.from_numpy(f32(SQRT2_F32) * r)
+
+
+def normal_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """jax.random.normal's float32 gaussian from the cipher's bits (int64
+    tensors holding uint32 values): the uniform on [nextafter(-1, 0), 1)
+    from bits >> 9, then sqrt(2)·erfinv with XLA's float32 erfinv."""
+    if bits.device.type == "cpu":
+        return _normal_of_bits_cpu(bits)
+    return normal_of_bits_torch(bits)
+
+
+def normal_of_bits_torch(bits: torch.Tensor) -> torch.Tensor:
+    """normal_of_bits in PyTorch ops on the tensor's device: what the card
+    runs (the CPU tests run it too, beside the numpy form)."""
+    f = (((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+         - 1.0)
+    x = torch.clamp_min(f * 2.0 + UNIFORM_LO, UNIFORM_LO)
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    t = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0).double()
+    p = torch.where(lt, ERFINV_LT5[0], ERFINV_GE5[0]).to(torch.float32)
+    for a, c in zip(ERFINV_LT5[1:], ERFINV_GE5[1:]):
+        cf = torch.where(lt, float(np.float32(a)), float(np.float32(c)))
+        p = (p.double() * t + cf.double()).to(torch.float32)
+    r = torch.where(x.abs() == 1.0, x * math.inf, p * x)
+    return SQRT2_F32 * r
+
+
+def threefry_normal_ref(key, n: int, offset: int = 0, device="cpu"
+                        ) -> torch.Tensor:
+    """(n,) float32: jax.random.normal(key, shape) flattened, elements
+    offset .. offset + n - 1 of the leaf."""
+    return normal_of_bits(threefry_bits_ref(key, n, offset, device))
+
+
+def threefry_update_ref(x: torch.Tensor, key, coeff, scale=None,
+                        offset: int = 0) -> torch.Tensor:
+    """y = x + coeff·z' over the flattened leaf, z' = z or z·scale (the
+    sphere), in float32 and cast to x's type once."""
+    z = threefry_normal_ref(key, x.numel(), offset, x.device).reshape(x.shape)
+    if scale is not None:
+        z = z * torch.as_tensor(scale, dtype=torch.float32,
+                                device=x.device).reshape(())
+    coeff = torch.as_tensor(coeff, dtype=torch.float32, device=x.device)
+    return (x.to(torch.float32) + coeff.reshape(()) * z).to(x.dtype)
+
+
+def threefry_sumsq_ref(key, n: int, offset: int = 0, device="cpu"
+                       ) -> torch.Tensor:
+    """Σ z² over the leaf's n elements, float32 (summed in another order
+    than the kernel's)."""
+    z = threefry_normal_ref(key, n, offset, device)
+    return (z * z).sum()

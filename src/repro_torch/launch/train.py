@@ -1,104 +1,101 @@
 """Synchronous MU-SplitFed training driver for the port (counterpart of
-``repro.launch.train`` running ``--loop python``).
+``repro.launch.train`` in its synchronous modes).
 
-Round r uses the key fold_in(PRNGKey(seed), r) and, under the default full
-participation, the all-ones mask, exactly as the reference engine's python
-mode does; data come from the same seeded synthetic LM and Dirichlet
-partition. Each round prints its mask-weighted mean client loss and its
-wall seconds (ending in a device sync).
-
-The noise is always ``perturbation_dist='counter'``, the one this slice
-ports. The reference driver has no dist flag and runs threefry 'gaussian'
-noise, so the two drivers train on different noise; parity with the
-reference is held by calling its round with 'counter' (see the tests).
+The run is the reference driver's: ``straggler.make_schedule`` builds the
+system model (per-client delays, participation and deadline masks,
+simulated round times), ``engine.run_rounds`` drives ``mu_splitfed_round``
+through it, round r under the key fold_in(PRNGKey(seed), r), on the same
+seeded synthetic LM and Dirichlet partition, and with the same noise: the
+config's default, threefry 'gaussian' (the reference driver has no dist
+flag either). ``--adaptive-tau`` re-plans τ at chunk boundaries. Each
+round prints its mask-weighted loss, its active clients, the wall seconds
+since the start (at the chunk's end, where the metrics reach the host) and
+the simulated clock.
 
 Runs on the card unless ``--device cpu`` is given:
-    python -m repro_torch.launch.train --arch olmo-1b --clients 2 --tau 2 \\
-        --batch 1 --seq 512 --rounds 3 --aggregation seed_replay
-    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
-    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \\
-        --smoke --device cpu --rounds 2 --seq 16
+    python -m repro_torch.launch.train --arch olmo-1b --clients 4 --tau 2 \\
+        --batch 1 --seq 512 --rounds 4 --participation 0.75 \\
+        --straggler-scale 2.0 --t-server 0.5 --adaptive-tau --tau-max 4
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --rounds 4 --seq 16 --straggler-scale 2.0 --adaptive-tau
+
+Not ported yet (ROADMAP.md, queue 1): the baselines (--algorithm other
+than mu_splitfed), --async and its flags, --faults, checkpoints,
+telemetry and the run log.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Callable, Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ModelConfig, SFLConfig, get_config
-from repro_torch.core import prng
-from repro_torch.core.splitfed import mu_splitfed_round
+from repro_torch.core import engine, prng
+from repro_torch.core import straggler as strag
 from repro_torch.data import FederatedLoader, SyntheticLM, dirichlet_partition
 from repro_torch.models import init_params, untie_params
 
 N_SAMPLES = 4096
 
 
-class TrainResult(NamedTuple):
-    params: Dict
-    round_loss: List[float]       # mask-weighted mean client loss per round
-    round_seconds: List[float]    # wall seconds per round, device-synced
-    round_peak_bytes: List[int]   # peak device memory per round (0 on CPU)
-
-
-def to_device_batch(host: Dict[str, np.ndarray], device) -> Dict:
-    return {k: torch.from_numpy(np.asarray(v, np.int64)).to(device)
-            for k, v in host.items()}
-
-
-def train_rounds(cfg: ModelConfig, sfl: SFLConfig, params: Dict,
-                 batch_fn: Callable[[int], Dict[str, np.ndarray]], seed: int,
-                 rounds: int, *, aggregation: str, device,
-                 log: Optional[Callable[[str], None]] = print
-                 ) -> TrainResult:
-    """Rounds [0, rounds) of mu_splitfed_round on ``device``."""
-    key = prng.PRNGKey(seed)
-    mask = torch.ones(sfl.n_clients, dtype=torch.float32, device=device)
-    cuda = device.type == "cuda"
-    losses, seconds, peaks = [], [], []
-    for r in range(rounds):
-        if cuda:
-            torch.cuda.reset_peak_memory_stats(device)
-        t0 = time.perf_counter()
-        batches = to_device_batch(batch_fn(r), device)
-        params, met = mu_splitfed_round(cfg, sfl, params, batches, mask,
-                                        prng.fold_in(key, r),
-                                        aggregation=aggregation)
-        loss = float((met.loss * mask).sum() / mask.sum().clamp(min=1.0))
-        if cuda:
-            torch.cuda.synchronize(device)
-        dt = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated(device) if cuda else 0
-        losses.append(loss)
-        seconds.append(dt)
-        peaks.append(peak)
-        if log is not None:
-            log(f"round {r:4d}  loss {loss:.4f}  wall {dt:.3f}s"
-                + (f"  peak {peak / 2 ** 30:.2f} GiB" if cuda else ""))
-    return TrainResult(params, losses, seconds, peaks)
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Synchronous MU-SplitFed training (PyTorch port). The "
-                    "ZO noise is perturbation_dist='counter', the only one "
-                    "ported; the JAX driver runs threefry 'gaussian' noise.")
+        description="Synchronous MU-SplitFed training (PyTorch port of "
+                    "repro.launch.train's synchronous modes).")
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--algorithm", default="mu_splitfed",
+                    choices=sorted(engine.ALGORITHMS))
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--tau", type=int, default=2)
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--batch", type=int, default=2, help="per-client batch")
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--cut", type=int, default=0, help="0 = arch default")
-    ap.add_argument("--lr-server", type=float, default=1e-3)
-    ap.add_argument("--lr-client", type=float, default=5e-4)
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--participation", type=float, default=1.0)
+    ap.add_argument("--straggler-scale", type=float, default=0.0)
+    ap.add_argument("--deadline", type=float, default=0.0)
+    ap.add_argument("--population", default="",
+                    help="heterogeneous fleet spec, e.g. "
+                         "'tiered:4x1.0,12x0.2' (see "
+                         "core/population.py:parse_population); overrides "
+                         "--clients/--participation; --straggler-scale "
+                         "becomes the shared jitter")
+    ap.add_argument("--adaptive-tau", action="store_true",
+                    help="re-plan tau at chunk boundaries from the observed "
+                         "straggler gap (engine.AdaptiveTau; --tau is the "
+                         "starting point)")
+    ap.add_argument("--tau-max", type=int, default=64,
+                    help="cap for --adaptive-tau's planner")
+    ap.add_argument("--tau-source", default="sim", choices=["sim"],
+                    help="clock --adaptive-tau observes the straggler gap "
+                         "on: the schedule's simulated rows ('measured' "
+                         "needs the telemetry sink, not ported)")
+    ap.add_argument("--t-server", type=float, default=0.1,
+                    help="simulated server step time (s) for the wall-clock "
+                         "model")
+    ap.add_argument("--t-gen", type=float, default=0.0,
+                    help="GAS activation-generation overhead (s) per round")
+    ap.add_argument("--t-comm", type=float, default=0.0,
+                    help="simulated per-round communication time (s)")
     ap.add_argument("--aggregation", default="dense",
                     choices=["dense", "seed_replay"])
+    ap.add_argument("--client-mode", default="parallel",
+                    choices=["parallel", "sequential"],
+                    help="accepted for the reference's flags: both are the "
+                         "one client loop here")
+    ap.add_argument("--loop", default="scan", choices=["scan", "python"],
+                    help="accepted for the reference's flags: both are the "
+                         "one round loop here")
+    ap.add_argument("--chunk-size", type=int, default=8,
+                    help="rounds between host flushes (and controller "
+                         "boundaries)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--lr-server", type=float, default=1e-3)
+    ap.add_argument("--lr-client", type=float, default=5e-4)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="the card by default; cpu runs the kernels' plain "
                          "versions")
@@ -127,25 +124,77 @@ def setup(argv=None, cfg: Optional[ModelConfig] = None) -> Run:
     device = torch.device(args.device)
     if cfg is None:
         cfg = get_config(args.arch, smoke=args.smoke)
-    sfl = SFLConfig(n_clients=args.clients, tau=args.tau,
+    population = (strag.parse_population(
+        args.population, straggler_scale=args.straggler_scale)
+        if args.population else None)
+    n_clients = population.n_clients if population else args.clients
+    sfl = SFLConfig(n_clients=n_clients, tau=args.tau,
                     cut_units=args.cut or cfg.default_cut_units,
                     lr_server=args.lr_server, lr_client=args.lr_client,
-                    perturbation_dist="counter")
+                    participation=args.participation,
+                    straggler_rate=args.straggler_scale,
+                    deadline=args.deadline, population=population)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = untie_params(cfg, init_params(cfg, gen))
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                      seed=args.seed)
-    parts = dirichlet_partition(np.arange(N_SAMPLES) % 10, args.clients,
+    parts = dirichlet_partition(np.arange(N_SAMPLES) % 10, n_clients,
                                 alpha=0.5, seed=args.seed)
     loader = FederatedLoader(ds, parts, args.batch, seed=args.seed)
     return Run(args, cfg, sfl, params, loader, device)
 
 
-def main(argv=None) -> TrainResult:
+def schedule(run: Run) -> strag.Schedule:
+    """The run's whole system model as (rounds, M) host arrays."""
+    a = run.args
+    return strag.make_schedule(
+        a.seed, a.rounds, population=strag.ClientPopulation.resolve(run.sfl),
+        deadline=a.deadline, t_server=a.t_server, t_gen=a.t_gen,
+        t_comm=a.t_comm)
+
+
+def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
+               log: Optional[Callable[[str], None]] = print,
+               chunk_callback: Optional[Callable] = None):
+    """``engine.run_rounds`` over the run's schedule, printing each round
+    as the reference driver does. Returns (EngineResult, the controller or
+    None). ``sfl``, if given, replaces the run's config (``chip_smoke.py``
+    sets counter noise this way); ``chunk_callback`` runs after the
+    printing."""
+    a = run.args
+    sfl = run.sfl if sfl is None else sfl
+    controller = (engine.AdaptiveTau(tau_max=a.tau_max, source=a.tau_source)
+                  if a.adaptive_tau else None)
+    algo = engine.get_algorithm(a.algorithm, client_mode=a.client_mode,
+                                aggregation=a.aggregation)
+    wall = strag.WallClock()
+    t0 = time.time()
+
+    def on_chunk(info, p, s):
+        for i, r in enumerate(range(info.start, info.stop)):
+            sim_t = wall.tick(info.round_times[i])
+            if log is not None:
+                log(f"round {r:4d}  loss {info.round_loss[i]:.4f}  active "
+                    f"{int((info.masks[i] > 0).sum())}/{sfl.n_clients}  "
+                    f"wall {time.time() - t0:.1f}s  sim_t {sim_t:.1f}")
+        if chunk_callback is not None:
+            chunk_callback(info, p, s)
+
+    result = engine.run_rounds(
+        algo, run.cfg, sfl, run.params, run.loader.round_batch,
+        schedule(run), prng.PRNGKey(a.seed), rounds=a.rounds,
+        chunk_size=a.chunk_size, mode=a.loop, chunk_callback=on_chunk,
+        controller=controller)
+    if controller is not None and controller.trace and log is not None:
+        vals = [t for _, t in controller.trace]
+        log(f"adaptive tau ({a.tau_source}): start {a.tau} -> final "
+            f"{vals[-1]} (decisions: {vals})")
+    return result, controller
+
+
+def main(argv=None):
     run = setup(argv)
-    return train_rounds(run.cfg, run.sfl, run.params, run.loader.round_batch,
-                        run.args.seed, run.args.rounds,
-                        aggregation=run.args.aggregation, device=run.device)
+    return run_engine(run)[0]
 
 
 if __name__ == "__main__":

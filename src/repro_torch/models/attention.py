@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (apply_rope, dense_init, rms_norm_simple,
+from repro_torch.models.layers import (apply_rope, dense_init, rms_norm_pair,
                                        torch_dtype)
 
 
@@ -45,8 +45,7 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor,
     k = (x @ p["wk"]).reshape(B, S, Hkv, dh)
     v = (x @ p["wv"]).reshape(B, S, Hkv, dh)
     if cfg.qk_norm:
-        q = rms_norm_simple(q, p["q_norm"])
-        k = rms_norm_simple(k, p["k_norm"])
+        q, k = rms_norm_pair(q, p["q_norm"], k, p["k_norm"])
     pos = positions[:, None, :]
     q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta)   # (B, H, S, dh)
     k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta)   # (B, Hkv, S, dh)

@@ -92,6 +92,13 @@ def rms_norm_simple(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     return ops.rmsnorm_op(x, scale, eps=eps)
 
 
+def rms_norm_pair(q: torch.Tensor, q_scale: torch.Tensor, k: torch.Tensor,
+                  k_scale: torch.Tensor, eps: float = 1e-5):
+    """``rms_norm_simple`` of q and of k (the qk-norm) in one launch of the
+    pair kernel."""
+    return ops.rmsnorm_pair_op(q, q_scale, k, k_scale, eps=eps)
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------

@@ -9,15 +9,18 @@ runs on its own:
 Tolerances as in test_torch_kernels.py: f32 within 1e-5 (1e-4 for a
 300-record replay, whose sum runs with fused multiply-adds on the card),
 bf16 within one bf16 ulp of the plain value. RMSNorm in f32 within 1e-5
-(|y| <= ~20 here; the sums of squares run in another order).
+(|y| <= ~20 here; the sums of squares run in another order). The
+threefry kernel computes the plain version's operations in its order, so
+its bits, its gaussian and its updates equal the plain version's exactly;
+its sum of squares runs in another order (relative 1e-5).
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import build, ops, ref, zo_update
+from repro_torch.kernels import build, ops, ref, threefry, zo_update
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_pair
 
 pytestmark = pytest.mark.gpu
 
@@ -138,6 +141,70 @@ def test_rmsnorm_matches_plain(cuda, shape, dtype):
     assert_close(got, ref.rmsnorm_ref(x, s))
 
 
+@pytest.mark.parametrize("case", ["ragged", "aligned", "misaligned"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_threefry_kernels_match_plain(cuda, dtype, case):
+    """At an element offset into the leaf: the cipher's bits and the
+    gaussian equal the plain version's; the update (gaussian, and the
+    sphere's scaled form) equals it bit for bit; the sum of squares is
+    within 1e-5 relative of a float64 sum and the same on a second run."""
+    x = _leaf(case, dtype, cuda)
+    key = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    n, off = x.numel(), 5
+    before = build.LAUNCHES["threefry"]
+    bits, z = threefry.threefry_noise(n, key, cuda, offset=off)
+    assert torch.equal(bits, ref.threefry_bits_ref(key, n, off, cuda))
+    assert torch.equal(z, ref.threefry_normal_ref(key, n, off, cuda))
+    c = torch.full((1,), 0.37, device=cuda)
+    s = torch.full((1,), 1.0625, device=cuda)
+    for scale in (None, s):
+        got = threefry.threefry_update(x, key, c, scale=scale, offset=off)
+        assert torch.equal(got, ref.threefry_update_ref(x, key, c, scale,
+                                                        off))
+    sums = []
+    for _ in range(2):
+        acc = torch.full((1,), 0.5, device=cuda)
+        sums.append(float(threefry.threefry_sumsq(n, key, acc, offset=off)))
+    want = 0.5 + float((z.double() ** 2).sum())
+    assert abs(sums[0] - want) <= 1e-5 * want and sums[0] == sums[1]
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["threefry"] == before + 5
+
+
+def test_threefry_gaussian_bit_equal_over_all_uniforms(cuda):
+    """The kernel's float part for each of the 2^23 values of bits >> 9
+    against the plain version's torch ops on the card."""
+    check = threefry.normal_table_check(cuda)
+    assert check["mismatches"] == 0, check
+
+
+@pytest.mark.parametrize("shapes", [((1, 512, 40, 128), (1, 512, 8, 128)),
+                                    ((3, 7, 2, 128), (3, 7, 1, 128)),
+                                    ((5, 64), (2, 64)), ((9, 100), (4, 100))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_pair_matches_plain(cuda, shapes, dtype):
+    """The qwen3-14b qk-norm shapes, ragged row counts (21 + 7 rows), a
+    bf16 row of 64 (half a half-warp) and a width with no 16-byte loads:
+    one launch, equal to two single-tensor launches bit for bit (the same
+    sums: the lanes the pair kernel drops held zeros), and to the plain
+    pair within the single kernel's tolerance."""
+    gen = torch.Generator(device=cuda).manual_seed(len(shapes[0]))
+    xq, xk = [(torch.randn(sh, generator=gen, device=cuda) * 3.0).to(dtype)
+              for sh in shapes]
+    D = shapes[0][-1]
+    sq, sk = [1.0 + 0.5 * torch.randn(D, generator=gen, device=cuda)
+              for _ in range(2)]
+    before = build.LAUNCHES["rmsnorm"]
+    yq, yk = rmsnorm_pair(xq, sq, xk, sk)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm"] == before + 1
+    assert torch.equal(yq, rmsnorm(xq, sq))
+    assert torch.equal(yk, rmsnorm(xk, sk))
+    wq, wk = ref.rmsnorm_pair_ref(xq, sq, xk, sk)
+    assert_close(yq, wq)
+    assert_close(yk, wk)
+
+
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.randn(1, 2, 64, 32, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -153,3 +220,8 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
         rmsnorm(x, s[:128])
     with pytest.raises(ValueError, match="scale"):
         rmsnorm(x, s.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="row width"):
+        rmsnorm_pair(x, s, x[:, :128].contiguous(), s[:128])
+    with pytest.raises(ValueError, match="one value"):
+        threefry.threefry_update(x, np.zeros(2, np.uint32),
+                                 torch.ones(2, device=cuda))

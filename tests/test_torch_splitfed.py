@@ -31,6 +31,9 @@ from repro.models import init_params as j_init
 from repro.models import untie_params as j_untie
 from repro_torch.configs import SFLConfig as TSFL
 from repro_torch.configs import get_config as t_get_config
+from repro_torch.core import engine as tengine
+from repro_torch.core import prng
+from repro_torch.core import straggler as tstrag
 from repro_torch.core.splitfed import mu_splitfed_round as t_round
 from repro_torch.data import FederatedLoader as TLoader
 from repro_torch.data import SyntheticLM as TSynthetic
@@ -71,7 +74,8 @@ def _maxdiff(t_tree, j_tree):
                for a, b in zip(got, want))
 
 
-def _round_matches_reference(models, aggregation, cut_units):
+def _round_matches_reference(models, aggregation, cut_units,
+                             eval_loss=True):
     jcfg, tcfg, jp, tp = models
     sfl_kw = dict(SFL, cut_units=cut_units)
     rng = np.random.default_rng(0)
@@ -81,19 +85,29 @@ def _round_matches_reference(models, aggregation, cut_units):
     rk = jax.random.PRNGKey(7)
     sfl = JSFL(**sfl_kw)
     j_fn = jax.jit(lambda p, b, m, k: j_round(jcfg, sfl, p, b, m, k,
-                                              aggregation=aggregation))
+                                              aggregation=aggregation,
+                                              eval_loss=eval_loss))
     jp_new, jm = j_fn(jp, {k: jnp.asarray(v) for k, v in host.items()},
                       jnp.asarray(mask), rk)
     tp_new, tm = t_round(tcfg, TSFL(**sfl_kw), tp,
-                         t_train.to_device_batch(host, "cpu"),
+                         tengine.to_device_batch(host, "cpu"),
                          torch.from_numpy(mask), np.asarray(rk),
-                         aggregation=aggregation)
+                         aggregation=aggregation, eval_loss=eval_loss)
     assert _maxdiff(tp_new, jp_new) <= TOL
     assert _maxdiff(tp_new, jp) > 1e-4                   # it trained
     for field in jm._fields:
         got, want = getattr(tm, field).numpy(), np.asarray(getattr(jm, field))
         assert got.shape == want.shape, field
         assert np.abs(got - want).max() <= TOL, field
+    loss = tm.loss.numpy()
+    assert (loss != 0).all() if eval_loss else (loss == 0).all()
+
+
+def test_round_without_eval_loss_matches_reference(setup):
+    """eval_loss=False, which the engine's adapter passes through: the
+    round-start losses are zeros on both sides and the round is unchanged."""
+    _round_matches_reference(setup, "dense", SFL["cut_units"],
+                             eval_loss=False)
 
 
 @pytest.mark.parametrize("aggregation", ["dense", "seed_replay"])
@@ -111,8 +125,9 @@ def test_qwen3_round_matches_reference(qwen3_setup, aggregation):
 
 
 def test_driver_loss_trajectory_matches_engine(setup):
-    """Three rounds of the port's driver loop against the reference
-    engine's python mode: same params, round keys, masks and batches."""
+    """Three rounds of the port's driver loop (its engine, at full
+    participation with counter noise) against the reference engine's
+    python mode: same params, round keys, masks and batches."""
     jcfg, tcfg, jp, tp = setup
     seed, rounds, seq, batch = 0, 3, 16, 2
     parts = dict(labels=np.arange(256) % 10, n_clients=M, alpha=0.5,
@@ -133,9 +148,13 @@ def test_driver_loss_trajectory_matches_engine(setup):
         engine.get_algorithm("mu_splitfed", aggregation="seed_replay"),
         jcfg, sfl, jp, jloader.round_batch, sched, jax.random.PRNGKey(seed),
         rounds=rounds, mode="python")
-    got = t_train.train_rounds(tcfg, TSFL(**SFL), tp, tloader.round_batch,
-                               seed, rounds, aggregation="seed_replay",
-                               device=torch.device("cpu"), log=None)
+    tsfl = TSFL(**SFL)
+    got = tengine.run_rounds(
+        "mu_splitfed", tcfg, tsfl, tp, tloader.round_batch,
+        tstrag.make_schedule(seed, rounds,
+                             population=tstrag.ClientPopulation.resolve(tsfl)),
+        prng.PRNGKey(seed), rounds=rounds, mode="python",
+        aggregation="seed_replay")
     np.testing.assert_allclose(got.round_loss, want.round_loss, atol=1e-4)
     assert _maxdiff(got.params, want.params) <= 1e-4
 
@@ -167,7 +186,10 @@ def test_port_imports_neither_jax_nor_repro():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 17
+    assert {"repro_torch.kernels.threefry", "repro_torch.core.engine",
+            "repro_torch.core.straggler", "repro_torch.core.population"
+            } <= set(mods)
+    assert len(mods) >= 22
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
