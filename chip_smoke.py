@@ -14,9 +14,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
      cuobjdump), the zo kernels' SASS mix by opcode class is printed per
-     gaussian, and the threefry kernels' per element (the loop body: all
-     instructions, those on the half-rate ALU pipe and on MUFU), from which
-     the threefry row's bound comes;
+     gaussian, and the threefry kernels' per element (what a thread of a
+     whole run of 8 elements executes, over 8, each element's w >= 5 arm
+     counted at the chance that a warp enters it: all instructions, those
+     on the half-rate ALU pipe and on MUFU), beside the function's own
+     issue slots, from which the threefry row's bound comes;
   3. each kernel against its plain version on the card: max |Δ|, kernel
      ms, plain ms (and the library call's ms where one PyTorch call
      computes the same function), at a set of parity shapes and at the
@@ -25,7 +27,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      values to libdevice's and to the plain version's torch ops
      (zo_update.noise_exhaustive_check); the threefry bits, gaussian and
      updates bit-equal to the plain version's at ragged, aligned and
-     misaligned leaves, the gaussian over all 2^23 values of its uniform
+     misaligned leaves and across 2^32 in the counter, the gaussian over
+     all 2^23 values of its uniform
      (threefry.normal_table_check), and its sum of squares within 1e-5; the
      pair norm against two plain norms at the qwen3-14b qk-norm shapes;
   4. small f32 rounds on the card against the same rounds on the CPU
@@ -484,12 +487,89 @@ def tf_name(m) -> str:
     return m.group(1) + t
 
 
+# a SASS instruction with its guard predicate: (address, guard, opcode,
+# operands), the guard "" where there is none
+TF_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]\s+)?"
+                     r"([A-Z][A-Z0-9_]*)([^;]*);")
+
+
+def tf_instructions(listing: str) -> list:
+    """[(address, guard, opcode, operands)] of one function's SASS."""
+    return [(int(a, 16), g.strip(), op, rest.strip())
+            for a, g, op, rest in TF_INSN.findall(listing)]
+
+
+def tf_cold(insns) -> bool:
+    """Code a thread of a whole run branches over: it holds a MUFU (the w
+    >= 5 arm's square root), a CALL (sqrt's slow path) or a global access
+    narrower than 16 bytes (the element-by-element path)."""
+    return any(op in ("MUFU", "CALL") or
+               (op in ("LDG", "STG") and ".128" not in rest)
+               for _, _, op, rest in insns)
+
+
+def tf_walk(insns, start: int, stop: int):
+    """The instructions a thread of a whole run executes from address
+    ``start`` up to address ``stop`` (exclusive) or an unguarded EXIT:
+    it follows unconditional branches, takes a guarded forward branch
+    where the code it skips is cold (tf_cold) and falls through
+    otherwise. Returns (executed, arms): arms are the skipped stretches
+    that hold a MUFU, the w >= 5 arm of each element."""
+    index = {a: k for k, (a, *_) in enumerate(insns)}
+    k, done, arms = index[start], [], []
+    while k < len(insns) and insns[k][0] < stop:
+        a, guard, op, rest = insns[k]
+        done.append(insns[k])
+        if op == "EXIT" and not guard:
+            break
+        t = branch_target(op, rest)
+        if t is not None and t > a:
+            skipped = [i for i in insns if a < i[0] < t]
+            if not guard or tf_cold(skipped):
+                if guard and any(i[2] == "MUFU" for i in skipped):
+                    arms.append(skipped)
+                k = index[t]
+                continue
+        k += 1
+    return done, arms
+
+
+def tf_per_element(insns, share: float) -> dict:
+    """The SASS a thread spends per element on a whole run: one pass of
+    the element loop (the innermost loop holding a MUFU, the sum kernel's
+    grid-stride loop over runs), or the whole kernel where there is none;
+    divided by the elements of a pass (one w >= 5 arm each). Each arm is
+    counted at the chance that a warp enters it, 1 - (1 - share)^32.
+    Returns {"instructions", "alu", "mufu", "elements", "hot", "arm",
+    "enter", "mix"}."""
+    loops = [(t, a) for a, _, op, rest in insns
+             if (t := branch_target(op, rest)) is not None and t < a
+             and any(i[2] == "MUFU" for i in insns if t <= i[0] <= a)]
+    if loops:
+        t, a = min(loops, key=lambda ta: ta[1] - ta[0])
+        hot, arms = tf_walk(insns, t, a + 1)
+    else:
+        hot, arms = tf_walk(insns, insns[0][0], float("inf"))
+    require(bool(arms), "no w >= 5 arm in the SASS")
+    arm = [tf_walk(insns, s[0][0], s[-1][0] + 1)[0] for s in arms]
+    enter = 1.0 - (1.0 - share) ** 32
+    n = len(arms)
+
+    def count(pred):
+        return (sum(map(pred, hot))
+                + enter * sum(sum(map(pred, body)) for body in arm)) / n
+    return {"instructions": count(lambda i: True),
+            "alu": count(lambda i: i[2] in ALU_PIPE),
+            "mufu": count(lambda i: i[2] == "MUFU"), "elements": n,
+            "hot": len(hot), "arm": sum(map(len, arm)) / n, "enter": enter,
+            "mix": sass_mix([(a, op, rest) for a, _, op, rest in hot])}
+
+
 def threefry_sass_report(lib: Path, ptxas_out: str) -> dict:
     """Print the threefry kernels' registers, stack and spills (from ptxas
-    -v; none may spill) and the SASS of their element loop (the grid-stride
-    loop, less code branched over to libdevice's slow paths): instructions
-    an element, those on the ALU pipe and on MUFU. Returns {kernel:
-    (instructions, alu, mufu)}."""
+    -v; none may spill) and their SASS per element (tf_per_element):
+    instructions, those on the ALU pipe and on MUFU. Returns {kernel:
+    (instructions, alu, mufu)} an element."""
     from repro_torch.kernels import build
     name = None
     for line in ptxas_out.splitlines():
@@ -506,24 +586,23 @@ def threefry_sass_report(lib: Path, ptxas_out: str) -> dict:
             f"SASS cannot be read")
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
+    share = tf_sqrt_share()
     per = {}
-    for name, insns in sorted(sass_functions(sass, TF_KERNEL,
-                                             tf_name).items()):
-        # the element loop: the innermost loop that holds a MUFU (sqrt's
-        # seed, log1p's logarithm); the sum kernel's loop over partial sums
-        # holds none
-        loops = [(t, a) for a, op, rest in insns
-                 if (t := branch_target(op, rest)) is not None and t < a
-                 and any(o == "MUFU" for x, o, _ in insns if t <= x <= a)]
-        require(bool(loops), f"{name}: no element loop in its SASS")
-        t, a = min(loops, key=lambda ta: ta[1] - ta[0])
-        body = fast_path([i for i in insns if t <= i[0] <= a])
-        alu = sum(op in ALU_PIPE for _, op, _ in body)
-        mufu = sum(op == "MUFU" for _, op, _ in body)
-        per[name] = (len(body), alu, mufu)
-        print(f"SASS {name}: {len(insns)} instructions; the element loop "
-              f"{len(body)} an element, {alu} on the ALU pipe, {mufu} MUFU: "
-              f"{sass_mix(body)}")
+    for section in sass.split("Function : ")[1:]:
+        head, body = section.split("\n", 1)
+        m = TF_KERNEL.search(head)
+        if not m:
+            continue
+        name = tf_name(m)
+        insns = tf_instructions(body)
+        c = tf_per_element(insns, share)
+        per[name] = (c["instructions"], c["alu"], c["mufu"])
+        print(f"SASS {name}: {len(insns)} instructions; a whole run of "
+              f"{c['elements']} elements executes {c['hot']}, and each "
+              f"element's w >= 5 arm of {c['arm']:.1f} is entered by a warp "
+              f"at {c['enter']:.4f}: {c['instructions']:.2f} an element, "
+              f"{c['alu']:.2f} on the ALU pipe, {c['mufu']:.3f} MUFU; the "
+              f"run's mix {c['mix']}")
     require({"threefry_update_kernel<bf16>", "threefry_update_kernel<f32>",
              "threefry_sumsq_kernel"} <= set(per),
             f"SASS: threefry kernels not found, found {sorted(per)}")
@@ -716,7 +795,9 @@ def phase_zo(dev, zo_sass) -> dict:
 def phase_threefry(dev, tf_sass) -> dict:
     """The threefry kernels against their plain version: bits, gaussian and
     updates (gaussian, and the sphere's scaled form) bit-equal at a ragged,
-    an aligned and a misaligned leaf in f32 and bf16, at an element offset;
+    an aligned and a misaligned leaf in f32 and bf16, at an element offset,
+    and at the ragged leaf at offset 2^32 - 1000 (the launch is cut where
+    the counter's high word changes);
     the sum of squares within 1e-5 of a float64 sum and the same on a second
     run; the gaussian over all 2^23 values of its uniform; then both paths'
     largest leaves, each compared with the plain version in blocks of 2^24
@@ -738,24 +819,30 @@ def phase_threefry(dev, tf_sass) -> dict:
                                                 device=dev).to(dtype),
             "misaligned (1000003,)": torch.randn(
                 1000004, generator=gen, device=dev).to(dtype)[1:]}
-        for case, x in leaves.items():
-            what = f"threefry {str(dtype)[6:]} {case} offset 3"
+        cases = [(case, x, 3) for case, x in leaves.items()]
+        # the counter's high word changes inside the leaf
+        cases.append(("ragged (5000, 37)", leaves["ragged (5000, 37)"],
+                      2 ** 32 - 1000))
+        for case, x, off in cases:
+            what = f"threefry {str(dtype)[6:]} {case} offset {off}"
             n = x.numel()
-            bits, z = threefry.threefry_noise(n, key, dev, offset=3)
-            require(torch.equal(bits, ref.threefry_bits_ref(key, n, 3, dev)),
+            bits, z = threefry.threefry_noise(n, key, dev, offset=off)
+            require(torch.equal(bits, ref.threefry_bits_ref(key, n, off,
+                                                            dev)),
                     f"{what}: bits differ from the plain version's")
-            require(torch.equal(z, ref.threefry_normal_ref(key, n, 3, dev)),
+            require(torch.equal(z, ref.threefry_normal_ref(key, n, off,
+                                                           dev)),
                     f"{what}: gaussian differs from the plain version's")
             for scale in (None, sc):
                 got = threefry.threefry_update(x, key, c, scale=scale,
-                                               offset=3)
-                want = ref.threefry_update_ref(x, key, c, scale, 3)
+                                               offset=off)
+                want = ref.threefry_update_ref(x, key, c, scale, off)
                 require(torch.equal(got, want), f"{what}: update (scale "
                         f"{scale is not None}) differs from the plain "
                         f"version's")
                 res["err"] = max(res["err"], max_err(got, want))
             sums = [float(threefry.threefry_sumsq(
-                n, key, torch.zeros(1, device=dev), offset=3))
+                n, key, torch.zeros(1, device=dev), offset=off))
                 for _ in range(2)]
             want = float((z.double() ** 2).sum())
             require(abs(sums[0] - want) <= 1e-5 * want and sums[0] == sums[1],
@@ -812,7 +899,7 @@ def phase_threefry(dev, tf_sass) -> dict:
               f"blocks of 2^24, equal bit for bit)  bound {b_ms:.4f} ms "
               f"({b_by}; the function's {slots:.4f} issue slots an element "
               f"at {fmax:.0f} MHz {b_ops:.4f} ms, bytes {b_bytes:.4f} ms)  "
-              f"{ms / b_ms:.2f}x the bound; the kernel's SASS element loop "
+              f"{ms / b_ms:.2f}x the bound; the kernel's SASS per element "
               f"at the same rate {sass_ms:.4f} ms ({ms / sass_ms:.2f}x); sum "
               f"of squares {sq_ms:.4f} ms at {sq_clock:.0f} MHz (bound "
               f"{sq_bound:.4f} ms from {sq_slots:.4f} slots, its SASS "

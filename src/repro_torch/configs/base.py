@@ -95,7 +95,7 @@ class SFLConfig:
     ``straggler_rate`` / ``participation`` are the reference's deprecated
     single-cohort shorthand, resolved by ``ClientPopulation.resolve(sfl)``.
     The semi-async and fault fields come back with the slice that reads
-    them (ROADMAP.md, queue 1, item 10)."""
+    them (ROADMAP.md, queue 1, item 5)."""
     n_clients: int = 16         # M
     tau: int = 2                # unbalanced server update steps per round
     n_perturbations: int = 1    # P (SPSA averaging)

@@ -17,9 +17,9 @@
                adaptive τ (§5), re-planned from the observed straggler gap
                with ``straggler.plan_tau``.
 
-Not ported yet (ROADMAP.md, queue 1): mode='async' and the sparse timeline
-(item 10), checkpoints and resume, telemetry (item 8), the baselines'
-adapters (item 9).
+Not ported yet (ROADMAP.md, queue 1): the baselines' adapters (items 1
+and 4), telemetry (item 2), checkpoints and resume (item 3), mode='async'
+and the sparse timeline (item 5).
 """
 from __future__ import annotations
 
@@ -73,7 +73,7 @@ def get_algorithm(name: Union[str, Algorithm], **opts) -> Algorithm:
         if name not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {name!r}; registered: "
                              f"{sorted(ALGORITHMS)} (the baselines are "
-                             f"ROADMAP.md, queue 1, item 9)")
+                             f"ROADMAP.md, queue 1, items 1 and 4)")
         return ALGORITHMS[name](**opts)
     if opts:
         raise ValueError("opts only apply when resolving by name")
@@ -123,7 +123,7 @@ class SchedWindow(NamedTuple):
     start: int
     stop: int
     delays: np.ndarray   # (C, M) simulated client compute times
-    masks: np.ndarray    # (C, M) participation·deadline rows consumed
+    masks: np.ndarray    # (C, M) the schedule's participation·deadline rows
     t_server: float
     t_comm: float
 
@@ -149,7 +149,7 @@ class AdaptiveTau:
     server lr keeps η_s·τ at its initial value (Thm 4.1's coupling).
     ``trace`` records the (round_idx, τ) decisions. The gap is read on the
     schedule's simulated clock (``source='sim'``); the measured clock needs
-    the telemetry sink, which is not ported (ROADMAP.md, queue 1, item 8).
+    the telemetry sink, which is not ported (ROADMAP.md, queue 1, item 2).
     The reference's ``couple_lr=False`` and ``quantize`` options are left
     out: no caller here sets them."""
 
@@ -159,7 +159,7 @@ class AdaptiveTau:
         if source == "measured":
             raise NotImplementedError(
                 "AdaptiveTau(source='measured') reads the telemetry sink, "
-                "which is not ported (ROADMAP.md, queue 1, item 8)")
+                "which is not ported (ROADMAP.md, queue 1, item 2)")
         if source != "sim":
             raise ValueError(f"AdaptiveTau source must be 'sim'|'measured', "
                              f"got {source!r}")
@@ -241,16 +241,16 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
     if mode == "async":
         raise NotImplementedError(
             "mode='async' (the semi-async event engine) is not ported: "
-            "ROADMAP.md, queue 1, item 10")
+            "ROADMAP.md, queue 1, item 5")
     if mode not in ("scan", "python"):
         raise ValueError(f"run_rounds: mode must be 'scan'|'python'|'async', "
                          f"got {mode!r}")
     if checkpointer is not None or ckpt_every:
         raise NotImplementedError("checkpoints are not ported: ROADMAP.md, "
-                                  "queue 1, item 8 (ckpt/checkpoint.py)")
+                                  "queue 1, item 3 (ckpt/checkpoint.py)")
     if telemetry is not None:
         raise NotImplementedError("the telemetry sink is not ported: "
-                                  "ROADMAP.md, queue 1, item 8 (obs/)")
+                                  "ROADMAP.md, queue 1, item 2 (obs/)")
     if rounds <= 0:
         empty = np.zeros((0,), np.float64)
         return EngineResult(params, (), {}, empty, empty, 0.0,
@@ -260,9 +260,14 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                             to_device_batch(batch_fn(0), device))
 
     R = schedule.n_rounds
+    # two sets of (rounds, M) rows, as the reference keeps them: the
+    # schedule's own masks set the simulated round times and what a
+    # controller observes; the algorithm's round_mask rows are what its
+    # rounds consume and what weights their losses
+    time_masks = np.stack([schedule.masks[r % R] for r in range(rounds)])
     masks = np.stack([algo.round_mask(schedule, r) for r in range(rounds)])
     round_times = np.array([algo.time_model(schedule.delays[r % R],
-                                            masks[r], sfl, schedule)
+                                            time_masks[r], sfl, schedule)
                             for r in range(rounds)])
     tau_used = np.full(rounds, sfl.tau, np.int64)
     segments = [(r, min(r + chunk_size, rounds))
@@ -285,7 +290,7 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
             window = SchedWindow(
                 p0, p1,
                 np.stack([schedule.delays[rr % R] for rr in range(p0, p1)]),
-                masks[p0:p1], schedule.t_server, schedule.t_comm)
+                time_masks[p0:p1], schedule.t_server, schedule.t_comm)
         upd = controller.update(r0, window, last_info) or {}
         changed = {k: v for k, v in upd.items() if getattr(sfl, k) != v}
         if not changed:
@@ -297,7 +302,7 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
         sfl = dataclasses.replace(sfl, **changed)
         for rr in range(r0, rounds):
             round_times[rr] = algo.time_model(schedule.delays[rr % R],
-                                              masks[rr], sfl, schedule)
+                                              time_masks[rr], sfl, schedule)
         tau_used[r0:] = sfl.tau
 
     for si, (r0, r1) in enumerate(segments):

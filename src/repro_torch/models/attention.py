@@ -38,7 +38,7 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor,
     if cfg.attn_impl != "gqa":
         raise NotImplementedError(
             f"attn_impl={cfg.attn_impl!r} is not ported (ROADMAP.md, queue 1, "
-            f"item 11)")
+            f"item 6)")
     B, S, _ = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = (x @ p["wq"]).reshape(B, S, H, dh)

@@ -29,7 +29,7 @@ def _require_dense(cfg: ModelConfig) -> None:
             or cfg.is_encoder_decoder or cfg.n_image_tokens):
         raise NotImplementedError(
             f"{cfg.name}: only the dense attn decoder is ported (ROADMAP.md, "
-            f"queue 1, item 11)")
+            f"queue 1, item 6)")
 
 
 # ===========================================================================

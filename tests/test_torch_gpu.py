@@ -141,16 +141,24 @@ def test_rmsnorm_matches_plain(cuda, shape, dtype):
     assert_close(got, ref.rmsnorm_ref(x, s))
 
 
-@pytest.mark.parametrize("case", ["ragged", "aligned", "misaligned"])
+@pytest.mark.parametrize("case", ["ragged", "aligned", "misaligned",
+                                  "short run", "across 2^32"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_threefry_kernels_match_plain(cuda, dtype, case):
     """At an element offset into the leaf: the cipher's bits and the
     gaussian equal the plain version's; the update (gaussian, and the
     sphere's scaled form) equals it bit for bit; the sum of squares is
-    within 1e-5 relative of a float64 sum and the same on a second run."""
-    x = _leaf(case, dtype, cuda)
+    within 1e-5 relative of a float64 sum and the same on a second run.
+    'short run': an aligned (999, 37) leaf, whose last thread's run of 8
+    is cut short; 'across 2^32': the ragged leaf at offset 2^32 - 1000, so
+    the counter's high word changes inside the leaf."""
+    if case == "short run":
+        gen = torch.Generator(device=cuda).manual_seed(13)
+        x = torch.randn(999, 37, generator=gen, device=cuda).to(dtype)
+    else:
+        x = _leaf("ragged" if case == "across 2^32" else case, dtype, cuda)
     key = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
-    n, off = x.numel(), 5
+    n, off = x.numel(), (2 ** 32 - 1000 if case == "across 2^32" else 5)
     before = build.LAUNCHES["threefry"]
     bits, z = threefry.threefry_noise(n, key, cuda, offset=off)
     assert torch.equal(bits, ref.threefry_bits_ref(key, n, off, cuda))
