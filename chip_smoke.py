@@ -32,8 +32,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      (threefry.normal_table_check), and its sum of squares within 1e-5; the
      pair norm against two plain norms at the qwen3-14b qk-norm shapes;
   4. small f32 rounds on the card against the same rounds on the CPU
-     (counter, gaussian and sphere noise; dense and seed_replay), then the
-     three main paths through the training driver (``launch.train``:
+     (MU-SplitFed under counter, gaussian and sphere noise, dense and
+     seed_replay; vanilla SplitFed; GAS with a stale client), then the
+     four main paths through the training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
      kernel launch counter set to 0 just before and read just after, and
      each followed by one more round under torch.profiler for the device
@@ -51,6 +52,14 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
          4 rounds in chunks of 2, on a straggler
          schedule (4 clients, participation 0.75, exponential delays) with
          adaptive tau; masks, simulated times and tau decisions printed;
+       - the paper's comparison: paper-opt-1.3b at its full config (24
+         layers, d_model 2048, 32 heads of 64, LayerNorm, GELU), 4 clients
+         at participation 0.75, straggler scale 3.0, t_server 0.25, t_gen
+         2.0, 4 rounds in chunks of 2, once each for MU-SplitFed (adaptive
+         tau on the measured clock, with telemetry, a JSONL run log and a
+         span trace), vanilla SplitFed and GAS (seed replay, counter
+         noise) on the same schedule; each algorithm's simulated clock,
+         round seconds, peak memory and losses printed;
   5. one JSON line with every kernel's numbers (launches summed over the
      paths), then the result line.
 
@@ -109,6 +118,13 @@ DRIVER_ARGV = ["--arch", "olmo-1b", "--clients", "4", "--tau", "2",
                "--chunk-size", "2", "--participation", "0.75",
                "--straggler-scale", "2.0", "--t-server", "0.5", "--t-gen",
                "0.3", "--t-comm", "0.2", "--adaptive-tau", "--tau-max", "4"]
+# path 4: the paper's comparison (Fig. 2's T_SERVER, T_GEN and straggler
+# scale) on paper-opt-1.3b at its full config, one schedule, three
+# algorithms
+PAPER_ARGV = ["--arch", "paper-opt-1.3b", "--clients", "4", "--batch", "1",
+              "--seq", "512", "--rounds", "4", "--chunk-size", "2",
+              "--participation", "0.75", "--straggler-scale", "3.0",
+              "--t-server", "0.25", "--t-gen", "2.0"]
 L2_BYTES = 50 * 2 ** 20
 PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
                          r"rmsnorm_block|rmsnorm_pair|"
@@ -1011,12 +1027,12 @@ def flash_pairs(S: int, causal: bool, window: int) -> int:
 
 def phase_flash(dev) -> dict:
     """The flash kernel against its plain version, bf16, at parity shapes
-    and at both paths' shapes, with scaled_dot_product_attention timed
-    beside it at the path shapes as the yardstick (the port never calls
-    it). Times are device time per call (device_ms), cycling through
-    copies of (q, k, v) that together exceed the 50 MB L2; the event-timed
-    loop beside them is paced by the host for calls of tens of
-    microseconds."""
+    and at the paths' shapes (d_head 128 on paths 1-3, 64 on path 4), with
+    scaled_dot_product_attention timed beside it at the path shapes as the
+    yardstick (the port never calls it). Times are device time per call
+    (device_ms), cycling through copies of (q, k, v) that together exceed
+    the 50 MB L2; the event-timed loop beside them is paced by the host
+    for calls of tens of microseconds."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
@@ -1031,7 +1047,7 @@ def phase_flash(dev) -> dict:
              ("window 128", (2, 16, 16, 512, 128), True, 128),
              ("GQA 16/4", (2, 16, 4, 512, 128), True, 0),
              ("ragged S=500", (2, 16, 16, 500, 128), True, 0),
-             ("d=64 (OPT)", (1, 32, 32, 512, 64), True, 0),
+             ("paper-opt-1.3b path, d=64", (1, 32, 32, 512, 64), True, 0),
              ("d=64, ragged S=500, window 70, not causal",
               (1, 32, 32, 500, 64), False, 70),
              ("B=2, GQA 40/8", (2, 40, 8, 512, 128), True, 0),
@@ -1078,19 +1094,41 @@ def phase_flash(dev) -> dict:
     return res
 
 
-SMALL_ROUNDS = (("counter", "seed_replay"), ("gaussian", "dense"),
-                ("gaussian", "seed_replay"), ("sphere", "dense"),
-                ("sphere", "seed_replay"))
+SMALL_ROUNDS = (("mu_splitfed", "counter", "seed_replay"),
+                ("mu_splitfed", "gaussian", "dense"),
+                ("mu_splitfed", "gaussian", "seed_replay"),
+                ("mu_splitfed", "sphere", "dense"),
+                ("mu_splitfed", "sphere", "seed_replay"),
+                ("vanilla", "gaussian", "dense"),
+                ("gas", "gaussian", "dense"),
+                ("gas", "counter", "seed_replay"))
+
+
+def small_round(algorithm, cfg, sfl, params, batch, mask, key, aggregation):
+    """One round of ``algorithm`` from its freshly built state: (params,
+    metrics, state leaves)."""
+    from repro_torch.core.baselines import (gas_init_state, gas_round,
+                                            vanilla_splitfed_round)
+    from repro_torch.core.splitfed import mu_splitfed_round
+    if algorithm == "gas":
+        state = gas_init_state(cfg, sfl, params, batch)
+        p, st, m = gas_round(cfg, sfl, params, state, batch, mask, key,
+                             aggregation=aggregation)
+        return p, m, [*st.h_buffer.values(), *st.label_buffer.values()]
+    fn = (vanilla_splitfed_round if algorithm == "vanilla"
+          else mu_splitfed_round)
+    p, m = fn(cfg, sfl, params, batch, mask, key, aggregation=aggregation)
+    return p, m, []
 
 
 def phase_small_round(dev):
     """One round of a small f32 model (d_head 64) on the card against the
-    same round on the CPU, where the plain versions run, for each noise
-    and aggregation in SMALL_ROUNDS."""
+    same round on the CPU, where the plain versions run, for each
+    algorithm, noise and aggregation in SMALL_ROUNDS (GAS with a stale
+    client: its buffer too)."""
     import numpy as np
     from repro_torch.configs import SFLConfig, get_config
     from repro_torch.core import prng
-    from repro_torch.core.splitfed import mu_splitfed_round
     from repro_torch.models import init_params, untie_params
     from repro_torch.utils import tree
     cfg = get_config("olmo-1b", smoke=True).replace(
@@ -1098,26 +1136,30 @@ def phase_small_round(dev):
     params = untie_params(cfg, init_params(
         cfg, torch.Generator().manual_seed(0)))
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
-    for dist, aggregation in SMALL_ROUNDS:
+    for algorithm, dist, aggregation in SMALL_ROUNDS:
         sfl = SFLConfig(n_clients=2, tau=2, n_perturbations=2, cut_units=2,
                         perturbation_dist=dist)
+        mask = [1.0, 0.0] if algorithm == "gas" else [1.0, 0.5]
         outs = {}
         for d in ("cpu", dev):
             b = {"tokens": torch.from_numpy(toks).to(d),
                  "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(d)}
             p = tree.tree_map(lambda a: a.to(d), params)
-            outs[str(d)] = mu_splitfed_round(
-                cfg, sfl, p, b, torch.tensor([1.0, 0.5], device=d),
-                prng.PRNGKey(3), aggregation=aggregation)
-        (pc, mc), (pg, mg) = outs["cpu"], outs[str(dev)]
+            outs[str(d)] = small_round(
+                algorithm, cfg, sfl, p, b, torch.tensor(mask, device=d),
+                prng.PRNGKey(3), aggregation)
+        (pc, mc, sc), (pg, mg, sg) = outs["cpu"], outs[str(dev)]
         dp = max(max_err(a.cpu(), b) for a, b in zip(tree.leaves(pg),
                                                      tree.leaves(pc)))
         dm = max(max_err(getattr(mg, f).cpu(), getattr(mc, f))
                  for f in mc._fields)
-        print(f"small f32 round ({dist}, {aggregation}), card vs CPU: params "
-              f"max|Δ| {dp:.3e}  metrics max|Δ| {dm:.3e}")
-        require(dp <= 1e-4 and dm <= 1e-4,
-                f"small round ({dist}, {aggregation}): card and CPU disagree")
+        ds = max([max_err(a.cpu(), b) for a, b in zip(sg, sc)], default=0.0)
+        what = f"{algorithm}, {dist}, {aggregation}"
+        print(f"small f32 round ({what}), card vs CPU: params max|Δ| "
+              f"{dp:.3e}  metrics max|Δ| {dm:.3e}"
+              + (f"  buffer max|Δ| {ds:.3e}" if sc else ""))
+        require(dp <= 1e-4 and dm <= 1e-4 and ds <= 1e-4,
+                f"small round ({what}): card and CPU disagree")
 
 
 def drive(dev, name: str, run, sfl, kernels) -> tuple:
@@ -1128,7 +1170,9 @@ def drive(dev, name: str, run, sfl, kernels) -> tuple:
     peak memory are printed with its masks. Losses and parameters must be
     finite, and the parameters must have moved (a sample of each leaf is
     kept before the rounds). One more round at the last tau then runs under
-    the profiler. Returns (EngineResult, controller or None, launches)."""
+    the profiler (without the run's telemetry, log or trace). Returns
+    (EngineResult, controller or None, launches, chunks): chunks is a list
+    of (masks, seconds, peak GiB), one a chunk."""
     from repro_torch.kernels import build
     from repro_torch.launch import train
     from repro_torch.models import param_count
@@ -1141,13 +1185,16 @@ def drive(dev, name: str, run, sfl, kernels) -> tuple:
           f"{sfl.perturbation_dist}, aggregation {run.args.aggregation}")
     before = [a.reshape(-1)[:4096].clone() for a in tree.leaves(run.params)]
     t_last = [0.0]
+    chunks = []
 
     def on_chunk(info, p, s):
         dt = time.perf_counter() - t_last[0]
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
         print(f"{name}: rounds {info.start}-{info.stop - 1}: masks "
               f"{info.masks.tolist()}  {dt:.3f} s, "
               f"{dt / (info.stop - info.start):.3f} s a round, peak "
-              f"{torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f} GiB")
+              f"{peak:.2f} GiB")
+        chunks.append((info.masks, dt, peak))
         torch.cuda.reset_peak_memory_stats(dev)
         t_last[0] = time.perf_counter()
 
@@ -1179,11 +1226,13 @@ def drive(dev, name: str, run, sfl, kernels) -> tuple:
     tau = int(res.tau_per_round[-1])
     one = run._replace(
         args=argparse.Namespace(**{**vars(run.args), "rounds": 1,
-                                   "adaptive_tau": False}),
+                                   "adaptive_tau": False, "tau_source": "sim",
+                                   "telemetry": False, "log_jsonl": "",
+                                   "trace_out": ""}),
         params=res.params)
     profile_round(f"{name}, one round at tau {tau}", lambda: train.run_engine(
         one, sfl=dataclasses.replace(sfl, tau=tau), log=None))
-    return res, ctl, launches
+    return res, ctl, launches, chunks
 
 
 def phase_path(dev, name: str, argv, cfg, kernels) -> dict:
@@ -1211,14 +1260,104 @@ def phase_driver(dev) -> dict:
     run = train.setup(DRIVER_ARGV)
     require(run.sfl.perturbation_dist == "gaussian",
             f"{name}: the driver's default noise is not gaussian")
-    res, ctl, launches = drive(dev, name, run, run.sfl,
-                               ("threefry", "flash_attention"))
+    res, ctl, launches, _ = drive(dev, name, run, run.sfl,
+                                  ("threefry", "flash_attention"))
     print(f"{name}: tau decisions {ctl.trace}")
     require(bool(ctl.trace), f"{name}: adaptive tau made no decision")
     require(not launches.get("zo_update") and not launches.get("zo_replay"),
             f"{name}: counter-noise kernels launched on a gaussian run")
     require(bool((train.schedule(run).masks == 0).any()),
             f"{name}: the schedule dropped no client")
+    return launches
+
+
+def phase_paper(dev) -> dict:
+    """Path 4, the paper's comparison on paper-opt-1.3b at its full
+    config: three runs through ``train.setup`` + ``drive`` on the same
+    seed, and so on the same straggler schedule: (a) MU-SplitFed with
+    adaptive tau on the measured clock, telemetry, a JSONL run log and a
+    Chrome trace (threefry gaussian, dense); (b) vanilla SplitFed
+    (gaussian, dense); (c) GAS with seed-replay aggregation and counter
+    noise set after setup. Requires identical masks across the runs, a
+    stale client in GAS's rows, one measured record with positive
+    durations a chunk, an adaptive-tau decision, 4 round rows and 2 chunk
+    rows in the log and engine.dispatch spans in the trace; prints each
+    algorithm's simulated clock, round seconds, peak memory and losses.
+    Returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.launch import train
+    launches, summary = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        log, trace = f"{tmp}/run.jsonl", f"{tmp}/trace.json"
+        runs = [("mu_splitfed", ["--tau", "2", "--adaptive-tau",
+                                 "--tau-source", "measured", "--tau-max", "4",
+                                 "--telemetry", "--log-jsonl", log,
+                                 "--trace-out", trace], "gaussian",
+                 ("threefry", "flash_attention")),
+                ("vanilla", [], "gaussian", ("threefry", "flash_attention")),
+                ("gas", ["--aggregation", "seed_replay"], "counter",
+                 ("zo_update", "zo_replay", "flash_attention"))]
+        for algorithm, extra, dist, kernels in runs:
+            name = f"paper path ({algorithm})"
+            torch.cuda.empty_cache()
+            run = train.setup([*PAPER_ARGV, "--algorithm", algorithm, *extra])
+            require(run.cfg.n_layers == 24 and run.cfg.d_model == 2048
+                    and run.cfg.d_head == 64,
+                    f"{name}: not paper-opt-1.3b's full config")
+            sfl = dataclasses.replace(run.sfl, perturbation_dist=dist)
+            res, ctl, n, chunks = drive(dev, name, run, sfl, kernels)
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+            noise = ({"zo_update", "zo_replay"} if dist == "gaussian"
+                     else {"threefry"})
+            require(not any(n.get(k) for k in noise),
+                    f"{name}: a kernel of the other noise launched")
+            summary[algorithm] = dict(
+                masks=np.concatenate([c[0] for c in chunks]),
+                sim_t=res.sim_time, round_times=list(res.round_times),
+                seconds=[c[1] / len(c[0]) for c in chunks],
+                peak=[c[2] for c in chunks], losses=list(res.round_loss),
+                tau=list(res.tau_per_round))
+            if ctl is not None:
+                print(f"{name}: tau decisions {ctl.trace} "
+                      f"({ctl.source} clock)")
+                require(bool(ctl.trace), f"{name}: adaptive tau made no "
+                        f"decision")
+            del run, res, ctl
+        rows = obs.read_jsonl(log, kind="round")
+        chunk_rows = obs.read_jsonl(log, kind="chunk")
+        require(len(rows) == 4 and len(chunk_rows) == 2,
+                f"paper path: the run log has {len(rows)} round and "
+                f"{len(chunk_rows)} chunk rows, not 4 and 2")
+        for c in chunk_rows:
+            meas = [t for t in c["telemetry"] if t["source"] == "measured"]
+            require(len(meas) == 1 and meas[0]["start"] == c["start"]
+                    and meas[0]["stop"] == c["stop"]
+                    and min(meas[0]["durations"]) > 0,
+                    f"paper path: chunk {c['start']}-{c['stop']} has no "
+                    f"measured record with positive durations")
+            print(f"paper path (mu_splitfed) measured chunk {c['start']}-"
+                  f"{c['stop']}: dispatch {meas[0]['dispatch_seconds']:.3f} "
+                  f"s, staging {meas[0]['staging_seconds'] * 1e3:.3f} ms "
+                  f"({meas[0]['staging_bytes']} bytes)")
+        spans = [e["name"] for e in
+                 json.load(open(trace))["traceEvents"]]
+        require(spans.count("engine.dispatch") == 2,
+                f"paper path: {spans.count('engine.dispatch')} "
+                f"engine.dispatch spans in the trace, not 2")
+    masks = [v["masks"] for v in summary.values()]
+    require(all(np.array_equal(m, masks[0]) for m in masks),
+            "paper path: the three runs consumed different masks")
+    require(bool((summary["gas"]["masks"] == 0).any()),
+            "paper path: GAS had no stale client")
+    for algorithm, v in summary.items():
+        print(f"paper path comparison, {algorithm}: sim_t {v['sim_t']}  "
+              f"simulated round times {v['round_times']}  tau "
+              f"{v['tau']}  seconds a round by chunk {v['seconds']}  peak "
+              f"GiB by chunk {v['peak']}  losses {v['losses']}")
     return launches
 
 
@@ -1275,6 +1414,9 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     torch.cuda.empty_cache()
     for k, n in phase_driver(dev).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    for k, n in phase_paper(dev).items():
         launches[k] = launches.get(k, 0) + n
     src = "src/repro_torch/kernels/csrc/"
     rows = [("zo_update", src + "zo_update.cu",

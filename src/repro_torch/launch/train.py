@@ -1,37 +1,45 @@
-"""Synchronous MU-SplitFed training driver for the port (counterpart of
-``repro.launch.train`` in its synchronous modes).
+"""Synchronous split federated training driver for the port (counterpart
+of ``repro.launch.train`` in its synchronous modes).
 
 The run is the reference driver's: ``straggler.make_schedule`` builds the
 system model (per-client delays, participation and deadline masks,
-simulated round times), ``engine.run_rounds`` drives ``mu_splitfed_round``
-through it, round r under the key fold_in(PRNGKey(seed), r), on the same
-seeded synthetic LM and Dirichlet partition, and with the same noise: the
-config's default, threefry 'gaussian' (the reference driver has no dist
-flag either). ``--adaptive-tau`` re-plans τ at chunk boundaries. Each
-round prints its mask-weighted loss, its active clients, the wall seconds
-since the start (at the chunk's end, where the metrics reach the host) and
-the simulated clock.
+simulated round times), ``engine.run_rounds`` drives the chosen algorithm
+through it (``--algorithm``: MU-SplitFed, vanilla SplitFed or GAS), round
+r under the key fold_in(PRNGKey(seed), r), on the same seeded synthetic
+LM and Dirichlet partition, and with the same noise: the config's
+default, threefry 'gaussian' (the reference driver has no dist flag
+either). ``--adaptive-tau`` re-plans τ at chunk boundaries, on the
+simulated clock or (``--tau-source measured``) on the card's. Each round
+prints its mask-weighted loss, its active clients, the wall seconds since
+the start (at the chunk's end, where the metrics reach the host) and the
+simulated clock. ``--telemetry`` attaches a TelemetrySink and prints its
+summary and the metrics at the end; ``--log-jsonl`` writes round and
+chunk rows; ``--trace-out`` writes the engine's spans (.json Chrome
+trace, .jsonl one span a line).
 
 Runs on the card unless ``--device cpu`` is given:
-    python -m repro_torch.launch.train --arch olmo-1b --clients 4 --tau 2 \\
-        --batch 1 --seq 512 --rounds 4 --participation 0.75 \\
-        --straggler-scale 2.0 --t-server 0.5 --adaptive-tau --tau-max 4
+    python -m repro_torch.launch.train --arch paper-opt-1.3b --clients 4 \\
+        --batch 1 --seq 512 --rounds 4 --chunk-size 2 --participation 0.75 \\
+        --straggler-scale 3.0 --t-server 0.25 --t-gen 2.0 --algorithm gas
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
-        --rounds 4 --seq 16 --straggler-scale 2.0 --adaptive-tau
+        --rounds 4 --seq 16 --straggler-scale 2.0 --adaptive-tau \\
+        --tau-source measured --telemetry --log-jsonl run.jsonl
 
-Not ported yet (ROADMAP.md, queue 1): the baselines (--algorithm other
-than mu_splitfed), --async and its flags, --faults, checkpoints,
-telemetry and the run log.
+Not ported yet (ROADMAP.md, queue 1): checkpoints (--ckpt-dir,
+--ckpt-every), the first-order baselines (--algorithm fedavg|fedlora),
+--async and its flags, --faults and --adaptive-quorum.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs import ModelConfig, SFLConfig, get_config
 from repro_torch.core import engine, prng
 from repro_torch.core import straggler as strag
@@ -43,8 +51,8 @@ N_SAMPLES = 4096
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Synchronous MU-SplitFed training (PyTorch port of "
-                    "repro.launch.train's synchronous modes).")
+        description="Synchronous split federated training (PyTorch port "
+                    "of repro.launch.train's synchronous modes).")
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--algorithm", default="mu_splitfed",
@@ -70,10 +78,27 @@ def build_parser() -> argparse.ArgumentParser:
                          "starting point)")
     ap.add_argument("--tau-max", type=int, default=64,
                     help="cap for --adaptive-tau's planner")
-    ap.add_argument("--tau-source", default="sim", choices=["sim"],
+    ap.add_argument("--tau-source", default="sim",
+                    choices=["sim", "measured"],
                     help="clock --adaptive-tau observes the straggler gap "
-                         "on: the schedule's simulated rows ('measured' "
-                         "needs the telemetry sink, not ported)")
+                         "on: 'sim' reads the schedule's simulated rows; "
+                         "'measured' reads the measured-clock "
+                         "RoundTelemetry records from the engine's sink "
+                         "(the card's seconds a round)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="attach a TelemetrySink to the engine (sim + "
+                         "measured producers) and print the telemetry and "
+                         "metrics summary at run end")
+    ap.add_argument("--trace-out", default="",
+                    help="write the span trace here at run end: .json = "
+                         "Chrome trace-event format, .jsonl = one span a "
+                         "line")
+    ap.add_argument("--log-jsonl", default="",
+                    help="structured JSONL run log: per-round rows plus "
+                         "per-chunk RoundTelemetry records")
+    ap.add_argument("--log-every", type=int, default=1,
+                    help="log every Nth round row to --log-jsonl (chunk "
+                         "rows always log)")
     ap.add_argument("--t-server", type=float, default=0.1,
                     help="simulated server step time (s) for the wall-clock "
                          "model")
@@ -81,15 +106,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="GAS activation-generation overhead (s) per round")
     ap.add_argument("--t-comm", type=float, default=0.0,
                     help="simulated per-round communication time (s)")
-    ap.add_argument("--aggregation", default="dense",
-                    choices=["dense", "seed_replay"])
+    ap.add_argument("--aggregation", default=None,
+                    choices=["dense", "seed_replay"],
+                    help="server aggregation (default dense)")
     ap.add_argument("--client-mode", default="parallel",
                     choices=["parallel", "sequential"],
                     help="accepted for the reference's flags: both are the "
                          "one client loop here")
     ap.add_argument("--loop", default="scan", choices=["scan", "python"],
-                    help="accepted for the reference's flags: both are the "
-                         "one round loop here")
+                    help="'scan' flushes the metrics once a chunk, "
+                         "'python' once a round (the reference's legacy "
+                         "loop)")
     ap.add_argument("--chunk-size", type=int, default=8,
                     help="rounds between host flushes (and controller "
                          "boundaries)")
@@ -117,7 +144,15 @@ def setup(argv=None, cfg: Optional[ModelConfig] = None) -> Run:
     the data loader on the chosen device. ``cfg``, if given, is run in
     place of the config that ``--arch`` names (``chip_smoke.py`` runs
     qwen3-14b with its depth cut this way)."""
-    args = build_parser().parse_args(argv)
+    ap = build_parser()
+    args = ap.parse_args(argv)
+    if args.aggregation is None:
+        args.aggregation = "dense"
+    if args.log_every < 1:
+        ap.error(f"--log-every must be >= 1: got {args.log_every}")
+    if args.tau_source == "measured" and not args.adaptive_tau:
+        ap.error("--tau-source measured configures --adaptive-tau's clock; "
+                 "pass --adaptive-tau")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --device cpu "
                            "to run the plain versions on the CPU")
@@ -153,42 +188,104 @@ def schedule(run: Run) -> strag.Schedule:
         t_comm=a.t_comm)
 
 
+def algorithm_options(args: argparse.Namespace) -> Dict:
+    """The reference driver's options for each algorithm: GAS takes no
+    client mode."""
+    if args.algorithm in ("mu_splitfed", "vanilla"):
+        return {"client_mode": args.client_mode,
+                "aggregation": args.aggregation}
+    if args.algorithm == "gas":
+        return {"aggregation": args.aggregation}
+    return {}
+
+
 def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
                log: Optional[Callable[[str], None]] = print,
                chunk_callback: Optional[Callable] = None):
     """``engine.run_rounds`` over the run's schedule, printing each round
-    as the reference driver does. Returns (EngineResult, the controller or
-    None). ``sfl``, if given, replaces the run's config (``chip_smoke.py``
-    sets counter noise this way); ``chunk_callback`` runs after the
-    printing."""
+    as the reference driver does, with the run's telemetry sink, span
+    tracer and run log. Returns (EngineResult, the controller or None).
+    ``sfl``, if given, replaces the run's config (``chip_smoke.py`` sets
+    counter noise this way); ``chunk_callback`` runs after the printing
+    and logging."""
     a = run.args
     sfl = run.sfl if sfl is None else sfl
     controller = (engine.AdaptiveTau(tau_max=a.tau_max, source=a.tau_source)
                   if a.adaptive_tau else None)
-    algo = engine.get_algorithm(a.algorithm, client_mode=a.client_mode,
-                                aggregation=a.aggregation)
+    algo = engine.get_algorithm(a.algorithm, **algorithm_options(a))
+    # the sink feeds the controller and the log; the tracer records spans
+    # over the engine's hot path; the registry keeps running totals
+    sink = (obs.TelemetrySink()
+            if a.telemetry or a.log_jsonl or a.tau_source == "measured"
+            else None)
+    tracer = obs.SpanTracer() if a.trace_out else None
+    prev_tracer = obs.install(tracer) if tracer is not None else None
+    registry = obs.get_registry()
+    runlog = (obs.RunLog(a.log_jsonl, log_every=a.log_every)
+              if a.log_jsonl else None)
     wall = strag.WallClock()
     t0 = time.time()
 
     def on_chunk(info, p, s):
         for i, r in enumerate(range(info.start, info.stop)):
             sim_t = wall.tick(info.round_times[i])
+            active = int((info.masks[i] > 0).sum())
             if log is not None:
                 log(f"round {r:4d}  loss {info.round_loss[i]:.4f}  active "
-                    f"{int((info.masks[i] > 0).sum())}/{sfl.n_clients}  "
+                    f"{active}/{sfl.n_clients}  "
                     f"wall {time.time() - t0:.1f}s  sim_t {sim_t:.1f}")
+            if runlog is not None:
+                runlog.round(r, loss=float(info.round_loss[i]),
+                             active=active, sim_t=float(sim_t),
+                             wall_s=round(time.time() - t0, 3))
+        if sink is not None:
+            registry.counter("train.rounds").inc(info.stop - info.start)
+            registry.counter("train.chunks").inc()
+            registry.gauge("train.last_loss").set(float(info.round_loss[-1]))
+            h = registry.histogram("train.sim_round_seconds")
+            for dt in info.round_times:
+                h.observe(float(dt))
+            meas = sink.latest("measured")
+            if meas is not None and meas.stop == info.stop:
+                registry.histogram("train.chunk_dispatch_seconds").observe(
+                    meas.dispatch_seconds)
+                registry.counter("train.staging_bytes").inc(
+                    meas.staging_bytes)
+        if runlog is not None:
+            runlog.chunk(info.start, info.stop,
+                         telemetry=(sink.window(info.start, info.stop)
+                                    if sink is not None else ()))
         if chunk_callback is not None:
             chunk_callback(info, p, s)
 
-    result = engine.run_rounds(
-        algo, run.cfg, sfl, run.params, run.loader.round_batch,
-        schedule(run), prng.PRNGKey(a.seed), rounds=a.rounds,
-        chunk_size=a.chunk_size, mode=a.loop, chunk_callback=on_chunk,
-        controller=controller)
-    if controller is not None and controller.trace and log is not None:
+    try:
+        result = engine.run_rounds(
+            algo, run.cfg, sfl, run.params, run.loader.round_batch,
+            schedule(run), prng.PRNGKey(a.seed), rounds=a.rounds,
+            chunk_size=a.chunk_size, mode=a.loop, chunk_callback=on_chunk,
+            controller=controller, telemetry=sink)
+    finally:
+        if tracer is not None:
+            obs.install(prev_tracer)
+        if runlog is not None:
+            runlog.close()
+    out = log if log is not None else (lambda line: None)
+    if controller is not None and controller.trace:
         vals = [t for _, t in controller.trace]
-        log(f"adaptive tau ({a.tau_source}): start {a.tau} -> final "
+        out(f"adaptive tau ({a.tau_source}): start {a.tau} -> final "
             f"{vals[-1]} (decisions: {vals})")
+    if runlog is not None:
+        out(f"run log: {a.log_jsonl}")
+    if tracer is not None:
+        n_spans = (tracer.export_jsonl(a.trace_out)
+                   if a.trace_out.endswith(".jsonl")
+                   else tracer.export_chrome(a.trace_out))
+        out(f"trace: {n_spans} spans -> {a.trace_out}")
+    if a.telemetry:
+        out("telemetry summary:")
+        out(json.dumps(sink.summary(), indent=2, sort_keys=True))
+        out("metrics:")
+        out(json.dumps(registry.snapshot(), indent=2, sort_keys=True))
     return result, controller
 
 

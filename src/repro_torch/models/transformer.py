@@ -10,7 +10,7 @@ Batch: {"tokens": (B, S) int, "labels": (B, S) int}.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -59,6 +59,25 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
 
 def param_count(params: Params) -> int:
     return sum(x.numel() for x in tree.leaves(params))
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose ``device`` reads 'meta': ``init_params`` with
+    it builds every leaf on the meta device (shapes, no storage)."""
+    device = torch.device("meta")
+
+
+def split_dims(cfg: ModelConfig, cut_units: int) -> Tuple[int, int]:
+    """(d_c, d_s) parameter counts for a cut (used by theory and the cut
+    planner), counted as ``repro.models.split_dims`` counts them: the tree
+    is built on the meta device, so nothing is allocated; a tied model
+    counts the server's untied head copy on the server side."""
+    shapes = init_params(cfg, _MetaGenerator())
+    total = param_count(shapes)
+    per_unit = param_count(shapes["units"]) // cfg.n_units
+    d_c = shapes["embed"].numel() + cut_units * per_unit
+    extra_head = 0 if "lm_head" in shapes else shapes["embed"].numel()
+    return d_c, total - d_c + extra_head
 
 
 # ===========================================================================

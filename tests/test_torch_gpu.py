@@ -12,7 +12,8 @@ bf16 within one bf16 ulp of the plain value. RMSNorm in f32 within 1e-5
 (|y| <= ~20 here; the sums of squares run in another order). The
 threefry kernel computes the plain version's operations in its order, so
 its bits, its gaussian and its updates equal the plain version's exactly;
-its sum of squares runs in another order (relative 1e-5).
+its sum of squares runs in another order (relative 1e-5). Small f32
+vanilla and GAS rounds, card against CPU, within 1e-4.
 """
 import numpy as np
 import pytest
@@ -233,3 +234,46 @@ def test_kernels_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="one value"):
         threefry.threefry_update(x, np.zeros(2, np.uint32),
                                  torch.ones(2, device=cuda))
+
+
+@pytest.mark.parametrize("algorithm,dist,aggregation", [
+    ("vanilla", "gaussian", "dense"), ("vanilla", "counter", "seed_replay"),
+    ("gas", "gaussian", "dense"), ("gas", "gaussian", "seed_replay"),
+    ("gas", "counter", "seed_replay")])
+def test_baseline_round_card_matches_cpu(cuda, algorithm, dist, aggregation):
+    """One small f32 vanilla or GAS round (GAS with a stale client) on the
+    card against the same round on the CPU, where the plain versions run:
+    parameters, metrics and GAS's buffer within 1e-4."""
+    from repro_torch.configs import SFLConfig, get_config
+    from repro_torch.core import prng
+    from repro_torch.core.baselines import (gas_init_state, gas_round,
+                                            vanilla_splitfed_round)
+    from repro_torch.models import init_params, untie_params
+    from repro_torch.utils import tree
+    cfg = get_config("olmo-1b", smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=2, dtype="float32")
+    params = untie_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
+    sfl = SFLConfig(n_clients=2, tau=2, n_perturbations=2, cut_units=2,
+                    perturbation_dist=dist)
+    outs = []
+    for d in ("cpu", cuda):
+        b = {"tokens": torch.from_numpy(toks).to(d),
+             "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(d)}
+        p = tree.tree_map(lambda a: a.to(d), params)
+        if algorithm == "gas":
+            st = gas_init_state(cfg, sfl, p, b)
+            p, st, m = gas_round(cfg, sfl, p, st, b,
+                                 torch.tensor([1.0, 0.0], device=d),
+                                 prng.PRNGKey(3), aggregation=aggregation)
+            extra = [*st.h_buffer.values(), *st.label_buffer.values()]
+        else:
+            p, m = vanilla_splitfed_round(
+                cfg, sfl, p, b, torch.tensor([1.0, 0.5], device=d),
+                prng.PRNGKey(3), aggregation=aggregation)
+            extra = []
+        outs.append([*tree.leaves(p), *m, *extra])
+    for got, want in zip(outs[1], outs[0]):
+        assert got.is_cuda
+        assert float((got.cpu().float() - want.float()).abs().max()) <= 1e-4

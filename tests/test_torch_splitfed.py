@@ -187,9 +187,12 @@ def test_port_imports_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert {"repro_torch.kernels.threefry", "repro_torch.core.engine",
-            "repro_torch.core.straggler", "repro_torch.core.population"
-            } <= set(mods)
-    assert len(mods) >= 22
+            "repro_torch.core.straggler", "repro_torch.core.population",
+            "repro_torch.core.baselines", "repro_torch.core.theory",
+            "repro_torch.obs.measure", "repro_torch.obs.metrics",
+            "repro_torch.obs.runlog", "repro_torch.obs.telemetry",
+            "repro_torch.obs.trace"} <= set(mods)
+    assert len(mods) >= 29
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
