@@ -8,9 +8,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them,
-     flash_attention.cu, zo_update.cu and threefry.cu with -Xptxas -v: the
-     kernels' registers, shared memory, stack frames and spills are
-     printed (the bf16 flash kernels must not spill); the built library's
+     flash_attention.cu, flash_attention_bwd.cu, zo_update.cu and
+     threefry.cu with -Xptxas -v: the kernels' registers, shared memory,
+     stack frames and spills are printed (the bf16 flash kernels and every
+     flash backward kernel must not spill); the built library's
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
      cuobjdump), the zo kernels' SASS mix by opcode class is printed per
@@ -31,10 +32,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      all 2^23 values of its uniform
      (threefry.normal_table_check), and its sum of squares within 1e-5; the
      pair norm against two plain norms at the qwen3-14b qk-norm shapes;
+     the backward kernels (flash_attention_bwd, bf16 and f32, at path 5's
+     shape and qwen3-14b's with GQA 40/8, causal and with a window, its
+     forward's lse beside it; rmsnorm_bwd at the qwen3-14b block and
+     qk-norm shapes) against their plain versions, f32 within 1e-5 and
+     bf16 within one bf16 ulp of each gradient's largest magnitude, with
+     the autograd backward of scaled_dot_product_attention and of
+     F.rms_norm timed beside them;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
-     seed_replay; vanilla SplitFed; GAS with a stale client), then the
-     four main paths through the training driver (``launch.train``:
+     seed_replay; vanilla SplitFed; GAS with a stale client; FedAvg with
+     SGD and AdamW, FedLoRA), then the five main paths through the
+     training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
      kernel launch counter set to 0 just before and read just after, and
      each followed by one more round under torch.profiler for the device
@@ -60,6 +69,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
          span trace), vanilla SplitFed and GAS (seed replay, counter
          noise) on the same schedule; each algorithm's simulated clock,
          round seconds, peak memory and losses printed;
+       - path 5, the first-order side of Fig. 4: FedAvg and FedLoRA with
+         the reference driver's defaults on path 4's model, flags and
+         schedule, through the flash forward and backward kernels (2·M·24
+         forwards and M·24 backwards a round, checked); then one FedAvg
+         round of qwen3-14b at full width, 4 of 40 layers, whose backward
+         runs the rmsnorm backward (4·layers + 1 launches a client);
   5. one JSON line with every kernel's numbers (launches summed over the
      paths), then the result line.
 
@@ -126,10 +141,24 @@ PAPER_ARGV = ["--arch", "paper-opt-1.3b", "--clients", "4", "--batch", "1",
               "--participation", "0.75", "--straggler-scale", "3.0",
               "--t-server", "0.25", "--t-gen", "2.0"]
 L2_BYTES = 50 * 2 ** 20
+# the first-order path 5: the reference driver's FO baselines on the
+# paper's model and schedule, and one FedAvg round of qwen3-14b at full
+# width with its depth cut to QWEN_FO_LAYERS (its RMSNorm backward inside
+# a real backward)
+QWEN_FO_LAYERS = 4
+QWEN_FO_ARGV = ["--arch", "qwen3-14b", "--clients", "2", "--batch", "1",
+                "--seq", "512", "--rounds", "1", "--chunk-size", "1",
+                "--algorithm", "fedavg"]
 PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
-                         r"rmsnorm_block|rmsnorm_pair|"
+                         r"flash_bwd_delta|flash_bwd_dkdv|flash_bwd_dq|"
+                         r"rmsnorm_block|rmsnorm_pair|rmsnorm_bwd_block|"
+                         r"rmsnorm_bwd_rows|rmsnorm_dscale_partial|"
                          r"threefry_update|threefry_sumsq)_kernel<[^>]*>|"
-                         r"threefry_sumsq_kernel")
+                         r"threefry_sumsq_kernel|rmsnorm_dscale_reduce_kernel")
+# operations of the flash backward per unmasked (query, key) pair: S, dP,
+# dV, dK and dQ at 2·d each; of the RMSNorm backward per element
+FLASH_BWD_OPS_PER_D = 10
+NORM_BWD_OPS = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -179,22 +208,32 @@ def device_ms(fn, inputs, iters: int, attempts: int = 3) -> float:
     at all (it happened once in three runs of this script, to the library
     attention call) is run again, up to ``attempts`` sessions, and said
     so; 0 comes back only if every session recorded nothing, and the
-    callers fail on it."""
+    callers fail on it. A session whose count of kernels is not a multiple
+    of ``iters`` lost some of them (it happened once, to the flash
+    backward, which read half its time): it too is run again, and the
+    last one is kept with a warning if none was whole."""
     from torch.profiler import ProfilerActivity, profile
     fn(inputs[0])
     torch.cuda.synchronize()
+    total = 0
     for attempt in range(1, attempts + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for i in range(iters):
                 fn(inputs[i % len(inputs)])
             torch.cuda.synchronize()
-        total = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA)
-        if total > 0:
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels)
+        count = sum(e.count for e in kernels)
+        if total > 0 and count % iters == 0:
             return total / 1e3 / iters
-        print(f"device_ms: the profiler recorded no device time in session "
-              f"{attempt} of {attempts}")
-    return 0.0
+        print(f"device_ms: session {attempt} of {attempts} recorded "
+              + (f"{count} kernels in {iters} calls" if total > 0
+                 else "no device time"))
+    if total > 0:
+        print("device_ms: WARNING: no session recorded every kernel; the "
+              "last one's time is kept")
+    return total / 1e3 / iters
 
 
 def smi(query: str) -> list:
@@ -284,7 +323,8 @@ def phase_build():
          "-v", "-c", str(build.CSRC / src), "-o",
          str(build.BUILD_ROOT / "ptxas" / (Path(src).stem + ".o"))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for src in ("flash_attention.cu", "zo_update.cu", "threefry.cu")}
+        for src in ("flash_attention.cu", "flash_attention_bwd.cu",
+                    "zo_update.cu", "threefry.cu")}
     try:
         build.library()
     finally:
@@ -295,6 +335,7 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.1f}s  "
           f"({build.compile_library().relative_to(ROOT)})")
     report_ptxas(ptxas_out["flash_attention.cu"])
+    report_ptxas_bwd(ptxas_out["flash_attention_bwd.cu"])
     lib = build.library()
     for d in (64, 128):
         print(f"flash_fwd_bf16_kernel<{d}>: dynamic shared memory "
@@ -331,6 +372,33 @@ def report_ptxas(out: str) -> None:
                      "flash_fwd_bf16_kernel<128>"},
             f"ptxas -v reported no spill line for the bf16 flash kernels "
             f"(found {sorted(seen)})")
+
+
+BWD_KERNEL = re.compile(r"(flash_bwd_(?:delta|dkdv|dq)_kernel)"
+                        r"I(f|13__nv_bfloat16)Li(\d+)E")
+
+
+def report_ptxas_bwd(out: str) -> None:
+    """Print ptxas's registers and spills for each flash backward kernel;
+    none may spill."""
+    name, seen = None, set()
+    for line in out.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = BWD_KERNEL.search(line)
+            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'},"
+                    f"{m.group(3)}>" if m else None)
+            continue
+        if name is None or not line.strip():
+            continue
+        print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills:
+            seen.add(name)
+            require(spills.groups() == ("0", "0"),
+                    f"{name} spills registers: {line.strip()}")
+    require(len(seen) == 12, f"ptxas -v reported spill lines for "
+            f"{sorted(seen)}, not the 12 flash backward kernels")
 
 
 def check_sass(lib: Path) -> None:
@@ -1094,6 +1162,186 @@ def phase_flash(dev) -> dict:
     return res
 
 
+def check_grad(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """A gradient against its plain version: f32 within 1e-5 of max|want|,
+    bf16 within one bf16 ulp of it (2^-7·max|want|; both compute in f32
+    and round once). Returns max |Δ|."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
+    require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    d = float((got.float() - want.float()).abs().max())
+    top = float(want.float().abs().max())
+    tol = (2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5) * top
+    require(d <= tol, f"{name}: max |Δ| {d:.3e} above {tol:.3e} "
+            f"(max |g| {top:.3e})")
+    return d
+
+
+def phase_flash_bwd(dev) -> dict:
+    """The flash backward kernel against its plain version
+    (``ref.flash_attention_bwd_ref``, on the plain forward's o and lse) in
+    bf16 and f32 at path 5's shape (1,32,512,64) and at qwen3-14b's
+    (1,40,512,128) with 8 kv heads, causal and with a window of 128; v and
+    dO as strided views of (B, S, heads, d) buffers, as the model passes
+    them. The forward kernel's lse against the plain version's (relative
+    1e-5). Device time per call (device_ms) for bf16, beside the plain
+    version and the autograd backward of scaled_dot_product_attention on
+    the same inputs (causal cases; it takes no window), the port never
+    calling it. Bound: the larger of the bytes (q, k, v, o, dO and lse
+    read, dq, dk and dv written) over 3.35 TB/s and 10·d operations a
+    causal pair on the bf16 tensor cores."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import (_launch_forward,
+                                                     flash_attention_bwd)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    cases = [("path 5 (paper-opt-1.3b), d=64", (1, 32, 32, 512, 64), True,
+              0),
+             ("qwen3-14b shape, GQA 40/8", (1, 40, 8, 512, 128), True, 0),
+             ("qwen3-14b shape, window 128", (1, 40, 8, 512, 128), True,
+              128)]
+    res = {"err": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for name, (B, H, Hkv, S, d), causal, window in cases:
+            what = f"flash bwd {name} {str(dtype)[6:]} ({B},{H},{S},{d})"
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device=dev).to(dtype)
+            q, k = rnd(B, H, S, d), rnd(B, Hkv, S, d)
+            v = rnd(B, S, Hkv, d).transpose(1, 2)
+            do = rnd(B, S, H, d).transpose(1, 2)
+            o, lse = ref.flash_attention_ref(q, k, v, causal, window,
+                                             return_lse=True)
+            got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                      window=window)
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal,
+                                               window)
+            err = max(check_grad(f"{what} {g}", a, b)
+                      for g, a, b in zip(("dq", "dk", "dv"), got, want))
+            res["err"] = max(res["err"], err)
+            ko, kl = torch.empty_like(q), torch.empty_like(lse)
+            _launch_forward(q, k, v, ko, kl, causal, window)
+            lse_err = float(((kl - lse).abs() / lse.abs().clamp(min=1)).max())
+            require(lse_err <= 1e-5, f"{what}: forward lse {lse_err:.3e} "
+                    f"off the plain version")
+            line = (f"{what}, Hkv {Hkv}, causal {causal}, window {window}: "
+                    f"max|Δ| {err:.3e}, lse relative {lse_err:.3e}")
+            if dtype == torch.float32:
+                print(line)
+                continue
+            n_qo = q.numel()
+            nbytes = 2 * (4 * n_qo + 4 * k.numel()) + 4 * lse.numel()
+            sets = [(q, k, v, o, lse, do)] + [
+                tuple(t.clone() for t in (q, k, v, o, lse, do))
+                for _ in range(L2_BYTES // nbytes + 1)]
+            ms = device_ms(lambda t: flash_attention_bwd(
+                *t, causal=causal, window=window), sets, 20)
+            plain_ms = device_ms(lambda t: ref.flash_attention_bwd_ref(
+                *t, causal, window), sets, 5)
+            require(min(ms, plain_ms) > 0,
+                    f"{what}: the profiler recorded no device time")
+            lib_ms = None
+            if window == 0:
+                graphs = []
+                for t in sets:
+                    qkv = [a.detach().contiguous().requires_grad_(True)
+                           for a in t[:3]]
+                    out = F.scaled_dot_product_attention(
+                        *qkv, is_causal=True, enable_gqa=H != Hkv)
+                    graphs.append((out, qkv, t[5]))
+                lib_ms = device_ms(lambda g: torch.autograd.grad(
+                    g[0], g[1], g[2], retain_graph=True), graphs, 20)
+                require(lib_ms > 0, f"{what}: no device time for the "
+                        f"library backward")
+                del graphs
+            b_ms, b_by = bound(nbytes, FLASH_BWD_OPS_PER_D * d * B * H
+                               * flash_pairs(S, causal, window),
+                               "bf16_tensor")
+            print(line + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+                  f"library (autograd backward of "
+                  f"scaled_dot_product_attention) "
+                  + ("n/a (no window)" if lib_ms is None
+                     else f"{lib_ms:.4f} ms")
+                  + f"  bound {b_ms:.4f} ms ({b_by})")
+            if "path 5" in name:
+                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           shape=f"({B},{H},{S},{d}) bf16 causal, "
+                                 f"Hkv={Hkv}")
+            elif window == 0:
+                res["qwen3"] = dict(ms=ms, plain_ms=plain_ms,
+                                    library_ms=lib_ms, bound_ms=b_ms)
+            del sets
+    return res
+
+
+def phase_rmsnorm_bwd(dev) -> dict:
+    """The rmsnorm backward (dx, and dscale in f32 summed over the rows)
+    against ``ref.rmsnorm_bwd_ref`` at the qwen3-14b path's shapes: the
+    block norms' rows of 5120 and the qk-norm pair's q and k rows of 128
+    (the pair's backward is one launch each), bf16 and f32, with the
+    autograd backward of F.rms_norm timed beside it (the port never calls
+    it). Times are device time per call (device_ms), cycling past L2.
+    Bound: bytes (x and dy read, dx written, the scale read and dscale
+    written)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("block norm (qwen3-14b)", (1, 512, 5120), bf16),
+             ("qk-norm q", (1, 512, 40, 128), bf16),
+             ("qk-norm k", (1, 512, 8, 128), bf16),
+             ("block norm", (1, 512, 5120), f32),
+             ("qk-norm q", (1, 512, 40, 128), f32),
+             ("ragged rows, D=1030", (77, 1030), f32)]
+    res = {"err": 0.0, "pair_ms": 0.0}
+    for name, shape, dtype in cases:
+        D = shape[-1]
+        x = (torch.randn(shape, generator=gen, device=dev) * 3.0).to(dtype)
+        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        s = 1.0 + 0.5 * torch.randn(D, generator=gen, device=dev)
+        what = f"rmsnorm bwd {name} {str(dtype)[6:]} {shape}"
+        dx, ds = rmsnorm_bwd(x, s, dy)
+        wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
+        err = max(check_grad(f"{what} dx", dx, wx),
+                  check_grad(f"{what} dscale", ds, ws))
+        res["err"] = max(res["err"], err)
+        if dtype == f32:
+            print(f"{what}: max|Δ| {err:.3e}")
+            continue
+        nbytes = 3 * x.numel() * x.element_size() + 2 * 4 * D
+        sets = [(x, dy)] + [(x.clone(), dy.clone())
+                            for _ in range(L2_BYTES // nbytes + 1)]
+        ms = device_ms(lambda t: rmsnorm_bwd(t[0], s, t[1]), sets, 100)
+        plain_ms = device_ms(lambda t: ref.rmsnorm_bwd_ref(t[0], s, t[1]),
+                             sets, 20)
+        graphs = []
+        for t in sets:
+            xx = t[0].detach().requires_grad_(True)
+            ss = s.detach().clone().requires_grad_(True)
+            graphs.append((F.rms_norm(xx, (D,), ss, 1e-5), (xx, ss), t[1]))
+        lib_ms = device_ms(lambda g: torch.autograd.grad(
+            g[0], g[1], g[2], retain_graph=True), graphs, 100)
+        require(min(ms, plain_ms, lib_ms) > 0,
+                f"{what}: the profiler recorded no device time")
+        b_ms, b_by = bound(nbytes, NORM_BWD_OPS * x.numel(), "f32_core")
+        print(f"{what}: max|Δ| {err:.3e}  kernel {ms:.4f} ms (three "
+              f"launches)  plain {plain_ms:.4f} ms  library (autograd "
+              f"backward of F.rms_norm) {lib_ms:.4f} ms  bound {b_ms:.4f} "
+              f"ms ({b_by})")
+        if "block" in name:
+            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=b_ms, bound_by=b_by,
+                       shape=f"{shape} bf16, f32 scale")
+        else:
+            res["pair_ms"] += ms
+        del sets, graphs
+    print(f"rmsnorm bwd qk-norm pair (two launches, q then k) "
+          f"{res['pair_ms']:.4f} ms")
+    return res
+
+
 SMALL_ROUNDS = (("mu_splitfed", "counter", "seed_replay"),
                 ("mu_splitfed", "gaussian", "dense"),
                 ("mu_splitfed", "gaussian", "seed_replay"),
@@ -1162,14 +1410,74 @@ def phase_small_round(dev):
                 f"small round ({what}): card and CPU disagree")
 
 
-def drive(dev, name: str, run, sfl, kernels) -> tuple:
+# learning rates of the small first-order rounds: AdamW at the repo's
+# first-order default (TrainConfig.lr), where its first step's sign-like
+# direction g/(|g| + 1e-8) keeps rounding-level gradients from moving an
+# element by more than the check's 1e-4
+FO_SMALL = (("fedavg", "sgd", 1e-2), ("fedavg", "adamw", 1e-3),
+            ("fedlora", "sgd", 1e-2))
+
+
+def phase_small_fo(dev):
+    """One small f32 first-order round on the card (the flash and rmsnorm
+    forward and backward kernels) against the same round on the CPU (their
+    plain versions), within 1e-4: FedAvg with SGD and with AdamW on olmo-1b
+    (d_head 64), FedLoRA on qwen3-14b with qk-norm and GQA (d_head 64, two
+    query heads a kv head)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.baselines import fedavg_round, fedlora_round
+    from repro_torch.kernels import build
+    from repro_torch.models import init_params, untie_params
+    from repro_torch.optim import init_lora
+    from repro_torch.utils import tree
+    for algorithm, optimizer, lr in FO_SMALL:
+        arch = "olmo-1b" if algorithm == "fedavg" else "qwen3-14b"
+        cfg = get_config(arch, smoke=True).replace(
+            d_model=128, n_heads=2, n_kv_heads=2 if algorithm == "fedavg"
+            else 1, dtype="float32")
+        params = untie_params(cfg, init_params(
+            cfg, torch.Generator().manual_seed(0)))
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                                 (2, 2, 64))
+        outs = {}
+        for d in ("cpu", dev):
+            p = tree.tree_map(lambda a: a.to(d), params)
+            b = {"tokens": torch.from_numpy(toks).to(d),
+                 "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(d)}
+            mask = torch.tensor([1.0, 0.5], device=d)
+            before = dict(build.LAUNCHES)
+            if algorithm == "fedavg":
+                out = fedavg_round(cfg, p, b, mask, lr, optimizer=optimizer,
+                                   eta_g=0.3)
+            else:
+                out = fedlora_round(cfg, p, init_lora(cfg, p, 4,
+                                                      prng.PRNGKey(0)),
+                                    b, mask, lr, eta_g=0.3)
+            outs[str(d)] = (tree.leaves(out), {
+                k: build.LAUNCHES[k] - before.get(k, 0)
+                for k in ("flash_attention_bwd", "rmsnorm_bwd")})
+        (want, _), (got, n) = outs["cpu"], outs[str(dev)]
+        err = max(max_err(a.cpu(), b) for a, b in zip(got, want))
+        what = f"{algorithm} ({optimizer}, lr {lr})"
+        print(f"small f32 first-order round ({what}), card vs CPU: max|Δ| "
+              f"{err:.3e}; backward launches on the card {n}")
+        require(err <= 1e-4, f"small round ({what}): card and CPU disagree")
+        require(n["flash_attention_bwd"] > 0 and (
+            algorithm == "fedavg" or n["rmsnorm_bwd"] > 0),
+            f"small round ({what}): a backward kernel did not launch")
+
+
+def drive(dev, name: str, run, sfl, kernels, frozen: bool = False) -> tuple:
     """Rounds of a path through the driver's engine (``train.run_engine``
     on ``run`` with ``sfl``): every launch counter set to 0 just before and
     read just after, and every kernel in ``kernels`` must have launched.
     Each chunk's seconds (ending in the chunk's flush, a synchronise) and
     peak memory are printed with its masks. Losses and parameters must be
     finite, and the parameters must have moved (a sample of each leaf is
-    kept before the rounds). One more round at the last tau then runs under
+    kept before the rounds), or with ``frozen`` (FedLoRA's base) must not
+    have. One more round at the last tau then runs under
     the profiler (without the run's telemetry, log or trace). Returns
     (EngineResult, controller or None, launches, chunks): chunks is a list
     of (masks, seconds, peak GiB), one a chunk."""
@@ -1222,7 +1530,10 @@ def drive(dev, name: str, run, sfl, kernels) -> tuple:
         moved = max(moved, max_err(a.reshape(-1)[:4096], b))
     print(f"{name}: max |Δparam| over {len(res.round_loss)} rounds (first "
           f"4096 elements of each leaf) {moved:.3e}")
-    require(moved > 0, f"{name}: parameters did not change")
+    if frozen:
+        require(moved == 0, f"{name}: frozen parameters changed")
+    else:
+        require(moved > 0, f"{name}: parameters did not change")
     tau = int(res.tau_per_round[-1])
     one = run._replace(
         args=argparse.Namespace(**{**vars(run.args), "rounds": 1,
@@ -1283,7 +1594,7 @@ def phase_paper(dev) -> dict:
     durations a chunk, an adaptive-tau decision, 4 round rows and 2 chunk
     rows in the log and engine.dispatch spans in the trace; prints each
     algorithm's simulated clock, round seconds, peak memory and losses.
-    Returns the launch counts."""
+    Returns the launch counts and each algorithm's summary."""
     import tempfile
 
     import numpy as np
@@ -1358,7 +1669,207 @@ def phase_paper(dev) -> dict:
               f"simulated round times {v['round_times']}  tau "
               f"{v['tau']}  seconds a round by chunk {v['seconds']}  peak "
               f"GiB by chunk {v['peak']}  losses {v['losses']}")
+    return launches, summary
+
+
+def peak_sites(events, top: int = 8):
+    """Replay an allocator trace (``torch.cuda.memory._snapshot()``'s
+    device trace: alloc and free events with Python stacks) and return
+    (peak bytes above the trace's start, [(bytes, site)]) for the blocks
+    live at the peak, grouped by the innermost frame of the port's own
+    code that allocated them."""
+    def replay(stop):
+        live, total, best, at = {}, 0, 0, -1
+        for i, e in enumerate(events[:stop]):
+            if e["action"] == "alloc":
+                live[e["addr"]] = e
+                total += e["size"]
+                if total > best:
+                    best, at = total, i
+            elif e["action"] in ("free_requested", "free") \
+                    and e["addr"] in live:
+                total -= live.pop(e["addr"])["size"]
+        return live, best, at
+    _, best, at = replay(len(events))
+    live, _, _ = replay(at + 1)
+    sites = {}
+    for e in live.values():
+        frames = [f for f in e.get("frames", ())
+                  if "repro_torch" in f.get("filename", "")]
+        f = frames[0] if frames else None
+        site = (f"{f['filename'].split('src/')[-1]}:{f['line']} {f['name']}"
+                if f else "outside the port's code")
+        sites[site] = sites.get(site, 0) + e["size"]
+    return best, sorted(((b, k) for k, b in sites.items()), reverse=True)[:top]
+
+
+def fo_memory(dev, run) -> None:
+    """Where one FedAvg client's memory goes on path 5: each step of
+    ``fedavg_round``'s client loop bracketed by the allocator, as the peak
+    above what was allocated before the step and what the step keeps. The
+    gradient is taken twice on one random batch of the run's shape: by
+    ``loss_fn`` (each stacked leaf unbound once) and by the client/server
+    composition of the zeroth-order rounds (``split_params`` slices each
+    leaf in two, and each slice's backward fills a zero gradient of the
+    whole leaf); the two gradients must agree."""
+    from repro_torch.core.baselines import (_fedavg_aggregate, _grads,
+                                            fedavg_round)
+    from repro_torch.models import (client_forward, loss_fn, server_forward,
+                                    split_params)
+    from repro_torch.optim.optimizers import sgd_update
+    from repro_torch.utils import tree
+    cfg, params, a = run.cfg, run.params, run.args
+    gen = torch.Generator(device=dev).manual_seed(a.seed)
+    tokens = torch.randint(cfg.vocab_size, (a.batch, a.seq + 1),
+                           generator=gen, device=dev)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    gib = 2.0 ** -30
+
+    def bracket(what, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) * gib
+        kept = (torch.cuda.memory_allocated(dev) - base) * gib
+        print(f"FedAvg client memory, {what}: peak {peak:.3f} GiB above "
+              f"the {base * gib:.3f} GiB before it, keeps {kept:.3f} GiB")
+        return out
+
+    def sliced(q):
+        cp, sp = split_params(cfg, q, cfg.default_cut_units)
+        return server_forward(cfg, sp, client_forward(cfg, cp, batch), batch)
+
+    size = sum(x.numel() * x.element_size() for x in tree.leaves(params))
+    print(f"FedAvg client memory: parameters {size * gib:.3f} GiB")
+    g = bracket("gradient by loss_fn",
+                lambda: _grads(lambda q: loss_fn(cfg, q, batch), params))
+    g2 = bracket("gradient by split_params' slices", lambda: _grads(sliced,
+                                                                    params))
+    err = max(max_err(x, y) for x, y in zip(tree.leaves(g), tree.leaves(g2)))
+    top = max(float(x.abs().max()) for x in tree.leaves(g))
+    print(f"FedAvg client memory: the two gradients max |Δ| {err:.3e} "
+          f"(largest |g| {top:.3e})")
+    require(math.isfinite(top) and err <= 2 ** -8 * top,
+            "FedAvg client memory: the two gradients disagree")
+    del g2
+    p_m = bracket("SGD update", lambda: sgd_update(params, g, a.lr_client))
+    del g
+    out = bracket("aggregate of one client (f32 sum, new tree)",
+                  lambda: _fedavg_aggregate(params, lambda m: p_m,
+                                            torch.ones(1, device=dev), 1.0))
+    del p_m, out
+    # one whole round of the run's M clients, its peak taken apart by the
+    # code that allocated what was live at it
+    M = run.sfl.n_clients
+    toks = torch.randint(cfg.vocab_size, (M, a.batch, a.seq + 1),
+                         generator=gen, device=dev)
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.memory._record_memory_history(enabled="all", context="all",
+                                             stacks="python")
+    try:
+        out = fedavg_round(cfg, params, batches, torch.ones(M, device=dev),
+                           a.lr_client, eta_g=run.sfl.lr_global)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    del out
+    peak, sites = peak_sites(snap["device_traces"][0])
+    print(f"FedAvg round memory ({M} clients): peak {peak * gib:.3f} GiB "
+          f"above the {base * gib:.3f} GiB before it; live at the peak:")
+    for b, site in sites:
+        print(f"  {b * gib:8.3f} GiB  {site}")
+
+
+def phase_fo_paper(dev, zo_summary) -> dict:
+    """Path 5, the first-order side of Fig. 4: the reference driver's
+    FedAvg and FedLoRA (one local SGD step at lr_client, η_g = lr_global;
+    LoRA rank 4, alpha 16 on wq and wv) on paper-opt-1.3b at its full
+    config with path 4's flags and schedule (``PAPER_ARGV``), through
+    ``train.setup`` + ``drive``. Each round trains every one of the M
+    clients through the flash forward and backward kernels: 2·M·24 flash
+    forwards a round (each client's loss, then its training forward) and
+    M·24 backwards, checked exactly; no noise kernel launches. FedAvg's
+    parameters must move; FedLoRA's base must not, and its adapters must
+    leave their initial values. Prints each run's seconds a round, peak
+    memory, losses and simulated total beside path 4's zeroth-order
+    runs. Returns the launch counts."""
+    import numpy as np
+    from repro_torch.core import engine
+    from repro_torch.launch import train
+    from repro_torch.utils import tree
+    launches, summary = {}, {}
+    for algorithm in ("fedavg", "fedlora"):
+        name = f"FO paper path ({algorithm})"
+        torch.cuda.empty_cache()
+        run = train.setup([*PAPER_ARGV, "--algorithm", algorithm])
+        cfg = run.cfg
+        require(cfg.n_layers == 24 and cfg.d_model == 2048
+                and cfg.d_head == 64 and cfg.vocab_size == 50272,
+                f"{name}: not paper-opt-1.3b's full config")
+        if algorithm == "fedavg":
+            fo_memory(dev, run)
+        res, _, n, chunks = drive(dev, name, run, run.sfl,
+                                  ("flash_attention", "flash_attention_bwd"),
+                                  frozen=algorithm == "fedlora")
+        M, R, L = run.sfl.n_clients, run.args.rounds, cfg.n_layers
+        require(n.get("flash_attention") == R * 2 * M * L
+                and n.get("flash_attention_bwd") == R * M * L,
+                f"{name}: launches {n}, not {R * 2 * M * L} flash forwards "
+                f"and {R * M * L} backwards")
+        require(not any(n.get(k) for k in ("zo_update", "zo_replay",
+                                           "threefry")),
+                f"{name}: a noise kernel launched on a first-order run")
+        if algorithm == "fedlora":
+            init = engine.get_algorithm("fedlora").init_state(
+                cfg, run.sfl, run.params, None)
+            moved = max(max_err(a, b) for a, b in
+                        zip(tree.leaves(res.state), tree.leaves(init)))
+            print(f"{name}: adapters max |Δ| from their init {moved:.3e}")
+            require(moved > 0, f"{name}: the adapters did not move")
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+        summary[algorithm] = dict(
+            masks=np.concatenate([c[0] for c in chunks]), sim_t=res.sim_time,
+            seconds=[c[1] / len(c[0]) for c in chunks],
+            peak=[c[2] for c in chunks], losses=list(res.round_loss))
+        del run, res
+    require(np.array_equal(summary["fedavg"]["masks"],
+                           zo_summary["mu_splitfed"]["masks"]),
+            "FO paper path: another schedule than path 4's")
+    for algorithm, v in {**summary, **zo_summary}.items():
+        print(f"Fig. 4 on the card, {algorithm}: peak GiB by chunk "
+              f"{v['peak']}  seconds a round by chunk {v['seconds']}  "
+              f"sim_t {v['sim_t']}  losses {v['losses']}")
     return launches
+
+
+def phase_qwen_fo(dev) -> dict:
+    """One FedAvg round (2 clients) of qwen3-14b at its full published
+    width with its depth cut to QWEN_FO_LAYERS of 40 layers, through the
+    driver: the RMSNorm backward runs inside a real backward (per client
+    two block norms and the qk-norm's q and k a layer, and the final norm:
+    4·layers + 1 launches), beside the flash backward at d_head 128 with
+    GQA 40/8. Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    name = f"qwen3-14b FedAvg ({QWEN_FO_LAYERS} of 40 layers)"
+    torch.cuda.empty_cache()
+    run = train.setup(QWEN_FO_ARGV, cfg=get_config("qwen3-14b").replace(
+        n_layers=QWEN_FO_LAYERS))
+    n = drive(dev, name, run, run.sfl, ("flash_attention",
+                                        "flash_attention_bwd", "rmsnorm",
+                                        "rmsnorm_bwd"))[2]
+    M, L = run.sfl.n_clients, QWEN_FO_LAYERS
+    require(n.get("rmsnorm_bwd") == M * (4 * L + 1)
+            and n.get("flash_attention_bwd") == M * L,
+            f"{name}: launches {n}, not {M * (4 * L + 1)} rmsnorm and "
+            f"{M * L} flash backwards")
+    return n
 
 
 def profile_round(name: str, fn):
@@ -1401,7 +1912,10 @@ def main() -> int:
     flash = phase_flash(dev)
     norm = phase_rmsnorm(dev)
     tf = phase_threefry(dev, tf_sass)
+    flash_bwd = phase_flash_bwd(dev)
+    norm_bwd = phase_rmsnorm_bwd(dev)
     phase_small_round(dev)
+    phase_small_fo(dev)
     from repro_torch.configs import get_config
     launches = phase_path(dev, "olmo-1b path", OLMO_ARGV, None,
                           ("zo_update", "zo_replay", "flash_attention"))
@@ -1416,7 +1930,13 @@ def main() -> int:
     for k, n in phase_driver(dev).items():
         launches[k] = launches.get(k, 0) + n
     torch.cuda.empty_cache()
-    for k, n in phase_paper(dev).items():
+    paper_launches, zo_summary = phase_paper(dev)
+    for k, n in paper_launches.items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    for k, n in phase_fo_paper(dev, zo_summary).items():
+        launches[k] = launches.get(k, 0) + n
+    for k, n in phase_qwen_fo(dev).items():
         launches[k] = launches.get(k, 0) + n
     src = "src/repro_torch/kernels/csrc/"
     rows = [("zo_update", src + "zo_update.cu",
@@ -1430,7 +1950,13 @@ def main() -> int:
             # no Pallas kernel: the counterpart of jax.random.normal (XLA's
             # threefry and erfinv) in the reference's tree_noise
             ("threefry", src + "threefry.cu", "src/repro/core/zo.py:125",
-             tf)]
+             tf),
+            # no Pallas kernels: the reference's gradients are XLA's
+            # autodiff of its einsum attention and its jnp RMSNorm
+            ("flash_attention_bwd", src + "flash_attention_bwd.cu",
+             "src/repro/models/attention.py:91", flash_bwd),
+            ("rmsnorm_bwd", src + "rmsnorm.cu",
+             "src/repro/models/layers.py:47", norm_bwd)]
     for name, *_ in rows:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was launched on no path")

@@ -106,6 +106,7 @@ class SFLConfig:
     zo_eps: float = 5e-3        # lambda (smoothing)
     participation: float = 1.0  # DEPRECATED shorthand (see population)
     perturbation_dist: str = "gaussian"  # gaussian|sphere|counter
+    seed: int = 0               # FedLoRA's adapter init key
     # straggler simulation
     straggler_rate: float = 0.0     # DEPRECATED shorthand (see population)
     deadline: float = 0.0           # drop clients beyond deadline (0 = off)

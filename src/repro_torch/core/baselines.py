@@ -10,10 +10,20 @@ counterpart of ``repro.core.baselines``):
                            as the fresh/stale mask row of the schedule; the
                            activation buffer is carried across rounds as
                            device tensors (``GasState``).
+  fedavg_round           : first-order FedAvg (full model on every client,
+                           E local SGD/momentum/AdamW steps), the memory
+                           and convergence baseline of Fig. 4 / §5.
+  fedlora_round          : FedAvg over LoRA adapters (only (A, B) train
+                           and ship).
 
-The first-order baselines (``fedavg_round``, ``fedlora_round``) need a
-differentiable model path and are not ported (ROADMAP.md, queue 1,
-item 4).
+The first-order rounds take gradients with ``torch.autograd.grad`` of
+``loss_fn``, outside ``inference_mode``: attention and RMSNorm go through
+their kernels' autograd Functions. As in the reference every one of the M
+clients trains (the reference vmaps all of them); the mask only weights
+the aggregation, w = mask / max(Σmask, 1), and the new global tree is
+g + η_g·Σ w_m·(p_m - g) in f32. The reference stacks the M trained copies;
+the port trains the clients one after another and keeps an f32 running
+sum, so its peak memory is one client copy plus that sum.
 """
 from __future__ import annotations
 
@@ -26,8 +36,10 @@ import torch
 from repro_torch.configs.base import ModelConfig, SFLConfig
 from repro_torch.core import prng, zo
 from repro_torch.core.splitfed import RoundMetrics, mu_splitfed_round
-from repro_torch.models import (client_forward, merge_params, server_forward,
-                                split_params)
+from repro_torch.models import (client_forward, loss_fn, merge_params,
+                                server_forward, split_params)
+from repro_torch.optim import make_optimizer, sgd_update
+from repro_torch.optim.lora import apply_lora
 from repro_torch.utils import tree
 
 Params = Any
@@ -149,3 +161,83 @@ def gas_round(cfg: ModelConfig, sfl: SFLConfig, params: Params,
                                [o["delta"] for o in outs])[:, None],
                            client_delta=ccoeff)
     return merge_params(cfg, xc_new, xs_new), new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# first-order baselines
+# ---------------------------------------------------------------------------
+
+def _grads(loss_of, params: Params) -> Params:
+    """d loss_of(params) / d params for every leaf (zeros for a leaf the
+    loss does not reach), with autograd on whatever mode the caller is in."""
+    leaves, spec = tree.flatten(params)
+    with torch.inference_mode(False), torch.enable_grad():
+        xs = [a.detach().requires_grad_(True) for a in leaves]
+        loss = loss_of(tree.unflatten(spec, xs))
+        gs = torch.autograd.grad(loss, xs, allow_unused=True)
+    return tree.unflatten(spec, [torch.zeros_like(x) if g is None else g
+                                 for x, g in zip(xs, gs)])
+
+
+def _client_batch(batches, m: int, e=None):
+    return {k: (v[m] if e is None else v[m, e]) for k, v in batches.items()}
+
+
+def _fedavg_aggregate(glob: Params, train, active_mask: torch.Tensor,
+                      eta_g: float) -> Params:
+    """g + η_g·Σ_m w_m·(p_m - g), w = mask / max(Σmask, 1), in f32; each
+    difference is taken in the leaf's type, as the reference takes it.
+    ``train(m)`` returns client m's tree; the M trees are made one at a
+    time, each freed before the next is trained (an ``enumerate`` over a
+    generator would keep the last one alive while the next trains)."""
+    w = (active_mask / active_mask.sum().clamp(min=1.0)).to(torch.float32)
+    g_leaves, spec = tree.flatten(glob)
+    acc = [torch.zeros(a.shape, dtype=torch.float32, device=a.device)
+           for a in g_leaves]
+    for m in range(active_mask.shape[0]):
+        p_m = train(m)
+        with torch.no_grad():
+            for a, pm, g in zip(acc, tree.leaves(p_m), g_leaves):
+                a.add_((pm - g).to(torch.float32).mul_(w[m]))
+        del p_m, pm
+    with torch.no_grad():
+        return tree.unflatten(spec, [(g + eta_g * a).to(g.dtype)
+                                     for g, a in zip(g_leaves, acc)])
+
+
+def fedavg_round(cfg: ModelConfig, params: Params, batches, active_mask,
+                 lr: float, local_steps: int = 1, optimizer: str = "sgd",
+                 eta_g: float = 1.0) -> Params:
+    """One FedAvg round: E local first-order steps per client from the
+    global parameters and a fresh optimizer state, then the FedAvg
+    aggregate. Local batches: leaves (M, E, b, S) when local_steps > 1,
+    else (M, b, S)."""
+    init_opt, update = make_optimizer(optimizer)
+
+    def local(m):
+        p, s = params, init_opt(params)
+        for e in range(local_steps):
+            b = _client_batch(batches, m, e if local_steps > 1 else None)
+            g = _grads(lambda q: loss_fn(cfg, q, b), p)
+            with torch.no_grad():
+                p, s = update(p, g, s, lr)
+            del g
+        return p
+
+    return _fedavg_aggregate(params, local, active_mask, eta_g)
+
+
+def fedlora_round(cfg: ModelConfig, params: Params, lora, batches,
+                  active_mask, lr: float, alpha: float = 16.0,
+                  eta_g: float = 1.0):
+    """Clients take one SGD step on the LoRA adapters only (the base
+    parameters never move); only (A, B) are aggregated. Returns the new
+    adapter tree."""
+    def local(m):
+        b = _client_batch(batches, m)
+        g = _grads(lambda lo: loss_fn(cfg, apply_lora(params, lo, alpha), b),
+                   lora)
+        with torch.no_grad():
+            return sgd_update(lora, g, lr)
+
+    return _fedavg_aggregate(lora, local, active_mask, eta_g)

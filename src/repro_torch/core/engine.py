@@ -2,11 +2,11 @@
 ``repro.core.engine``).
 
   Algorithm    protocol (init_state / round_fn / time_model) with the
-               registered ``mu_splitfed``, ``vanilla`` and ``gas``
-               adapters: a round is (params, state, batch, mask, key) ->
-               (params, state, metrics), and every system effect enters as
-               the (M,) mask row (GAS carries its activation buffer as
-               state).
+               registered ``mu_splitfed``, ``vanilla``, ``gas``, ``fedavg``
+               and ``fedlora`` adapters: a round is (params, state, batch,
+               mask, key) -> (params, state, metrics), and every system
+               effect enters as the (M,) mask row (GAS carries its
+               activation buffer as state, FedLoRA its adapters).
   run_rounds   the driver. Straggler delays and participation / deadline
                masks come from a host ``straggler.Schedule``, round r's key
                is fold_in(key, r), and the simulated wall-clock of each
@@ -23,8 +23,7 @@
                (simulated or measured) with ``straggler.plan_tau``.
 
 Not ported yet (ROADMAP.md, queue 1): checkpoints and resume (item 3),
-the first-order baselines (item 4), mode='async' and the sparse timeline
-(item 5).
+mode='async' and the sparse timeline (item 5).
 """
 from __future__ import annotations
 
@@ -39,11 +38,14 @@ import torch
 from repro_torch.configs.base import ModelConfig, SFLConfig
 from repro_torch.core import prng
 from repro_torch.core import straggler as strag
-from repro_torch.core.baselines import (gas_init_state, gas_round,
+from repro_torch.core.baselines import (fedavg_round, fedlora_round,
+                                        gas_init_state, gas_round,
                                         vanilla_splitfed_round)
 from repro_torch.core.splitfed import mu_splitfed_round
+from repro_torch.models import loss_fn
 from repro_torch.obs.telemetry import RoundTelemetry, TelemetrySink
 from repro_torch.obs.trace import span
+from repro_torch.optim.lora import apply_lora, init_lora
 from repro_torch.utils import tree
 
 Params = Any
@@ -82,8 +84,8 @@ def get_algorithm(name: Union[str, Algorithm], **opts) -> Algorithm:
     if isinstance(name, str):
         if name not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {name!r}; registered: "
-                             f"{sorted(ALGORITHMS)} (fedavg and fedlora are "
-                             f"ROADMAP.md, queue 1, item 4)")
+                             f"{sorted(ALGORITHMS)} (async_mu_splitfed is "
+                             f"ROADMAP.md, queue 1, item 5)")
         return ALGORITHMS[name](**opts)
     if opts:
         raise ValueError("opts only apply when resolving by name")
@@ -177,6 +179,66 @@ class Gas(AlgorithmBase):
     def time_model(self, delays, mask, sfl, sched):
         return strag.round_time_gas(delays, mask, sched.t_server, sched.t_gen,
                                     sched.comm_for(mask))
+
+
+def _client_losses(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """(M,) f32 loss of each client's batch at ``params``, with no graph."""
+    M = next(iter(batch.values())).shape[0]
+    with torch.no_grad():
+        return torch.stack([loss_fn(cfg, params,
+                                    {k: v[m] for k, v in batch.items()})
+                            for m in range(M)]).to(torch.float32)
+
+
+@register
+class FedAvg(AlgorithmBase):
+    """First-order FedAvg (full model on every client, E local steps)."""
+    name = "fedavg"
+
+    def __init__(self, lr: Optional[float] = None, local_steps: int = 1,
+                 optimizer: str = "sgd"):
+        self.lr = lr
+        self.local_steps = local_steps
+        self.optimizer = optimizer
+
+    def round_fn(self, cfg, sfl, params, state, batch, mask, key):
+        first = ({k: v[:, 0] for k, v in batch.items()}
+                 if self.local_steps > 1 else batch)
+        loss0 = _client_losses(cfg, params, first)
+        params = fedavg_round(cfg, params, batch, mask,
+                              self.lr if self.lr is not None else sfl.lr_client,
+                              self.local_steps, self.optimizer,
+                              eta_g=sfl.lr_global)
+        return params, state, {"loss": loss0}
+
+    def time_model(self, delays, mask, sfl, sched):
+        return strag.round_time_local_only(delays, mask, sched.comm_for(mask))
+
+
+@register
+class FedLora(FedAvg):
+    """FedAvg over LoRA adapters only; the base parameters never move, and
+    the adapter tree is the engine's state."""
+    name = "fedlora"
+
+    def __init__(self, rank: int = 4, alpha: float = 16.0,
+                 lr: Optional[float] = None):
+        super().__init__(lr=lr)
+        self.rank = rank
+        self.alpha = alpha
+
+    def init_state(self, cfg, sfl, params, batch0):
+        return init_lora(cfg, params, self.rank, prng.PRNGKey(sfl.seed))
+
+    def round_fn(self, cfg, sfl, params, state, batch, mask, key):
+        with torch.no_grad():
+            merged = apply_lora(params, state, self.alpha)
+        loss0 = _client_losses(cfg, merged, batch)
+        del merged
+        lora = fedlora_round(cfg, params, state, batch, mask,
+                             self.lr if self.lr is not None else sfl.lr_client,
+                             self.alpha, eta_g=sfl.lr_global)
+        return params, lora, {"loss": loss0}
 
 
 class SchedWindow(NamedTuple):

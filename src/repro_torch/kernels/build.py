@@ -29,8 +29,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("zo_update.cu", "flash_attention.cu", "rmsnorm.cu",
-           "threefry.cu")
+SOURCES = ("zo_update.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+           "rmsnorm.cu", "threefry.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -53,17 +53,30 @@ SIGNATURES = {
     # h0, n, r*, a*, stream: the noise factors at h0 .. h0 + n - 1
     "zo_noise_factors_launch": (ctypes.c_uint, ctypes.c_longlong, _VOIDP,
                                 _VOIDP, _VOIDP),
-    # q, k, v, o, then the (batch, head, row) strides of q, k, v and o,
-    # B, H, Hkv, S, D, dtype, scale, causal, window, stream
-    "flash_attention_launch": (_VOIDP,) * 4 + (ctypes.c_longlong,) * 12 + (
+    # q, k, v, o, lse (or null), then the (batch, head, row) strides of q,
+    # k, v and o, B, H, Hkv, S, D, dtype, scale, causal, window, stream
+    "flash_attention_launch": (_VOIDP,) * 5 + (ctypes.c_longlong,) * 12 + (
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP),
+    # q, k, v, o, dout, lse, dq, dk, dv, delta scratch, then the (batch,
+    # head, row) strides of q, k, v, o and dout, B, H, Hkv, S, D, dtype,
+    # scale, causal, window, stream
+    "flash_attention_bwd_launch": (_VOIDP,) * 10 + (ctypes.c_longlong,) * 15
+    + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+       ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP),
     # D, dtype: a launch's dynamic shared memory; blocks that fit an SM
     "flash_attention_smem_bytes": (ctypes.c_int, ctypes.c_int),
     "flash_attention_blocks_per_sm": (ctypes.c_int, ctypes.c_int),
     # x, scale, y, rows, D, dtype, eps, stream
     "rmsnorm_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, _VOIDP),
+    # x, scale, dy, dx, dscale, rstd scratch, partial scratch, rows, D,
+    # dtype, eps, stream
+    "rmsnorm_bwd_launch": (_VOIDP,) * 7 + (ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_float,
+                                           _VOIDP),
+    # (): the rows a block of the backward's partial sums covers
+    "rmsnorm_bwd_chunk_rows": (),
     # xq, sq, yq, rows_q, xk, sk, yk, rows_k, D, dtype, eps, stream
     "rmsnorm_pair_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong) * 2
     + (ctypes.c_int, ctypes.c_int, ctypes.c_float, _VOIDP),

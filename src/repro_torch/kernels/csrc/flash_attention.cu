@@ -10,6 +10,14 @@
 // acc) live in registers. Kv tiles wholly outside the causal / window band
 // are never loaded.
 //
+// Under autograd the forward also writes each row's log-sum-exp,
+// lse = m + log(l) in f32, (B, H, S) contiguous, which the backward
+// (flash_attention_bwd.cu) recomputes the probabilities from. Both kernels
+// keep m in natural units (the bf16 kernel takes its exponentials as exp2f
+// of (s - m)·log2(e)), so the lse needs no change of base. The pointer is
+// null on the zeroth-order paths, which then compute and write what they
+// did before it existed.
+//
 // Bound on this card. At the training shapes (S = 512, d = 128) a call
 // reads q, k, v once and writes o once: 7.3 MB at qwen3-14b's (1,40,512,128)
 // with 8 kv heads, 2.2 us at 3.35 TB/s, against 4·d flops per unmasked
@@ -96,8 +104,8 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 Layout L, int H, int Hkv, int S, float scale, int causal,
-                 int window) {
+                 float* __restrict__ lse, Layout L, int H, int Hkv, int S,
+                 float scale, int causal, int window) {
   constexpr int LD = D + 4;
   constexpr int LDP = kBK + 4;
   constexpr int NCOL = kBK / 4;  // scores per thread per kv tile
@@ -211,6 +219,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (row >= S) return;
   const float l = fmaxf(l_i, 1e-30f);
+  if (lse != nullptr && qd == 0)
+    lse[static_cast<long long>(blockIdx.y) * S + row] = m_i + logf(l);
   float* dst = op + row * L.o[2];
 #pragma unroll
   for (int m = 0; m < NV; ++m) {
@@ -224,8 +234,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               const Layout& L, int B, int H, int Hkv, int S, float scale,
-               int causal, int window, cudaStream_t stream) {
+               float* lse, const Layout& L, int B, int H, int Hkv, int S,
+               float scale, int causal, int window, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -234,8 +244,8 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), L, H, Hkv, S,
-      scale, causal, window);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, L, H, Hkv,
+      S, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -351,8 +361,8 @@ template <int D>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                      Layout L, int H, int Hkv, int S, float scale,
-                      int causal, int window) {
+                      float* __restrict__ lse, Layout L, int H, int Hkv,
+                      int S, float scale, int causal, int window) {
   constexpr int LD = tc_ld<D>();
   constexpr int KD = D / 16;       // k-steps of Q·K^T
   constexpr int NS = kTcBK / 8;    // n-tiles of a score tile
@@ -542,6 +552,11 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
     inv[r] = 1.f / fmaxf(l_i[r], 1e-30f);
   }
+  if (lse != nullptr && c == 0) {
+    float* lrow = lse + static_cast<long long>(blockIdx.x) * S;
+    if (row0 < S) lrow[row0] = m_i[0] + logf(fmaxf(l_i[0], 1e-30f));
+    if (row0 + 8 < S) lrow[row0 + 8] = m_i[1] + logf(fmaxf(l_i[1], 1e-30f));
+  }
   bf16* Ow = Qs + 16 * warp * LD;
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
@@ -564,8 +579,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int D>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                const Layout& L, int B, int H, int Hkv, int S, float scale,
-                int causal, int window, cudaStream_t stream) {
+                float* lse, const Layout& L, int B, int H, int Hkv, int S,
+                float scale, int causal, int window, cudaStream_t stream) {
   // cp.async and the output stores move 16 bytes: rows must start on 16
   const void* ptrs[4] = {q, k, v, o};
   const long long* strides[4] = {L.q, L.k, L.v, L.o};
@@ -584,7 +599,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(B * H, (S + kTcBQ - 1) / kTcBQ);
   flash_fwd_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), L, H, Hkv, S,
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, L, H, Hkv, S,
       scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
@@ -628,10 +643,12 @@ extern "C" int flash_attention_blocks_per_sm(int D, int dtype) {
 
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D), each given by its pointer and
 // its element strides along (batch, head, row); the stride along D is 1.
-// dtype: 0 = float32, 1 = bfloat16 (pointers and strides on 16 bytes). D in
-// {64, 128}. Returns cudaGetLastError() after launch.
+// lse: null, or (B, H, S) contiguous f32 that receives each row's
+// log-sum-exp. dtype: 0 = float32, 1 = bfloat16 (pointers and strides on
+// 16 bytes). D in {64, 128}. Returns cudaGetLastError() after launch.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, long long q_sb,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    long long q_sb,
     long long q_sh, long long q_sr, long long k_sb, long long k_sh,
     long long k_sr, long long v_sb, long long v_sh, long long v_sr,
     long long o_sb, long long o_sh, long long o_sr, int B, int H, int Hkv,
@@ -643,17 +660,18 @@ extern "C" int flash_attention_launch(
   const Layout L = {{q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
                     {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, L, B, H, Hkv, S, scale, causal, window,
+    return launch_f32<64>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal, window,
                           s);
   if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, L, B, H, Hkv, S, scale, causal,
+    return launch_f32<128>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal,
                            window, s);
   if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, o, L, B, H, Hkv, S, scale, causal,
+    return launch_bf16<64>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal,
                            window, s);
   if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, o, L, B, H, Hkv, S, scale, causal,
+    return launch_bf16<128>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal,
                             window, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

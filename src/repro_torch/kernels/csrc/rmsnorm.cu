@@ -26,6 +26,20 @@
 // written once (the second pass over a row re-reads it from L1/L2, where
 // the first pass left it: 10 KB for a bf16 row of 5120), at 3 flops an
 // element.
+//
+// Backward (rmsnorm_bwd_launch; the TPU reference has none: its gradient is
+// XLA's autodiff of the jnp norm). With r = rsqrt(mean(x^2) + eps),
+// x^ = x * r and g = dy * scale:
+//     dx     = r * (g - x^ * mean(g * x^)) = r * g - x * (r^3 * sum(g*x) / D)
+//     dscale = sum over rows of dy * x^          (f32, (D,))
+// in three launches, deterministic (no atomics): (1) dx in the forward's
+// geometry (G lanes a row up to D = 1024, a block a row above), each row's
+// sum(x^2) and sum(g*x) in one pass and dx in a second, and the row's r into
+// an f32 scratch; (2) blocks of 32 columns by 8 row lanes sum dy * x * r
+// over chunks of kChunkRows rows into a (chunks, D) f32 scratch; (3) one
+// thread a column sums its chunks in order into dscale. Bound: bytes, x and
+// dy read and dx written once (launch 2 re-reads x and dy, from L2 at the
+// model's shapes), about 10 flops an element.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -223,6 +237,227 @@ cudaError_t dispatch(const void* x, const void* s, void* y, long long rows,
   return launch_block<T, 1>(x, s, y, rows, D, eps, st);
 }
 
+// ---------------------------------------------------------------------------
+// backward
+// ---------------------------------------------------------------------------
+
+constexpr int kChunkRows = 64;  // rows a block of launch 2 sums
+
+// The V scale values of pack i.
+template <int V>
+__device__ __forceinline__ void load_scale(const float* __restrict__ s, int i,
+                                           float (&sv)[V]) {
+  if constexpr (V % 4 == 0) {
+    const float4* s4 = reinterpret_cast<const float4*>(s + i * V);
+#pragma unroll
+    for (int j = 0; j < V / 4; ++j) {
+      const float4 t = s4[j];
+      sv[4 * j] = t.x;
+      sv[4 * j + 1] = t.y;
+      sv[4 * j + 2] = t.z;
+      sv[4 * j + 3] = t.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) sv[j] = s[i * V + j];
+  }
+}
+
+// This thread's share of (sum(x^2), sum(dy*scale*x)) over one row.
+template <typename T, int V>
+__device__ __forceinline__ float2 row_sums_bwd(const T* __restrict__ xr,
+                                               const T* __restrict__ dyr,
+                                               const float* __restrict__ s,
+                                               int D, int tid, int n) {
+  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(xr);
+  const Pack<T, V>* gp = reinterpret_cast<const Pack<T, V>*>(dyr);
+  float ss = 0.0f, sg = 0.0f;
+  for (int i = tid; i < D / V; i += n) {
+    const Pack<T, V> p = xp[i];
+    const Pack<T, V> q = gp[i];
+    float sv[V];
+    load_scale<V>(s, i, sv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float f = to_f32(p.v[j]);
+      ss = fmaf(f, f, ss);
+      sg = fmaf(to_f32(q.v[j]) * sv[j], f, sg);
+    }
+  }
+  return make_float2(ss, sg);
+}
+
+// dx = r * (dy * scale) - x * c over one row, threads tid, tid + n, ...
+template <typename T, int V>
+__device__ __forceinline__ void row_dx(const T* __restrict__ xr,
+                                       const T* __restrict__ dyr,
+                                       const float* __restrict__ s,
+                                       T* __restrict__ dxr, int D, float r,
+                                       float c, int tid, int n) {
+  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(xr);
+  const Pack<T, V>* gp = reinterpret_cast<const Pack<T, V>*>(dyr);
+  Pack<T, V>* dp = reinterpret_cast<Pack<T, V>*>(dxr);
+  for (int i = tid; i < D / V; i += n) {
+    const Pack<T, V> p = xp[i];
+    const Pack<T, V> q = gp[i];
+    float sv[V];
+    load_scale<V>(s, i, sv);
+    Pack<T, V> o;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      o.v[j] = from_f32<T>(r * (to_f32(q.v[j]) * sv[j]) -
+                           to_f32(p.v[j]) * c);
+    }
+    dp[i] = o;
+  }
+}
+
+// (r, r^3 * sum(g*x) / D) of a row from its sums.
+__device__ __forceinline__ float2 bwd_factors(float2 sums, int D, float eps) {
+  const float r = rsqrtf(sums.x / static_cast<float>(D) + eps);
+  return make_float2(r, r * r * r * sums.y / static_cast<float>(D));
+}
+
+// Launch 1 for wide rows: one block a row.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_block_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                         const float* __restrict__ s, T* __restrict__ dx,
+                         float* __restrict__ rstd, int D, float eps) {
+  __shared__ float2 warp_sums[kThreads / 32];
+  const long long row = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const T* xr = x + row * D;
+  const T* gr = dy + row * D;
+  float2 t = row_sums_bwd<T, V>(xr, gr, s, D, threadIdx.x, kThreads);
+  t.x = warp_sum(t.x);
+  t.y = warp_sum(t.y);
+  if (lane == 0) warp_sums[warp] = t;
+  __syncthreads();
+  if (warp == 0) {
+    const float2 w = lane < kThreads / 32 ? warp_sums[lane]
+                                          : make_float2(0.0f, 0.0f);
+    const float a = warp_sum(w.x), b = warp_sum(w.y);
+    if (lane == 0) warp_sums[0] = make_float2(a, b);
+  }
+  __syncthreads();
+  const float2 f = bwd_factors(warp_sums[0], D, eps);
+  if (threadIdx.x == 0) rstd[row] = f.x;
+  row_dx<T, V>(xr, gr, s, dx + row * D, D, f.x, f.y, threadIdx.x, kThreads);
+}
+
+// Launch 1 for rows of D <= 1024: G lanes a row, kThreads / G rows a block.
+template <typename T, int V, int G>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                        const float* __restrict__ s, T* __restrict__ dx,
+                        float* __restrict__ rstd, long long rows, int D,
+                        float eps) {
+  const int lane = threadIdx.x % G;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
+  const bool live = row < rows;
+  const T* xr = x + (live ? row : 0) * D;
+  const T* gr = dy + (live ? row : 0) * D;
+  float2 t = live ? row_sums_bwd<T, V>(xr, gr, s, D, lane, G)
+                  : make_float2(0.0f, 0.0f);
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    t.x += __shfl_xor_sync(0xffffffffu, t.x, o);
+    t.y += __shfl_xor_sync(0xffffffffu, t.y, o);
+  }
+  if (!live) return;
+  const float2 f = bwd_factors(t, D, eps);
+  if (lane == 0) rstd[row] = f.x;
+  row_dx<T, V>(xr, gr, s, dx + row * D, D, f.x, f.y, lane, G);
+}
+
+// Launch 2: partial[chunk][c] = sum over the chunk's rows of dy*x*r, for
+// the 32 columns of this block; 8 row lanes, summed through shared memory.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_dscale_partial_kernel(const T* __restrict__ x,
+                              const T* __restrict__ dy,
+                              const float* __restrict__ rstd,
+                              float* __restrict__ partial, long long rows,
+                              int D) {
+  __shared__ float acc_s[kThreads / 32][33];
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int col = blockIdx.x * 32 + tx;
+  const long long r0 = static_cast<long long>(blockIdx.y) * kChunkRows;
+  const long long r1 = min(rows, r0 + kChunkRows);
+  float acc = 0.0f;
+  if (col < D) {
+    for (long long row = r0 + ty; row < r1; row += kThreads / 32) {
+      const long long e = row * D + col;
+      acc = fmaf(to_f32(dy[e]) * to_f32(x[e]), rstd[row], acc);
+    }
+  }
+  acc_s[ty][tx] = acc;
+  __syncthreads();
+  if (ty == 0 && col < D) {
+    float t = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kThreads / 32; ++j) t += acc_s[j][tx];
+    partial[static_cast<long long>(blockIdx.y) * D + col] = t;
+  }
+}
+
+// Launch 3: dscale[c] = sum of partial[0..chunks)[c], in chunk order.
+__global__ void __launch_bounds__(kThreads)
+rmsnorm_dscale_reduce_kernel(const float* __restrict__ partial,
+                             float* __restrict__ dscale, int chunks, int D) {
+  const int col = blockIdx.x * kThreads + threadIdx.x;
+  if (col >= D) return;
+  float t = 0.0f;
+  for (int j = 0; j < chunks; ++j)
+    t += partial[static_cast<long long>(j) * D + col];
+  dscale[col] = t;
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* x, const void* s, const void* dy,
+                         void* dx, float* dscale, float* rstd,
+                         float* partial, long long rows, int D, float eps,
+                         cudaStream_t st) {
+  const T* xp = static_cast<const T*>(x);
+  const T* gp = static_cast<const T*>(dy);
+  const float* sp = static_cast<const float*>(s);
+  T* dp = static_cast<T*>(dx);
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = aligned16(x, s, dy, dx) && D % V == 0;
+  if (D <= kWarpRowsMaxD) {
+    const int G = vec && D / V <= 16 ? 16 : 32;
+    const long long blocks = (rows + kThreads / G - 1) / (kThreads / G);
+    const unsigned nb = static_cast<unsigned>(blocks);
+    if (vec && G == 16)
+      rmsnorm_bwd_rows_kernel<T, V, 16><<<nb, kThreads, 0, st>>>(
+          xp, gp, sp, dp, rstd, rows, D, eps);
+    else if (vec)
+      rmsnorm_bwd_rows_kernel<T, V, 32><<<nb, kThreads, 0, st>>>(
+          xp, gp, sp, dp, rstd, rows, D, eps);
+    else
+      rmsnorm_bwd_rows_kernel<T, 1, 32><<<nb, kThreads, 0, st>>>(
+          xp, gp, sp, dp, rstd, rows, D, eps);
+  } else if (vec) {
+    rmsnorm_bwd_block_kernel<T, V><<<static_cast<unsigned>(rows), kThreads,
+                                     0, st>>>(xp, gp, sp, dp, rstd, D, eps);
+  } else {
+    rmsnorm_bwd_block_kernel<T, 1><<<static_cast<unsigned>(rows), kThreads,
+                                     0, st>>>(xp, gp, sp, dp, rstd, D, eps);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int chunks = static_cast<int>((rows + kChunkRows - 1) / kChunkRows);
+  rmsnorm_dscale_partial_kernel<T><<<dim3((D + 31) / 32, chunks), kThreads, 0,
+                                     st>>>(xp, gp, rstd, partial, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0,
+                                 st>>>(partial, dscale, chunks, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // x, y: (rows, D) contiguous; scale: (D,) f32. dtype: 0 = float32,
@@ -263,6 +498,39 @@ extern "C" int rmsnorm_pair_launch(const void* xq, const void* sq, void* yq,
   } else if (dtype == 1) {
     err = dispatch_pair<__nv_bfloat16>(xq, sq, yq, rows_q, xk, sk, yk, rows_k,
                                        D, eps, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// The rows a block of the backward's second launch sums: the scratch of
+// rmsnorm_bwd_launch holds ceil(rows / this) rows of D floats.
+extern "C" int rmsnorm_bwd_chunk_rows() { return kChunkRows; }
+
+// The backward of rmsnorm_launch: x, dy, dx (rows, D) contiguous in one
+// dtype (0 = float32, 1 = bfloat16); scale (D,) f32; dscale (D,) f32
+// output; rstd a (rows,) f32 scratch, partial a (ceil(rows /
+// rmsnorm_bwd_chunk_rows()), D) f32 scratch. Three launches; returns
+// cudaGetLastError() after them.
+extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
+                                  const void* dy, void* dx, void* dscale,
+                                  void* rstd, void* partial, long long rows,
+                                  int D, int dtype, float eps, void* stream) {
+  if (rows <= 0 || D <= 0 || rows > 0x7FFFFFFFLL ||
+      (rows + kChunkRows - 1) / kChunkRows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* ds = static_cast<float*>(dscale);
+  float* rs = static_cast<float*>(rstd);
+  float* pt = static_cast<float*>(partial);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dispatch_bwd<float>(x, scale, dy, dx, ds, rs, pt, rows, D, eps, st);
+  } else if (dtype == 1) {
+    err = dispatch_bwd<__nv_bfloat16>(x, scale, dy, dx, ds, rs, pt, rows, D,
+                                      eps, st);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -75,9 +75,8 @@ def threefry_sumsq_leaf(x: torch.Tensor, key, acc: torch.Tensor
     return threefry_sumsq(x.numel(), key, acc)
 
 
-def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0,
-                       out=None):
-    return flash_attention(q, k, v, causal=causal, window=window, out=out)
+def flash_attention_op(q, k, v, *, causal: bool = True, window: int = 0):
+    return flash_attention(q, k, v, causal=causal, window=window)
 
 
 def rmsnorm_op(x, scale, *, eps: float = 1e-5):

@@ -143,9 +143,25 @@ def zo_replay_ref(x: torch.Tensor, seeds, coeffs: torch.Tensor,
     return (x.to(torch.float32) + acc).to(x.dtype)
 
 
+def _attention_mask(S: int, causal: bool, window: int, device
+                    ) -> torch.Tensor:
+    """(S, S) bool: True where query i sees key j."""
+    i = torch.arange(S, device=device)[:, None]
+    j = torch.arange(S, device=device)[None, :]
+    ok = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        ok &= j <= i
+    if window > 0:
+        ok &= (i - j) < window
+    return ok
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, H, S, d); k, v: (B, Hkv, S, d). Returns (B, H, S, d).
+                        causal: bool = True, window: int = 0, *,
+                        return_lse: bool = False):
+    """q: (B, H, S, d); k, v: (B, Hkv, S, d). Returns (B, H, S, d), and with
+    ``return_lse`` also each row's log-sum-exp of the scaled, masked scores
+    ((B, H, S) f32, what the backward recomputes the probabilities from).
     f32 math; masked scores are -1e30; output in q's type."""
     B, H, S, d = q.shape
     Hkv = k.shape[1]
@@ -153,17 +169,46 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qg = q.reshape(B, Hkv, G, S, d).to(torch.float32)
     scores = torch.einsum("bkgsd,bktd->bkgst", qg,
                           k.to(torch.float32)) / math.sqrt(d)
-    i = torch.arange(S, device=q.device)[:, None]
-    j = torch.arange(S, device=q.device)[None, :]
-    ok = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= j <= i
-    if window > 0:
-        ok &= (i - j) < window
+    ok = _attention_mask(S, causal, window, q.device)
     scores = torch.where(ok, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
-    return out.reshape(B, H, S, d).to(q.dtype)
+    out = out.reshape(B, H, S, d).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(B, H, S)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True, window: int = 0):
+    """The gradient of ``flash_attention_ref`` by its explicit formulas, in
+    f32: P = exp(q·kᵀ/√d - lse) (0 where masked), dV = Pᵀ·dO, dP = dO·vᵀ,
+    dS = P ∘ (dP - rowsum(dO ∘ o)), dQ = dS·k/√d, dK = dSᵀ·q/√d, with dK and
+    dV summed over each kv head's group of query heads. Returns (dq, dk,
+    dv) in the types of q, k and v."""
+    B, H, S, d = q.shape
+    Hkv = k.shape[1]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    qg = q.reshape(B, Hkv, G, S, d).to(f32)
+    og = o.reshape(B, Hkv, G, S, d).to(f32)
+    dog = do.reshape(B, Hkv, G, S, d).to(f32)
+    kf, vf = k.to(f32), v.to(f32)
+    s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
+    ok = _attention_mask(S, causal, window, q.device)
+    p = torch.where(ok, torch.exp(s - lse.reshape(B, Hkv, G, S, 1)),
+                    torch.zeros_like(s))
+    dv = torch.einsum("bkgst,bkgsd->bktd", p, dog)
+    dp = torch.einsum("bkgsd,bktd->bkgst", dog, vf)
+    delta = (dog * og).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
+    dk = torch.einsum("bkgst,bkgsd->bktd", ds, qg) * scale
+    return (dq.reshape(B, H, S, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
@@ -174,6 +219,20 @@ def rmsnorm_ref(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     xf = x.to(torch.float32)
     var = xf.square().mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale).to(x.dtype)
+
+
+def rmsnorm_bwd_ref(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor,
+                    eps: float = 1e-5):
+    """The gradient of ``rmsnorm_ref`` in f32, with r = rsqrt(mean(x²) +
+    eps), x̂ = x·r and g = dy·scale: dx = r·(g - x̂·mean(g·x̂)) in x's type,
+    and dscale = Σ over rows of dy·x̂, (D,) f32."""
+    xf = x.to(torch.float32)
+    r = torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    xh = xf * r
+    g = dy.to(torch.float32) * scale
+    dx = r * (g - xh * (g * xh).mean(-1, keepdim=True))
+    dscale = (dy.to(torch.float32) * xh).reshape(-1, x.shape[-1]).sum(0)
+    return dx.to(x.dtype), dscale
 
 
 def rmsnorm_pair_ref(xq: torch.Tensor, sq: torch.Tensor, xk: torch.Tensor,

@@ -8,6 +8,12 @@ of rows runs with no padding (the TPU kernel padded rows to a block of
 128). ``rmsnorm_pair`` norms two tensors of one row width (an attention
 layer's q and k) in one launch. A CUDA tensor launches the kernel (or
 raises); a CPU tensor takes the plain version in ``kernels/ref.py``.
+
+Under autograd, when x or the scale requires a gradient, the norms run as
+``torch.autograd.Function``s whose forward is the same launch (the pair
+still one) and whose backward is ``rmsnorm_bwd`` (``rmsnorm_bwd_launch``:
+dx, and dscale summed over the rows in f32; the pair's backward is two of
+them). Under ``inference_mode``/``no_grad`` nothing changes.
 """
 from __future__ import annotations
 
@@ -41,9 +47,20 @@ def _checked(x: torch.Tensor, scale: torch.Tensor, what: str) -> int:
     return D
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-5
             ) -> torch.Tensor:
     """x: (..., D) contiguous f32 or bf16; scale: (D,) f32 on x's device."""
+    if _wants_grad(x, scale):
+        return _RMSNorm.apply(x, scale, eps)
+    return _rmsnorm(x, scale, eps)
+
+
+def _rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float
+             ) -> torch.Tensor:
     if x.device.type == "cpu":
         return _ref.rmsnorm_ref(x, scale, eps)
     D = _checked(x, scale, "rmsnorm")
@@ -64,6 +81,12 @@ def rmsnorm_pair(xq: torch.Tensor, sq: torch.Tensor, xk: torch.Tensor,
                  sk: torch.Tensor, *, eps: float = 1e-5):
     """(rmsnorm(xq, sq), rmsnorm(xk, sk)) in one launch. xq and xk share a
     dtype, a device and a row width D <= 1024 (the qk-norm's d_head)."""
+    if _wants_grad(xq, sq, xk, sk):
+        return _RMSNormPair.apply(xq, sq, xk, sk, eps)
+    return _rmsnorm_pair(xq, sq, xk, sk, eps)
+
+
+def _rmsnorm_pair(xq, sq, xk, sk, eps: float):
     if xq.device.type == "cpu":
         return _ref.rmsnorm_pair_ref(xq, sq, xk, sk, eps)
     D = _checked(xq, sq, "rmsnorm_pair")
@@ -87,3 +110,66 @@ def rmsnorm_pair(xq: torch.Tensor, sq: torch.Tensor, xk: torch.Tensor,
     build.check(err, "rmsnorm_pair")
     build.LAUNCHES["rmsnorm"] += 1
     return yq, yk
+
+
+def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
+                eps: float = 1e-5):
+    """(dx, dscale) of ``rmsnorm`` at x with incoming gradient dy (copied
+    first unless contiguous): dx in x's type, dscale (D,) f32. A CUDA
+    tensor launches the backward kernels (or raises); a CPU tensor takes
+    ``ref.rmsnorm_bwd_ref``."""
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} for "
+                         f"x {tuple(x.shape)} {x.dtype}")
+    if x.device.type == "cpu":
+        return _ref.rmsnorm_bwd_ref(x, scale, dy, eps)
+    D = _checked(x, scale, "rmsnorm_bwd")
+    dy = dy.contiguous()
+    rows = x.numel() // D if D else 0
+    dx = torch.empty_like(x)
+    dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
+    if rows == 0:
+        return dx, dscale
+    lib = build.library()
+    chunks = -(-rows // lib.rmsnorm_bwd_chunk_rows())
+    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+    partial = torch.empty(chunks, D, dtype=torch.float32, device=x.device)
+    err = lib.rmsnorm_bwd_launch(
+        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+        dscale.data_ptr(), rstd.data_ptr(), partial.data_ptr(), rows, D,
+        _DTYPES[x.dtype], float(eps),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "rmsnorm_bwd")
+    build.LAUNCHES["rmsnorm_bwd"] += 1
+    return dx, dscale
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, eps: float):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _rmsnorm(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_bwd(x, scale, dy, eps=ctx.eps)
+        return dx, dscale, None
+
+
+class _RMSNormPair(torch.autograd.Function):
+    """The pair norm: one forward launch, a backward of two."""
+
+    @staticmethod
+    def forward(ctx, xq, sq, xk, sk, eps: float):
+        ctx.save_for_backward(xq, sq, xk, sk)
+        ctx.eps = eps
+        return _rmsnorm_pair(xq, sq, xk, sk, eps)
+
+    @staticmethod
+    def backward(ctx, dyq, dyk):
+        xq, sq, xk, sk = ctx.saved_tensors
+        dxq, dsq = rmsnorm_bwd(xq, sq, dyq, eps=ctx.eps)
+        dxk, dsk = rmsnorm_bwd(xk, sk, dyk, eps=ctx.eps)
+        return dxq, dsq, dxk, dsk, None

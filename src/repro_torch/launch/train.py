@@ -4,9 +4,12 @@ of ``repro.launch.train`` in its synchronous modes).
 The run is the reference driver's: ``straggler.make_schedule`` builds the
 system model (per-client delays, participation and deadline masks,
 simulated round times), ``engine.run_rounds`` drives the chosen algorithm
-through it (``--algorithm``: MU-SplitFed, vanilla SplitFed or GAS), round
-r under the key fold_in(PRNGKey(seed), r), on the same seeded synthetic
-LM and Dirichlet partition, and with the same noise: the config's
+through it (``--algorithm``: MU-SplitFed, vanilla SplitFed, GAS, or the
+first-order FedAvg and FedLoRA with the reference's defaults: one local
+SGD step at ``--lr-client``, η_g the config's lr_global, LoRA rank 4 and
+alpha 16 on wq and wv), round r under the key fold_in(PRNGKey(seed), r),
+on the same seeded synthetic LM and Dirichlet partition, and with the
+same noise: the config's
 default, threefry 'gaussian' (the reference driver has no dist flag
 either). ``--adaptive-tau`` re-plans τ at chunk boundaries, on the
 simulated clock or (``--tau-source measured``) on the card's. Each round
@@ -24,10 +27,11 @@ Runs on the card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 4 --seq 16 --straggler-scale 2.0 --adaptive-tau \\
         --tau-source measured --telemetry --log-jsonl run.jsonl
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --rounds 3 --seq 16 --algorithm fedlora
 
 Not ported yet (ROADMAP.md, queue 1): checkpoints (--ckpt-dir,
---ckpt-every), the first-order baselines (--algorithm fedavg|fedlora),
---async and its flags, --faults and --adaptive-quorum.
+--ckpt-every), --async and its flags, --faults and --adaptive-quorum.
 """
 from __future__ import annotations
 
@@ -190,7 +194,7 @@ def schedule(run: Run) -> strag.Schedule:
 
 def algorithm_options(args: argparse.Namespace) -> Dict:
     """The reference driver's options for each algorithm: GAS takes no
-    client mode."""
+    client mode, FedAvg and FedLoRA run on their defaults."""
     if args.algorithm in ("mu_splitfed", "vanilla"):
         return {"client_mode": args.client_mode,
                 "aggregation": args.aggregation}

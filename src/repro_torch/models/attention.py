@@ -7,6 +7,9 @@ card, its plain version on the CPU. The reference model computes attention
 in jnp instead, casting the probabilities to the model type before P·V;
 the flash function keeps them in f32, so bf16 results differ at bf16
 precision (the f32 results agree to rounding).
+
+Under autograd (an input of the attention requires a gradient) the flash
+function's backward kernel computes the attention's gradient.
 """
 from __future__ import annotations
 
@@ -50,8 +53,8 @@ def gqa_attention(cfg: ModelConfig, p, x: torch.Tensor,
     q = apply_rope(q.transpose(1, 2), pos, cfg.rope_theta)   # (B, H, S, dh)
     k = apply_rope(k.transpose(1, 2), pos, cfg.rope_theta)   # (B, Hkv, S, dh)
     # v and o stay in the projections' (B, S, heads, dh) layout: the
-    # kernel takes them as strided (B, heads, S, dh) views, with no copy
-    o = torch.empty(B, S, H, dh, dtype=q.dtype, device=q.device)
-    ops.flash_attention_op(q, k, v.transpose(1, 2), causal=causal,
-                           window=cfg.sliding_window, out=o.transpose(1, 2))
+    # kernel takes v as a strided (B, Hkv, S, dh) view, with no copy, and
+    # returns o as a (B, H, S, dh) view of a (B, S, H, dh) buffer
+    o = ops.flash_attention_op(q, k, v.transpose(1, 2), causal=causal,
+                               window=cfg.sliding_window).transpose(1, 2)
     return o.reshape(B, S, H * dh) @ p["wo"]

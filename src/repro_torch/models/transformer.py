@@ -6,6 +6,11 @@ along a leading ``n_units`` dim, as in the reference: the ZO noise is laid
 out over each leaf's elements, so per-layer modules would change the noise.
 The reference's ``lax.scan`` over units is a Python loop over that dim.
 
+Everything here is differentiable with ``torch.autograd`` (the first-order
+baselines take gradients of ``loss_fn``): attention and RMSNorm through
+their kernels' autograd Functions, the bf16 head product on the card
+through ``_LogitsF32``.
+
 Batch: {"tokens": (B, S) int, "labels": (B, S) int}.
 """
 from __future__ import annotations
@@ -93,13 +98,23 @@ def _apply_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return x
 
 
-def _unit_scan(cfg: ModelConfig, units: Params, x: torch.Tensor,
+def _unbind_units(units: Params):
+    """The stacked units as a list of per-unit trees. Each leaf is unbound
+    once, so a backward stacks the units' gradients of a leaf in one copy
+    (an index or a slice of a leaf would give its gradient a zero-filled
+    leaf of its own)."""
+    leaves, spec = tree.flatten(units)
+    return [tree.unflatten(spec, parts)
+            for parts in zip(*(a.unbind(0) for a in leaves))]
+
+
+def _unit_scan(cfg: ModelConfig, units, x: torch.Tensor,
                positions: torch.Tensor, *, causal: bool = True
                ) -> torch.Tensor:
-    """Apply the stacked units in order."""
-    n_units = tree.leaves(units)[0].shape[0]
-    for u in range(n_units):
-        unit = tree.tree_map(lambda a: a[u], units)
+    """Apply the units in order: a stacked tree or a list of unit trees."""
+    if isinstance(units, dict):
+        units = _unbind_units(units)
+    for unit in units:
         x = _apply_block(cfg, unit["b0"], x, positions, causal=causal)
     return x
 
@@ -111,12 +126,8 @@ def _unit_scan(cfg: ModelConfig, units: Params, x: torch.Tensor,
 def split_params(cfg: ModelConfig, params: Params, cut_units: int):
     """client = embed + units[:cut]; server = units[cut:] + final norm +
     head. A tied model is untied at the cut (the server owns a head)."""
-    _require_dense(cfg)
-    if not 1 <= cut_units <= cfg.n_units:
-        raise ValueError(f"cut_units={cut_units} outside [1, {cfg.n_units}]")
-    head = params.get("lm_head")
-    if head is None:
-        head = params["embed"].T                  # (D, V) head layout
+    _check_cut(cfg, cut_units)
+    head = _head(params)                          # (D, V) head layout
     client = {"embed": params["embed"],
               "units": tree.tree_map(lambda a: a[:cut_units],
                                      params["units"])}
@@ -170,26 +181,81 @@ def server_forward(cfg: ModelConfig, server: Params, h: Dict, batch
     return _chunked_ce(x, server["lm_head"], batch["labels"])
 
 
+def _check_cut(cfg: ModelConfig, cut_units: int) -> None:
+    _require_dense(cfg)
+    if not 1 <= cut_units <= cfg.n_units:
+        raise ValueError(f"cut_units={cut_units} outside [1, {cfg.n_units}]")
+
+
+def _final_hidden(cfg: ModelConfig, params: Params, batch, cut_units: int
+                  ) -> torch.Tensor:
+    """The final norm's output (B, S, D): the client's units [:cut], then
+    the server's [cut:], as ``split_params`` would give them, but from
+    one unbind of each leaf, so a backward stacks each leaf's gradient
+    once (``split_params``' two slices would each fill a zero gradient
+    of the whole leaf)."""
+    _check_cut(cfg, cut_units)
+    units = _unbind_units(params["units"])
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    pos = _positions(B, S, tokens.device)
+    x = params["embed"][tokens]
+    x = _unit_scan(cfg, units[:cut_units], x, pos, causal=True)
+    x = _unit_scan(cfg, units[cut_units:], x, pos, causal=True)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def _head(params: Params) -> torch.Tensor:
+    head = params.get("lm_head")
+    return params["embed"].T if head is None else head
+
+
 def forward_from_cut(cfg: ModelConfig, params: Params, batch, cut_units: int
                      ) -> torch.Tensor:
     """Full loss via client/server composition (cut-invariant)."""
-    cp, sp = split_params(cfg, params, cut_units)
-    return server_forward(cfg, sp, client_forward(cfg, cp, batch), batch)
+    return _chunked_ce(_final_hidden(cfg, params, batch, cut_units),
+                       _head(params), batch["labels"])
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
     return forward_from_cut(cfg, params, batch, cfg.default_cut_units)
 
 
+def logits_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
+    """Full-sequence logits (B, S, V) in the model's type (small configs and
+    the sentiment accuracy's last-position logits)."""
+    x = _final_hidden(cfg, params, batch, cfg.default_cut_units)
+    return x @ _head(params)
+
+
+class _LogitsF32(torch.autograd.Function):
+    """(N, D) @ (D, V) of bf16 operands into f32 logits in one cuBLAS
+    product on the card; the backward is two bf16 products of the incoming
+    gradient, cast to bf16 (the gradients are bf16 in any case)."""
+
+    @staticmethod
+    def forward(ctx, x, head):
+        ctx.save_for_backward(x, head)
+        return torch.mm(x, head, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head = ctx.saved_tensors
+        g = g.to(x.dtype)
+        dx = g @ head.t() if ctx.needs_input_grad[0] else None
+        dhead = x.t() @ g if ctx.needs_input_grad[1] else None
+        return dx, dhead
+
+
 def _logits_f32(x: torch.Tensor, head: torch.Tensor) -> torch.Tensor:
     """(B, c, D) @ (D, V) -> f32 logits from exact products of the
     model-type operands summed in f32: the reference's
     ``preferred_element_type=f32``. On the card a bf16 product writes f32
-    directly; elsewhere the operands are cast to f32 first."""
+    directly (``_LogitsF32``); elsewhere the operands are cast to f32
+    first."""
     if x.is_cuda and x.dtype == torch.bfloat16:
         B, c, D = x.shape
-        return torch.mm(x.reshape(B * c, D), head,
-                        out_dtype=torch.float32).reshape(B, c, -1)
+        return _LogitsF32.apply(x.reshape(B * c, D), head).reshape(B, c, -1)
     return x.to(torch.float32) @ head.to(torch.float32)
 
 

@@ -166,9 +166,8 @@ def test_engine_raises_for_what_is_not_ported(olmo_f32):
     for kw in (dict(mode="async"), dict(checkpointer=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tengine.run_rounds(*args, rounds=2, **kw)
-    for name in ("fedavg", "fedlora"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            tengine.get_algorithm(name)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        tengine.get_algorithm("async_mu_splitfed")
 
     class MovesDeadline:
         def update(self, round_idx, window, metrics):

@@ -14,14 +14,22 @@ threefry kernel computes the plain version's operations in its order, so
 its bits, its gaussian and its updates equal the plain version's exactly;
 its sum of squares runs in another order (relative 1e-5). Small f32
 vanilla and GAS rounds, card against CPU, within 1e-4.
+
+Backward kernels (flash_attention_bwd, rmsnorm_bwd) against their plain
+versions on the same inputs: f32 within 1e-5 of each gradient's largest
+magnitude (sums run in another order), bf16 within one bf16 ulp of it
+(2^-7·max|g|: both compute in f32 and round once); the forward's lse
+within 1e-5 relative. Small f32 FedAvg (SGD, AdamW) and FedLoRA rounds,
+card against CPU, within 1e-4.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import build, ops, ref, threefry, zo_update
-from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_pair
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
+from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_pair
 
 pytestmark = pytest.mark.gpu
 
@@ -103,9 +111,9 @@ def test_zo_noise_bit_equal_over_all_hash_values(cuda, reference):
 def test_flash_attention_matches_plain(cuda, case, dtype):
     """d 64 and 128, ragged S (200, 300, 500), causal and not, windows,
     GQA groups 4 and 5 (qwen3-14b's). Strided views, as the model passes
-    them: v as the transpose of a (B, S, Hkv, d) tensor, and o written
-    into a (B, S, H, d) buffer, give the contiguous call's result bit for
-    bit."""
+    them: v as the transpose of a (B, S, Hkv, d) tensor gives the
+    contiguous call's result bit for bit, and o comes back as a view of a
+    (B, S, H, d) buffer."""
     B, H, Hkv, S, d, causal, window = case
     gen = torch.Generator(device=cuda).manual_seed(S + d + H)
     q = torch.randn(B, H, S, d, generator=gen, device=cuda).to(dtype)
@@ -113,14 +121,12 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     v = torch.randn(B, S, Hkv, d, generator=gen, device=cuda).to(
         dtype).transpose(1, 2)
     got = flash_attention(q, k, v.contiguous(), causal=causal, window=window)
-    buf = torch.empty(B, S, H, d, dtype=dtype, device=cuda)
     before = build.LAUNCHES["flash_attention"]
-    strided = flash_attention(q, k, v, causal=causal, window=window,
-                              out=buf.transpose(1, 2))
+    strided = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert build.LAUNCHES["flash_attention"] == before + 1
-    assert strided.data_ptr() == buf.data_ptr()
-    assert torch.equal(buf.transpose(1, 2), got)
+    assert strided.transpose(1, 2).is_contiguous()
+    assert torch.equal(strided, got)
     assert_close(got, ref.flash_attention_ref(q, k, v, causal, window))
 
 
@@ -277,3 +283,204 @@ def test_baseline_round_card_matches_cpu(cuda, algorithm, dist, aggregation):
     for got, want in zip(outs[1], outs[0]):
         assert got.is_cuda
         assert float((got.cpu().float() - want.float()).abs().max()) <= 1e-4
+
+
+def assert_grad_close(got, want):
+    """Within 1e-5 (f32) or one bf16 ulp (bf16) of max|want|."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got.float()).all())
+    tol = (2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5) \
+        * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+FLASH_BWD_CASES = [((1, 32, 32, 512, 64), True, 0),      # paper-opt-1.3b
+                   ((1, 40, 8, 512, 128), True, 0),      # qwen3-14b, GQA 5
+                   ((2, 8, 2, 500, 128), True, 128),     # ragged, window
+                   ((1, 4, 4, 300, 64), False, 70)]      # not causal
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_CASES,
+                         ids=["opt", "qwen3-gqa", "window-ragged",
+                              "noncausal-window"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
+    """The backward kernel on the plain forward's o and lse, and the whole
+    autograd Function (the kernel forward's lse) against autograd through
+    the plain forward; v and dO as strided views, as the model passes
+    them."""
+    (B, H, Hkv, S, d), causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(B, H, S, d, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, Hkv, S, d, generator=gen, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, d, generator=gen, device=cuda).to(
+        dtype).transpose(1, 2)
+    do = torch.randn(B, S, H, d, generator=gen, device=cuda).to(
+        dtype).transpose(1, 2)
+    o, lse = ref.flash_attention_ref(q, k, v, causal, window,
+                                     return_lse=True)
+    before = build.LAUNCHES["flash_attention_bwd"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, window)
+    for g, w in zip(got, want):
+        assert_grad_close(g, w)
+    # the Function: kernel forward with its lse, then the kernel backward
+    qkv = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*qkv, causal=causal, window=window)
+    assert_close(out, o)
+    got = torch.autograd.grad(out, qkv, do)
+    qkv = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(
+        ref.flash_attention_ref(*qkv, causal, window), qkv, do)
+    for g, w in zip(got, want):
+        assert_grad_close(g, w)
+
+
+def test_flash_attention_lse_matches_plain(cuda):
+    """The forward's row log-sum-exp (written only under autograd), bf16 and
+    f32, against the plain version's."""
+    from repro_torch.kernels.flash_attention import _launch_forward
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    for dtype, d in ((torch.bfloat16, 128), (torch.float32, 64)):
+        q, k, v = (torch.randn(2, 4, 200, d, generator=gen,
+                               device=cuda).to(dtype) for _ in range(3))
+        o = torch.empty_like(q)
+        lse = torch.empty(2, 4, 200, device=cuda)
+        _launch_forward(q, k, v, o, lse, True, 50)
+        wo, wl = ref.flash_attention_ref(q, k, v, True, 50, return_lse=True)
+        assert_close(o, wo)
+        assert float(((lse - wl).abs() / wl.abs().clamp(min=1)).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 5120), (1, 512, 40, 128),
+                                   (1, 512, 8, 128), (3, 7, 128),
+                                   (1, 300, 5120), (333, 100), (77, 1030)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_matches_plain(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    D = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=cuda) * 3.0).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    s = 1.0 + 0.5 * torch.randn(D, generator=gen, device=cuda)
+    before = build.LAUNCHES["rmsnorm_bwd"]
+    dx, ds = rmsnorm_bwd(x, s, dy)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["rmsnorm_bwd"] == before + 1
+    wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
+    assert_grad_close(dx, wx)
+    assert_grad_close(ds, ws)
+    # through autograd: the pair (two backward launches) and the single
+    xa, sa = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
+    got = torch.autograd.grad(rmsnorm(xa, sa), (xa, sa), dy)
+    assert_grad_close(got[0], wx)
+    assert_grad_close(got[1], ws)
+    if D <= 1024:
+        n0 = build.LAUNCHES["rmsnorm_bwd"]
+        yq, yk = rmsnorm_pair(xa, sa, xa, sa)
+        gq = torch.autograd.grad((yq, yk), (xa, sa), (dy, dy))
+        assert build.LAUNCHES["rmsnorm_bwd"] == n0 + 2
+        assert_grad_close(gq[0], (wx.float() * 2).to(dtype))
+        assert_grad_close(gq[1], ws * 2)
+
+
+def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
+    """With gradients on, what the kernels do not take raises, never falls
+    back: a head dim outside (64, 128), a float16 input."""
+    q = torch.randn(1, 2, 64, 32, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_attention(q, q, q)
+    h = torch.randn(1, 2, 64, 64, device=cuda, dtype=torch.float16,
+                    requires_grad=True)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        flash_attention(h, h, h)
+    x = torch.randn(4, 256, device=cuda, dtype=torch.float16,
+                    requires_grad=True)
+    with pytest.raises(TypeError, match="float32/bfloat16"):
+        rmsnorm(x, torch.ones(256, device=cuda))
+
+
+# learning rates of the small first-order rounds. AdamW runs at the repo's
+# own first-order default (TrainConfig.lr = 1e-3): its first step moves an
+# element by lr·g/(|g| + 1e-8), which turns a gradient at f32 rounding
+# level into a step of up to lr, so the same gradient evaluated in f32 and
+# in f64 on the CPU gives directions up to 5e-2 apart; at lr 1e-2 the card
+# and the CPU were 1.8e-4 apart after one round.
+FO_LR = {"sgd": 1e-2, "adamw": 1e-3}
+
+
+def fo_small_round(algorithm, optimizer, device):
+    """One small f32 FedAvg or FedLoRA round (olmo-1b for FedAvg, qwen3-14b
+    with qk-norm for FedLoRA, both at d_head 64) on ``device``: the new
+    tree's leaves."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.core.baselines import fedavg_round, fedlora_round
+    from repro_torch.models import init_params, untie_params
+    from repro_torch.optim import init_lora
+    from repro_torch.utils import tree
+    arch = "olmo-1b" if algorithm == "fedavg" else "qwen3-14b"
+    cfg = get_config(arch, smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=2 if arch == "olmo-1b" else 1,
+        dtype="float32")
+    params = untie_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    params = tree.tree_map(lambda a: a.to(device), params)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
+    b = {"tokens": torch.from_numpy(toks).to(device),
+         "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(device)}
+    mask = torch.tensor([1.0, 0.5], device=device)
+    if algorithm == "fedavg":
+        out = fedavg_round(cfg, params, b, mask, FO_LR[optimizer],
+                           optimizer=optimizer, eta_g=0.3)
+    else:
+        lora = init_lora(cfg, params, 4, prng.PRNGKey(0))
+        out = fedlora_round(cfg, params, lora, b, mask, FO_LR["sgd"],
+                            eta_g=0.3)
+    return tree.leaves(out)
+
+
+@pytest.mark.parametrize("algorithm,optimizer", [
+    ("fedavg", "sgd"), ("fedavg", "adamw"), ("fedlora", "sgd")])
+def test_fo_round_card_matches_cpu(cuda, algorithm, optimizer):
+    """One small f32 first-order round on the card (the forward and
+    backward kernels) against the same round on the CPU (their plain
+    versions): the new tree within 1e-4."""
+    before = dict(build.LAUNCHES)
+    got = fo_small_round(algorithm, optimizer, cuda)
+    for k in ("flash_attention_bwd",) + (("rmsnorm_bwd",)
+                                         if algorithm == "fedlora" else ()):
+        assert build.LAUNCHES[k] > before.get(k, 0)
+    want = fo_small_round(algorithm, optimizer, torch.device("cpu"))
+    for g, w in zip(got, want):
+        assert g.is_cuda
+        assert float((g.cpu() - w).abs().max()) <= 1e-4
+
+
+def test_bf16_logits_product_gradient(cuda):
+    """The card's bf16 head product into f32 logits (``_LogitsF32``, the
+    loss's chunked cross-entropy on bf16 models) under autograd: logits
+    and both gradients against f32 autograd of the same product, within
+    2^-6 of each one's largest magnitude (the incoming gradient and each
+    gradient are rounded to bf16 once)."""
+    from repro_torch.models.transformer import _logits_f32
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn(2, 96, 256, generator=gen, device=cuda).to(
+        torch.bfloat16).requires_grad_(True)
+    head = (torch.randn(256, 1000, generator=gen, device=cuda) / 16).to(
+        torch.bfloat16).requires_grad_(True)
+    g = torch.randn(2, 96, 1000, generator=gen, device=cuda)
+    out = _logits_f32(x, head)
+    assert out.dtype == torch.float32
+    got = torch.autograd.grad(out, (x, head), g)
+    xf, hf = (t.detach().float().requires_grad_(True) for t in (x, head))
+    want_out = xf @ hf
+    want = torch.autograd.grad(want_out, (xf, hf), g)
+    assert float((out - want_out).abs().max()) <= 1e-3 * float(
+        want_out.abs().max())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16
+        assert float((a.float() - b).abs().max()) <= 2.0 ** -6 * float(
+            b.abs().max())

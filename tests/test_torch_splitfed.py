@@ -191,8 +191,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.core.baselines", "repro_torch.core.theory",
             "repro_torch.obs.measure", "repro_torch.obs.metrics",
             "repro_torch.obs.runlog", "repro_torch.obs.telemetry",
-            "repro_torch.obs.trace"} <= set(mods)
-    assert len(mods) >= 29
+            "repro_torch.obs.trace", "repro_torch.optim.optimizers",
+            "repro_torch.optim.schedules", "repro_torch.optim.lora"
+            } <= set(mods)
+    assert len(mods) >= 32
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",

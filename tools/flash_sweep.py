@@ -244,7 +244,7 @@ def main() -> int:
     def call(fn, q, k, v):
         o = torch.empty_like(q)
         B, H, S, d = q.shape
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
                  *fa._strides(q), *fa._strides(k), *fa._strides(v),
                  *fa._strides(o), B, H, k.shape[1], S, d, 1, d ** -0.5, 1, 0,
                  torch.cuda.current_stream().cuda_stream)
