@@ -151,10 +151,13 @@ QWEN_FO_ARGV = ["--arch", "qwen3-14b", "--clients", "2", "--batch", "1",
                 "--algorithm", "fedavg"]
 PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
                          r"flash_bwd_delta|flash_bwd_dkdv|flash_bwd_dq|"
+                         r"flash_bwd_delta_bf16|flash_bwd_dkdv_bf16|"
+                         r"flash_bwd_dq_bf16|"
                          r"rmsnorm_block|rmsnorm_pair|rmsnorm_bwd_block|"
                          r"rmsnorm_bwd_rows|rmsnorm_dscale_partial|"
                          r"threefry_update|threefry_sumsq)_kernel<[^>]*>|"
-                         r"threefry_sumsq_kernel|rmsnorm_dscale_reduce_kernel")
+                         r"threefry_sumsq_kernel|rmsnorm_dscale_reduce_kernel|"
+                         r"flash_bwd_dkdv_sum_kernel")
 # operations of the flash backward per unmasked (query, key) pair: S, dP,
 # dV, dK and dQ at 2·d each; of the RMSNorm backward per element
 FLASH_BWD_OPS_PER_D = 10
@@ -199,7 +202,8 @@ def time_cold_ms(fn, inputs, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, inputs, iters: int, attempts: int = 3) -> float:
+def device_ms(fn, inputs, iters: int, attempts: int = 3,
+              by_kernel: dict | None = None) -> float:
     """Device time per call: the time of every CUDA kernel that ``iters``
     calls launch, under torch.profiler, over ``iters``. A call whose host
     side outlasts its kernels (a norm of a few microseconds behind a
@@ -211,7 +215,8 @@ def device_ms(fn, inputs, iters: int, attempts: int = 3) -> float:
     callers fail on it. A session whose count of kernels is not a multiple
     of ``iters`` lost some of them (it happened once, to the flash
     backward, which read half its time): it too is run again, and the
-    last one is kept with a warning if none was whole."""
+    last one is kept with a warning if none was whole. ``by_kernel``, if
+    given, receives each kernel's device time per call, by name."""
     from torch.profiler import ProfilerActivity, profile
     fn(inputs[0])
     torch.cuda.synchronize()
@@ -225,6 +230,10 @@ def device_ms(fn, inputs, iters: int, attempts: int = 3) -> float:
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         total = sum(e.self_device_time_total for e in kernels)
         count = sum(e.count for e in kernels)
+        if by_kernel is not None:
+            by_kernel.clear()
+            by_kernel.update((e.key, e.self_device_time_total / 1e3 / iters)
+                             for e in kernels)
         if total > 0 and count % iters == 0:
             return total / 1e3 / iters
         print(f"device_ms: session {attempt} of {attempts} recorded "
@@ -374,19 +383,29 @@ def report_ptxas(out: str) -> None:
             f"(found {sorted(seen)})")
 
 
-BWD_KERNEL = re.compile(r"(flash_bwd_(?:delta|dkdv|dq)_kernel)"
-                        r"I(f|13__nv_bfloat16)Li(\d+)E")
+# the backward's kernels: f32 and bf16 (``_bf16``) of each head dim, and
+# the bf16 dK/dV partials' sum
+BWD_KERNEL = re.compile(r"(flash_bwd_(?:delta|dkdv|dq)(?:_bf16)?_kernel)"
+                        r"ILi(\d+)E|(flash_bwd_dkdv_sum_kernel)")
+BWD_KERNELS = 13
+# the bf16 flash kernels that must run on the tensor cores (HMMA in SASS)
+TC_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dkdv|bwd_dq)_bf16_kernel)"
+                       r"ILi(\d+)E")
+TC_KERNELS = 6
+
+
+def bwd_name(m) -> str:
+    return m.group(3) or f"{m.group(1)}<{m.group(2)}>"
 
 
 def report_ptxas_bwd(out: str) -> None:
-    """Print ptxas's registers and spills for each flash backward kernel;
-    none may spill."""
+    """Print ptxas's registers, shared memory and spills for each flash
+    backward kernel; none may spill."""
     name, seen = None, set()
     for line in out.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             m = BWD_KERNEL.search(line)
-            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'},"
-                    f"{m.group(3)}>" if m else None)
+            name = bwd_name(m) if m else None
             continue
         if name is None or not line.strip():
             continue
@@ -397,29 +416,30 @@ def report_ptxas_bwd(out: str) -> None:
             seen.add(name)
             require(spills.groups() == ("0", "0"),
                     f"{name} spills registers: {line.strip()}")
-    require(len(seen) == 12, f"ptxas -v reported spill lines for "
-            f"{sorted(seen)}, not the 12 flash backward kernels")
+    require(len(seen) == BWD_KERNELS, f"ptxas -v reported spill lines for "
+            f"{sorted(seen)}, not the {BWD_KERNELS} flash backward kernels")
 
 
 def check_sass(lib: Path) -> None:
-    """The bf16 flash kernels must run on the tensor cores: their SASS in
-    the built library holds HMMA instructions."""
+    """The bf16 flash kernels (the forward, and the backward's dK/dV and dQ
+    kernels) must run on the tensor cores: their SASS in the built library
+    holds HMMA instructions."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).parent / "cuobjdump"
     if not tool.exists():
         print(f"SASS check skipped: the toolkit has no cuobjdump (looked "
-              f"for {tool}); HMMA in flash_fwd_bf16_kernel not verified")
+              f"for {tool}); HMMA in the bf16 flash kernels not verified")
         return
     sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     counts = {}
     for section in sass.split("Function : ")[1:]:
-        m = FLASH_KERNEL.search(section.split("\n", 1)[0])
-        if m and m.group(1) == "flash_fwd_bf16_kernel":
+        m = TC_KERNEL.search(section.split("\n", 1)[0])
+        if m:
             counts[f"{m.group(1)}<{m.group(2)}>"] = section.count("HMMA")
     print(f"SASS ({tool.name} -sass): HMMA instructions {counts}")
-    require(len(counts) == 2 and min(counts.values()) > 0,
-            f"no HMMA in the SASS of the bf16 flash kernels: {counts}")
+    require(len(counts) == TC_KERNELS and min(counts.values()) > 0,
+            f"no HMMA in the SASS of some bf16 flash kernel: {counts}")
 
 
 ZO_KERNEL = re.compile(r"(zo_(?:update|replay)_kernel)I(f|13__nv_bfloat16)E")
@@ -1164,8 +1184,10 @@ def phase_flash(dev) -> dict:
 
 def check_grad(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     """A gradient against its plain version: f32 within 1e-5 of max|want|,
-    bf16 within one bf16 ulp of it (2^-7·max|want|; both compute in f32
-    and round once). Returns max |Δ|."""
+    bf16 within one bf16 ulp of it (2^-7·max|want|; both sum in f32 and
+    round the result once, the bf16 kernels having rounded P and dS to
+    enter the tensor cores, as tests/test_torch_flash_bwd.py emulates).
+    Returns max |Δ|."""
     require(got.shape == want.shape and got.dtype == want.dtype,
             f"{name}: {got.shape}/{got.dtype} vs {want.shape}/{want.dtype}")
     require(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
@@ -1175,6 +1197,25 @@ def check_grad(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     require(d <= tol, f"{name}: max |Δ| {d:.3e} above {tol:.3e} "
             f"(max |g| {top:.3e})")
     return d
+
+
+def bwd_grid(B: int, H: int, Hkv: int, S: int, d: int) -> str:
+    """The bf16 flash backward's launch geometry at these shapes: one
+    dK/dV block a (batch, query head, 64-row key tile), the kv group's
+    H/Hkv partials summed by a fourth launch where there are more than one,
+    and one dQ block a (batch, head, 64-row query tile); shared memory and
+    blocks an SM as the library reports them."""
+    from repro_torch.kernels import build
+    lib = build.library()
+    blocks, parts = B * H * -(-S // 64), H // Hkv
+    kv_smem, q_smem = (lib.flash_attention_bwd_smem_bytes(w, d)
+                       for w in (0, 1))
+    kv_sm, q_sm = (lib.flash_attention_bwd_blocks_per_sm(w, d)
+                   for w in (0, 1))
+    return (f"dK/dV grid {blocks} blocks ({kv_sm} an SM, {kv_smem} bytes of "
+            f"shared memory; {parts} partials a kv head"
+            + (", summed by a fourth launch" if parts > 1 else "")
+            + f"), dQ grid {blocks} blocks ({q_sm} an SM, {q_smem} bytes)")
 
 
 def phase_flash_bwd(dev) -> dict:
@@ -1234,8 +1275,10 @@ def phase_flash_bwd(dev) -> dict:
             sets = [(q, k, v, o, lse, do)] + [
                 tuple(t.clone() for t in (q, k, v, o, lse, do))
                 for _ in range(L2_BYTES // nbytes + 1)]
+            per_kernel = {}
             ms = device_ms(lambda t: flash_attention_bwd(
-                *t, causal=causal, window=window), sets, 20)
+                *t, causal=causal, window=window), sets, 20,
+                by_kernel=per_kernel)
             plain_ms = device_ms(lambda t: ref.flash_attention_bwd_ref(
                 *t, causal, window), sets, 5)
             require(min(ms, plain_ms) > 0,
@@ -1263,6 +1306,11 @@ def phase_flash_bwd(dev) -> dict:
                   + ("n/a (no window)" if lib_ms is None
                      else f"{lib_ms:.4f} ms")
                   + f"  bound {b_ms:.4f} ms ({b_by})")
+            print(f"  {bwd_grid(B, H, Hkv, S, d)}; per launch: " + ", ".join(
+                f"{PORT_KERNEL.search(key).group(0)} {t * 1e3:.2f} us"
+                for key, t in sorted(per_kernel.items(),
+                                     key=lambda kt: -kt[1])
+                if PORT_KERNEL.search(key)))
             if "path 5" in name:
                 res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                            bound_ms=b_ms, bound_by=b_by,

@@ -58,12 +58,18 @@ SIGNATURES = {
     "flash_attention_launch": (_VOIDP,) * 5 + (ctypes.c_longlong,) * 12 + (
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP),
-    # q, k, v, o, dout, lse, dq, dk, dv, delta scratch, then the (batch,
+    # q, k, v, o, dout, lse, dq, dk, dv, f32 scratch, then the (batch,
     # head, row) strides of q, k, v, o and dout, B, H, Hkv, S, D, dtype,
     # scale, causal, window, stream
     "flash_attention_bwd_launch": (_VOIDP,) * 10 + (ctypes.c_longlong,) * 15
     + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP),
+    # B, H, Hkv, S, D, dtype: the floats of the backward's scratch
+    "flash_attention_bwd_scratch_floats": (ctypes.c_int,) * 6,
+    # kernel (0 dK/dV, 1 dQ), D: a bf16 backward launch's dynamic shared
+    # memory; blocks that fit an SM
+    "flash_attention_bwd_smem_bytes": (ctypes.c_int, ctypes.c_int),
+    "flash_attention_bwd_blocks_per_sm": (ctypes.c_int, ctypes.c_int),
     # D, dtype: a launch's dynamic shared memory; blocks that fit an SM
     "flash_attention_smem_bytes": (ctypes.c_int, ctypes.c_int),
     "flash_attention_blocks_per_sm": (ctypes.c_int, ctypes.c_int),
@@ -95,6 +101,8 @@ SIGNATURES = {
     # z* (2^23 floats), stream: the gaussian of every bits >> 9
     "threefry_normal_table_launch": (_VOIDP, _VOIDP),
 }
+# entry points that return other than a C int
+RESTYPES = {"flash_attention_bwd_scratch_floats": ctypes.c_longlong}
 
 
 def reset_launches() -> None:
@@ -162,7 +170,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             _LIB = lib
         return _LIB
 

@@ -3,9 +3,9 @@
 ``csrc/flash_attention_bwd.cu``.
 
 Causal and/or sliding-window attention with GQA. A CUDA tensor launches
-the kernel (or raises): bf16 runs the tensor-core forward, f32 the scalar
-one, and the backward runs on the CUDA cores for both. A CPU tensor takes
-the plain versions in ``kernels/ref.py``.
+the kernel (or raises): bf16 runs the tensor-core forward and backward,
+f32 the scalar ones. A CPU tensor takes the plain versions in
+``kernels/ref.py``.
 
 Two routes, chosen by autograd's state and never by what the kernels take:
 - forward only (``torch.inference_mode()``, ``no_grad``, or no input that
@@ -47,6 +47,13 @@ def _fits(t: torch.Tensor) -> bool:
     return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in _strides(t))
 
 
+def _readable(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if the kernels read it as it lies, else a contiguous copy (a
+    new allocation, so on 16 bytes even where ``t`` was contiguous at a
+    misaligned offset)."""
+    return t if _fits(t) else t.clone(memory_format=torch.contiguous_format)
+
+
 def _check_shapes(q, k, v) -> None:
     B, H, S, d = q.shape
     Hkv = k.shape[1]
@@ -85,10 +92,10 @@ def _launch_forward(q, k, v, o, lse, causal: bool, window: int) -> None:
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
                         window: int = 0):
     """(dq, dk, dv) of attention at (q, k, v) with output o, row
-    log-sum-exp lse ((B, H, S) f32) and incoming gradient do. Views with a
-    unit stride along d are read in place, others are copied first; the
-    gradients come back contiguous, in the inputs' type. A CUDA tensor
-    launches the backward kernel (or raises); a CPU tensor takes
+    log-sum-exp lse ((B, H, S) f32) and incoming gradient do. Views the
+    kernels read as they lie (``_fits``) are read in place, others are
+    copied first; the gradients come back contiguous, in the inputs' type.
+    A CUDA tensor launches the backward kernel (or raises); a CPU tensor takes
     ``ref.flash_attention_bwd_ref``."""
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape \
@@ -102,18 +109,21 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     _check_cuda("flash_attention_bwd", q, k, v, o, do)
     if lse.dtype != torch.float32 or not lse.is_contiguous():
         raise ValueError("flash_attention_bwd: lse must be contiguous f32")
-    q, k, v, o, do = (t if t.stride(-1) == 1 else t.contiguous()
-                      for t in (q, k, v, o, do))
+    q, k, v, o, do = (_readable(t) for t in (q, k, v, o, do))
     B, H, S, d = q.shape
     Hkv = k.shape[1]
+    lib = build.library()
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
-    delta = torch.empty(lse.shape, dtype=torch.float32, device=q.device)
-    err = build.library().flash_attention_bwd_launch(
+    # Δ, and the bf16 dK/dV kernel's per-head partials where it has them
+    scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(
+        B, H, Hkv, S, d, _DTYPES[q.dtype]), dtype=torch.float32,
+        device=q.device)
+    err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        delta.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
+        scratch.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
         *_strides(o), *_strides(do), B, H, Hkv, S, d, _DTYPES[q.dtype],
         1.0 / math.sqrt(d), int(causal), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
@@ -135,7 +145,7 @@ class _FlashAttention(torch.autograd.Function):
                                               return_lse=True)
         else:
             _check_cuda("flash_attention", q, k, v)
-            q, k, v = (t if _fits(t) else t.contiguous() for t in (q, k, v))
+            q, k, v = (_readable(t) for t in (q, k, v))
             o = _out_buffer(q)
             lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
             _launch_forward(q, k, v, o, lse, causal, window)
@@ -173,7 +183,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     _check_cuda("flash_attention", q, k, v)
-    q, k, v = (t if _fits(t) else t.contiguous() for t in (q, k, v))
+    q, k, v = (_readable(t) for t in (q, k, v))
     o = _out_buffer(q)
     _launch_forward(q, k, v, o, None, causal, window)
     return o

@@ -18,8 +18,10 @@ vanilla and GAS rounds, card against CPU, within 1e-4.
 Backward kernels (flash_attention_bwd, rmsnorm_bwd) against their plain
 versions on the same inputs: f32 within 1e-5 of each gradient's largest
 magnitude (sums run in another order), bf16 within one bf16 ulp of it
-(2^-7·max|g|: both compute in f32 and round once); the forward's lse
-within 1e-5 relative. Small f32 FedAvg (SGD, AdamW) and FedLoRA rounds,
+(2^-7·max|g|: both sum in f32 and round once; the bf16 flash backward
+also rounds P and dS to enter the tensor cores, which
+tests/test_torch_flash_bwd.py emulates on the CPU); the forward's lse
+within 1e-5 relative. Two bf16 flash backward launches are bit-equal. Small f32 FedAvg (SGD, AdamW) and FedLoRA rounds,
 card against CPU, within 1e-4.
 """
 import numpy as np
@@ -297,12 +299,16 @@ def assert_grad_close(got, want):
 FLASH_BWD_CASES = [((1, 32, 32, 512, 64), True, 0),      # paper-opt-1.3b
                    ((1, 40, 8, 512, 128), True, 0),      # qwen3-14b, GQA 5
                    ((2, 8, 2, 500, 128), True, 128),     # ragged, window
-                   ((1, 4, 4, 300, 64), False, 70)]      # not causal
+                   ((1, 4, 4, 300, 64), False, 70),      # not causal
+                   ((2, 4, 4, 40, 64), True, 0),         # S below one tile
+                   ((1, 8, 2, 513, 128), True, 0),       # S one past a tile
+                   ((1, 10, 2, 300, 128), True, 100)]    # GQA 5, window
 
 
 @pytest.mark.parametrize("case", FLASH_BWD_CASES,
                          ids=["opt", "qwen3-gqa", "window-ragged",
-                              "noncausal-window"])
+                              "noncausal-window", "S40", "S513",
+                              "gqa5-window"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
     """The backward kernel on the plain forward's o and lse, and the whole
@@ -337,6 +343,55 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
         ref.flash_attention_ref(*qkv, causal, window), qkv, do)
     for g, w in zip(got, want):
         assert_grad_close(g, w)
+
+
+def _bwd_inputs(device, B, H, Hkv, S, d, causal, window, seed=7):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf16 = torch.bfloat16
+    q = torch.randn(B, H, S, d, generator=gen, device=device).to(bf16)
+    k = torch.randn(B, Hkv, S, d, generator=gen, device=device).to(bf16)
+    v = torch.randn(B, Hkv, S, d, generator=gen, device=device).to(bf16)
+    do = torch.randn(B, H, S, d, generator=gen, device=device).to(bf16)
+    o, lse = ref.flash_attention_ref(q, k, v, causal, window,
+                                     return_lse=True)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("case", [((1, 40, 8, 512, 128), True, 0),
+                                  ((1, 32, 32, 512, 64), True, 0),
+                                  ((1, 10, 2, 300, 128), False, 100)],
+                         ids=["qwen3-gqa", "opt", "gqa5-noncausal-window"])
+def test_flash_attention_bwd_is_deterministic(cuda, case):
+    """Two bf16 backward launches on the same inputs are bit-equal: no
+    atomics, and the dK/dV partials of a kv group's heads are summed in a
+    fixed order."""
+    (B, H, Hkv, S, d), causal, window = case
+    inputs = _bwd_inputs(cuda, B, H, Hkv, S, d, causal, window)
+    first = flash_attention_bwd(*inputs, causal=causal, window=window)
+    second = flash_attention_bwd(*inputs, causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_copies_a_misaligned_do(cuda):
+    """A bf16 dO the kernels cannot read in place (contiguous, but at an odd
+    element offset into its buffer, so its rows are not on 16 bytes) is
+    copied first and gives the gradient of the aligned dO."""
+    from repro_torch.kernels.flash_attention import _fits
+    B, H, Hkv, S, d = 1, 8, 2, 200, 128
+    q, k, v, o, lse, do = _bwd_inputs(cuda, B, H, Hkv, S, d, True, 0)
+    buf = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda)
+    odd = buf[1:].view(do.shape)
+    odd.copy_(do)
+    assert odd.is_contiguous() and not _fits(odd)
+    got = flash_attention_bwd(q, k, v, o, lse, odd)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    for g, w in zip(got, want):
+        assert_grad_close(g, w)
+    aligned = flash_attention_bwd(q, k, v, o, lse, do)
+    for g, a in zip(got, aligned):
+        assert torch.equal(g, a)
 
 
 def test_flash_attention_lse_matches_plain(cuda):

@@ -198,6 +198,7 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
+                                    "tools/flash_bwd_sweep.py",
                                     "tools/zo_sweep.py",
                                     "tools/threefry_sweep.py"])
 def test_chip_scripts_import_neither_jax_nor_repro(script):
