@@ -42,7 +42,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; FedAvg with
-     SGD and AdamW, FedLoRA), then the five main paths through the
+     SGD and AdamW, FedLoRA), then the six main paths through the
      training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
      kernel launch counter set to 0 just before and read just after, and
@@ -75,6 +75,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
          forwards and M·24 backwards a round, checked); then one FedAvg
          round of qwen3-14b at full width, 4 of 40 layers, whose backward
          runs the rmsnorm backward (4·layers + 1 launches a client);
+       - path 6, checkpoint and resume on path 4's model, flags and
+         schedule: MU-SplitFed (adaptive tau on the simulated clock,
+         params-only checkpoints), GAS (seed replay, counter noise; its
+         activation buffer checkpointed) and FedLoRA (its adapters
+         checkpointed), each run 4 rounds uninterrupted, then 2 rounds
+         with --ckpt-dir and --ckpt-every 2 and resumed by a fresh setup
+         for rounds 2-3: losses equal and every parameter and state leaf
+         torch.equal; save, wait, restore and verify seconds and the
+         checkpoint's GiB printed;
   5. one JSON line with every kernel's numbers (launches summed over the
      paths), then the result line.
 
@@ -1587,7 +1596,7 @@ def drive(dev, name: str, run, sfl, kernels, frozen: bool = False) -> tuple:
         args=argparse.Namespace(**{**vars(run.args), "rounds": 1,
                                    "adaptive_tau": False, "tau_source": "sim",
                                    "telemetry": False, "log_jsonl": "",
-                                   "trace_out": ""}),
+                                   "trace_out": "", "ckpt_dir": ""}),
         params=res.params)
     profile_round(f"{name}, one round at tau {tau}", lambda: train.run_engine(
         one, sfl=dataclasses.replace(sfl, tau=tau), log=None))
@@ -1920,6 +1929,163 @@ def phase_qwen_fo(dev) -> dict:
     return n
 
 
+# path 6: checkpoint and resume on path 4's model, flags and schedule, one
+# algorithm for each kind of checkpoint: MU-SplitFed's params alone with
+# adaptive tau's overrides (simulated clock), GAS's {'params','state'}
+# bundle with its activation buffer, FedLoRA's with its adapters
+# MU-SplitFed re-plans τ every round (--chunk-size 1), so τ reaches its
+# cap at round 1, before the checkpoint: the resumed run replays that
+# override, and its first boundary, which observes no window, keeps it
+RESUME_RUNS = (
+    ("mu_splitfed", ["--tau", "2", "--adaptive-tau", "--tau-max", "4",
+                     "--chunk-size", "1"],
+     "gaussian", ("threefry", "flash_attention")),
+    ("gas", ["--aggregation", "seed_replay"], "counter",
+     ("zo_update", "zo_replay", "flash_attention")),
+    ("fedlora", [], "gaussian", ("flash_attention", "flash_attention_bwd")))
+
+
+def host_leaves(tree_) -> list:
+    """(path, tensor on the host) for every leaf of a tree."""
+    from repro_torch.utils import tree
+    return [(k, t.detach().cpu()) for k, t in tree.path_leaves(tree_)]
+
+
+def require_equal(name: str, got, want) -> None:
+    """Every leaf of ``got`` torch.equal to its counterpart in ``want``
+    (both host leaf lists); else print each leaf that differs with its max
+    |Δ| and fail."""
+    require([k for k, _ in got] == [k for k, _ in want],
+            f"{name}: the trees hold other leaves")
+    bad = [(k, max_err(a, b)) for (k, a), (_, b) in zip(got, want)
+           if a.dtype != b.dtype or not torch.equal(a, b)]
+    for k, err in bad:
+        print(f"{name}: leaf {k} differs, max |Δ| {err:.3e}")
+    require(not bad, f"{name}: {len(bad)} leaves differ")
+
+
+def phase_resume(dev) -> dict:
+    """Path 6, checkpoint and resume on paper-opt-1.3b at its full config
+    with ``PAPER_ARGV``, through ``train.setup`` + ``train.run_engine`` and
+    the driver's resume (``--ckpt-dir``, ``--ckpt-every 2``), for each of
+    ``RESUME_RUNS`` on the same seed and schedule: an uninterrupted 4-round
+    run, copied to the host; a run of rounds 0-1 that checkpoints; and a
+    fresh setup with --rounds 4 on the same directory, which must resume
+    from round 2, at the uninterrupted run's τ of round 2, and run rounds
+    2-3. The resumed run's round losses (and tau per round) must equal
+    the uninterrupted run's and every parameter and state leaf be
+    torch.equal to its counterpart, and the card-written checkpoints must
+    verify. Then, on the resumed run's bundle, the
+    seconds of a Checkpointer.save (the host copy) and of its wait() (the
+    write), of restore_params onto the card and of verify_checkpoint, and
+    the checkpoint's GiB, beside the card's name and power limit; the
+    restored bundle must equal the saved one. Returns the resumed runs'
+    launch counts (the counters set to 0 just before each resumed run)."""
+    import os
+    import tempfile
+
+    from repro_torch.ckpt import (Checkpointer, latest_good_step,
+                                  restore_params, verify_checkpoint)
+    from repro_torch.core import engine
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    card = ", ".join(smi("name,power.limit"))
+    launches = {}
+    t_path = time.perf_counter()
+    for algorithm, extra, dist, kernels in RESUME_RUNS:
+        name = f"resume path ({algorithm})"
+        argv = [*PAPER_ARGV, "--algorithm", algorithm, *extra]
+        lines = []
+
+        def log(line, lines=lines, name=name):
+            lines.append(line)
+            print(f"{name}: {line}")
+
+        def setup(*more):
+            torch.cuda.empty_cache()
+            run = train.setup([*argv, *more])
+            require(run.cfg.n_layers == 24 and run.cfg.d_model == 2048
+                    and run.cfg.d_head == 64,
+                    f"{name}: not paper-opt-1.3b's full config")
+            return run, dataclasses.replace(run.sfl, perturbation_dist=dist)
+
+        run, sfl = setup()
+        full, _ = train.run_engine(run, sfl=sfl, log=log)
+        want = ([float(x) for x in full.round_loss],
+                [int(t) for t in full.tau_per_round],
+                host_leaves(full.params), host_leaves(full.state))
+        del run, full
+        with tempfile.TemporaryDirectory() as tmp:
+            ck_argv = ["--ckpt-dir", tmp, "--ckpt-every", "2"]
+            run, sfl = setup("--rounds", "2", *ck_argv)
+            part1, _ = train.run_engine(run, sfl=sfl, log=log)
+            del run
+            require(latest_good_step(tmp) == 1,
+                    f"{name}: no checkpoint at round 1")
+            run, sfl = setup(*ck_argv)
+            lines.clear()
+            torch.cuda.synchronize()
+            build.reset_launches()
+            part2, _ = train.run_engine(run, sfl=sfl, log=log)
+            torch.cuda.synchronize()
+            n = dict(build.LAUNCHES)
+            del run
+            require(lines and lines[0] ==
+                    f"[resume] from round 2 (tau={want[1][2]})",
+                    f"{name}: the run did not resume from round 2 at the "
+                    f"uninterrupted run's tau: {lines[:1]}")
+            for k in kernels:
+                require(n.get(k, 0) > 0,
+                        f"{name}: kernel {k} was never launched")
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+            losses = [float(x) for x in (*part1.round_loss,
+                                         *part2.round_loss)]
+            taus = [int(t) for t in (*part1.tau_per_round,
+                                     *part2.tau_per_round)]
+            print(f"{name}: losses uninterrupted {want[0]} resumed {losses}; "
+                  f"tau per round {want[1]} resumed {taus}; launches {n}")
+            require(losses == want[0] and taus == want[1],
+                    f"{name}: the resumed rounds differ")
+            require_equal(f"{name}: parameters", host_leaves(part2.params),
+                          want[2])
+            require_equal(f"{name}: state", host_leaves(part2.state),
+                          want[3])
+            # step 1 verified above (latest_good_step); step 3 is the
+            # resumed run's final save
+            require(verify_checkpoint(tmp, 3),
+                    f"{name}: the checkpoint at step 3 does not verify")
+            del part1, want
+            for step in (1, 3):
+                for f in os.listdir(os.path.join(tmp, f"step_{step:010d}")):
+                    os.remove(os.path.join(tmp, f"step_{step:010d}", f))
+            bundle = engine._ckpt_tree(part2.params, part2.state)
+            ck = Checkpointer(os.path.join(tmp, "timed"))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck.save(3, bundle)
+            t1 = time.perf_counter()
+            ck.wait()
+            t2 = time.perf_counter()
+            got, _ = restore_params(ck.dir, bundle, 3)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+            require(verify_checkpoint(ck.dir, 3),
+                    f"{name}: the timed checkpoint does not verify")
+            t4 = time.perf_counter()
+            gib = os.path.getsize(os.path.join(
+                ck.dir, "step_0000000003", "arrays.npz")) / 2 ** 30
+            require_equal(f"{name}: restored bundle", host_leaves(got),
+                          host_leaves(bundle))
+            print(f"{name}: checkpoint {gib:.3f} GiB: save (host copy) "
+                  f"{t1 - t0:.3f} s, wait (write) {t2 - t1:.3f} s, restore "
+                  f"onto the card {t3 - t2:.3f} s, verify_checkpoint "
+                  f"{t4 - t3:.3f} s ({card})")
+            del bundle, got, part2
+    print(f"resume path: {time.perf_counter() - t_path:.1f} s in all")
+    return launches
+
+
 def profile_round(name: str, fn):
     """One round of a path (``fn``) under torch.profiler: device time by
     kernel, and the device's busy share of the round's wall time."""
@@ -1985,6 +2151,9 @@ def main() -> int:
     for k, n in phase_fo_paper(dev, zo_summary).items():
         launches[k] = launches.get(k, 0) + n
     for k, n in phase_qwen_fo(dev).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    for k, n in phase_resume(dev).items():
         launches[k] = launches.get(k, 0) + n
     src = "src/repro_torch/kernels/csrc/"
     rows = [("zo_update", src + "zo_update.cu",

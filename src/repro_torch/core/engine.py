@@ -17,13 +17,16 @@
                the reference's per-round loop does. ``chunk_size`` sets
                where a Controller may re-plan in both. A
                ``obs.TelemetrySink`` gets the simulator's and the measured
-               clock's records.
+               clock's records. A ``ckpt.Checkpointer`` saves at chunk
+               boundaries aligned to ``ckpt_every``; ``restore_run`` and
+               ``apply_resume_overrides`` bring a run back, and
+               ``run_rounds(start_round=..., state=...)`` continues it.
   Controller   chunk-boundary policy hook; ``AdaptiveTau`` is the paper's
                adaptive τ (§5), re-planned from the observed straggler gap
                (simulated or measured) with ``straggler.plan_tau``.
 
-Not ported yet (ROADMAP.md, queue 1): checkpoints and resume (item 3),
-mode='async' and the sparse timeline (item 5).
+Not ported yet (ROADMAP.md, queue 1): mode='async' and the sparse
+timeline (item 5).
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from typing import (Any, Callable, Dict, List, NamedTuple, Optional, Protocol,
 import numpy as np
 import torch
 
+from repro_torch.ckpt.checkpoint import read_meta
 from repro_torch.configs.base import ModelConfig, SFLConfig
 from repro_torch.core import prng
 from repro_torch.core import straggler as strag
@@ -262,10 +266,13 @@ class SchedWindow(NamedTuple):
 class Controller(Protocol):
     """Chunk-boundary policy hook. ``update`` runs once per chunk, before
     it runs, with the window of rounds just run (None at the first
-    boundary) and the last flushed ChunkInfo; the returned dict maps
-    SFLConfig fields to new values ('tau', 'lr_server', ...). A new
-    'deadline' raises: no ported controller sets one.
-    An optional ``bind(sfl)`` is called once with the initial config."""
+    boundary, a resumed run's too) and the last flushed ChunkInfo; the
+    returned dict maps
+    SFLConfig fields to new values ('tau', 'lr_server', ...; a new
+    'deadline' re-derives the deadline masks from the schedule's delay
+    rows). An optional ``bind(sfl)`` is called once with the initial
+    config, and optional ``state_dict()`` / ``load_state_dict(d)`` carry
+    the controller across a checkpoint."""
 
     def update(self, round_idx: int, window: Optional[SchedWindow],
                metrics: Optional["ChunkInfo"]) -> Dict[str, Any]: ...
@@ -392,29 +399,145 @@ def _cohort_bounds_of(schedule) -> List[Tuple[int, int]]:
     return [(s.start, s.stop) for s in pop.slices()]
 
 
+def _has_state(state) -> bool:
+    return bool(tree.path_leaves(state))
+
+
+def _ckpt_tree(params, state):
+    """What the engine checkpoints: params alone for stateless algorithms
+    (the reference's params-only checkpoints), else a {'params','state'}
+    bundle so resume is exact for stateful algorithms (GAS's activation
+    buffer, FedLoRA's adapters)."""
+    return {"params": params, "state": state} if _has_state(state) else params
+
+
+def restore_run(checkpointer, algorithm: Union[str, Algorithm],
+                cfg: ModelConfig, sfl: SFLConfig, params: Params,
+                batch_fn: Callable[[int], Batch], *,
+                step: Optional[int] = None,
+                **algo_opts) -> Tuple[Params, State, dict]:
+    """Restore an engine checkpoint for resume: (params, state, meta), the
+    leaves on the device ``params`` lie on.
+
+    A checkpoint with the {'params','state'} bundle restores the engine
+    state too (its template is the algorithm's init_state on the first
+    resumed round's batch); a params-only one returns state=None, and
+    run_rounds then initialises the state from that batch. Continue with
+    ``run_rounds(..., state=state, start_round=meta['step'] + 1)``; a run
+    with a controller also passes meta through ``apply_resume_overrides``.
+    step=None takes the latest checkpoint that verifies.
+    """
+    algo = get_algorithm(algorithm, **algo_opts)
+    checkpointer.wait()
+    meta = read_meta(checkpointer.dir, step)
+    start = meta["step"] + 1
+    if meta.get("metadata", {}).get("has_state"):
+        device = tree.leaves(params)[0].device
+        state = algo.init_state(cfg, sfl, params,
+                                to_device_batch(batch_fn(start), device))
+        bundle, meta = checkpointer.restore(
+            {"params": params, "state": state}, meta["step"])
+        return bundle["params"], bundle["state"], meta
+    params, meta = checkpointer.restore(params, meta["step"])
+    return params, None, meta
+
+
+def apply_resume_overrides(sfl: SFLConfig, meta: dict,
+                           controller: Optional[Controller] = None
+                           ) -> SFLConfig:
+    """Re-apply a resumed run's controller decisions: the SFLConfig fields
+    the controller had overridden by the save (metadata
+    'controller_overrides') onto ``sfl``, and the controller's own state
+    (metadata 'controller_state', through its load_state_dict), so the run
+    goes on at the adapted τ and learning rates with the controller's EMA
+    intact instead of restarting from the flags. A restored 'deadline'
+    needs no new schedule: run_rounds re-derives the deadline masks from
+    the schedule's delay rows when sfl.deadline differs from the
+    schedule's."""
+    md = meta.get("metadata", {})
+    overrides = md.get("controller_overrides") or {}
+    if overrides:
+        sfl = dataclasses.replace(sfl, **overrides)
+    cs = md.get("controller_state")
+    if controller is not None and cs and hasattr(controller,
+                                                 "load_state_dict"):
+        controller.load_state_dict(cs)
+    return sfl
+
+
+def _segments(start: int, rounds: int, chunk_size: int,
+              ckpt_every: int) -> List[Tuple[int, int]]:
+    """Chunks of at most ``chunk_size`` rounds from ``start``, cut at every
+    multiple of ``ckpt_every``."""
+    out, r = [], start
+    while r < rounds:
+        C = min(chunk_size, rounds - r)
+        if ckpt_every:
+            C = min(C, ckpt_every - r % ckpt_every)
+        out.append((r, r + C))
+        r += C
+    return out
+
+
+def _with_deadline(schedule, deadline: float):
+    """``schedule`` with its deadline and consumed masks re-derived from its
+    delay rows for ``deadline``."""
+    nd = np.stack([strag.deadline_mask(d, deadline)
+                   for d in schedule.delays])
+    return dataclasses.replace(schedule, deadline=nd,
+                               masks=schedule.participation * nd)
+
+
+def _json_value(v):
+    """A controller override as a JSON value (numpy scalars as Python's)."""
+    return v.item() if isinstance(v, np.generic) else v
+
+
 def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                sfl: SFLConfig, params: Params, batch_fn: Callable[[int], Batch],
                schedule: strag.Schedule, key, *, rounds: int,
-               chunk_size: int = 8, mode: str = "scan",
+               start_round: int = 0, chunk_size: int = 8,
+               mode: str = "scan", state: Optional[State] = None,
                checkpointer=None, ckpt_every: int = 0,
                chunk_callback: Optional[Callable] = None,
                controller: Optional[Controller] = None,
                telemetry: Optional[TelemetrySink] = None,
                **algo_opts) -> EngineResult:
-    """Run rounds [0, rounds) of ``algorithm`` on the device the parameters
-    lie on.
+    """Run rounds [start_round, rounds) of ``algorithm`` on the device the
+    parameters lie on.
 
-    batch_fn(r) returns round r's host batch (leaves with a leading M dim).
-    ``schedule`` gives the (R, M) delay and mask rows (cyclic if shorter
-    than the run) and the wall-clock knobs; ``key`` is the run's raw base
-    key, and round r uses fold_in(key, r). Rounds go in segments of
-    ``chunk_size``; at each segment's start ``controller`` may override
-    SFLConfig fields for the remaining rounds ('tau' re-plans the server
-    steps and the simulated round times). mode 'scan' flushes the metrics
-    to the host (and runs ``chunk_callback(ChunkInfo, params, state)``)
-    once a segment; mode 'python' once a round, with a one-round
-    ChunkInfo, while the controller still sees the whole segment's.
-    Masks, simulated round times and the τ trace always reflect what ran.
+    batch_fn(r) returns round r's host batch (leaves with a leading M dim;
+    stateless in r, so a resumed run sees the same data). ``schedule``
+    gives the (R, M) delay and mask rows (cyclic if shorter than the run)
+    and the wall-clock knobs; ``key`` is the run's raw base key, and round
+    r uses fold_in(key, r). ``state`` is the algorithm's state at
+    start_round (None: init_state on batch_fn(start_round)). Rounds go in
+    segments of ``chunk_size``, cut at every multiple of ``ckpt_every``;
+    at each segment's start ``controller`` may override SFLConfig fields
+    for the remaining rounds ('tau' re-plans the server steps and the
+    simulated round times, 'deadline' re-derives the deadline masks from
+    the schedule's delay rows). mode 'scan' flushes the metrics to the
+    host (and runs ``chunk_callback(ChunkInfo, params, state)``) once a
+    segment; mode 'python' once a round, with a one-round ChunkInfo,
+    while the controller still sees the whole segment's. Masks, simulated
+    round times and the τ trace always reflect what ran; their rows, the
+    metrics and EngineResult cover rounds [start_round, rounds), and
+    ChunkInfo, telemetry records and controller windows carry absolute
+    round numbers.
+
+    ``checkpointer`` (a ``ckpt.Checkpointer``) saves at step = the last
+    round of a segment that ends on a multiple of ``ckpt_every`` ('python'
+    mode: after such a round), and at rounds - 1, blocking, with the last
+    round's loss. The tree is the params, or {'params','state'} for a
+    stateful algorithm; the metadata records 'has_state' and, with a
+    controller, its overrides so far ('controller_overrides') and its
+    state_dict ('controller_state'). Resume with ``restore_run``,
+    ``apply_resume_overrides`` and start_round = step + 1. As in the
+    reference, a resumed run's first boundary gives the controller no
+    window, so it keeps the restored τ. Unlike the reference, a resumed
+    run whose ``sfl.deadline`` (a restored override) differs from the
+    deadline ``schedule`` was drawn with re-derives the deadline masks
+    from the schedule's delay rows before its first round.
 
     ``telemetry`` (an ``obs.TelemetrySink``) turns on both producers: a
     'sim' record at every flush (durations bit-identical to
@@ -427,8 +550,6 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
     no extra synchronise happens. Spans ``engine.stage``,
     ``engine.dispatch`` and ``engine.flush`` go to the installed
     ``obs.trace`` tracer ('scan' mode).
-    Resuming (the reference's ``start_round`` and ``state``) comes with
-    checkpoints.
     """
     algo = get_algorithm(algorithm, **algo_opts)
     if mode == "async":
@@ -438,31 +559,36 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
     if mode not in ("scan", "python"):
         raise ValueError(f"run_rounds: mode must be 'scan'|'python'|'async', "
                          f"got {mode!r}")
-    if checkpointer is not None or ckpt_every:
-        raise NotImplementedError("checkpoints are not ported: ROADMAP.md, "
-                                  "queue 1, item 3 (ckpt/checkpoint.py)")
-    if rounds <= 0:
+    n_run = rounds - start_round
+    if n_run <= 0:
         empty = np.zeros((0,), np.float64)
-        return EngineResult(params, (), {}, empty, empty, 0.0,
-                            np.zeros((0,), np.int64))
+        return EngineResult(params, state if state is not None else (), {},
+                            empty, empty, 0.0, np.zeros((0,), np.int64))
     device = tree.leaves(params)[0].device
-    state = algo.init_state(cfg, sfl, params,
-                            to_device_batch(batch_fn(0), device))
+    if state is None:
+        state = algo.init_state(cfg, sfl, params,
+                                to_device_batch(batch_fn(start_round), device))
     tele = telemetry is not None
 
     R = schedule.n_rounds
-    # two sets of (rounds, M) rows, as the reference keeps them: the
+    sched_eff = schedule            # re-derived on a controller's deadline
+    if start_round > 0:             # a restored deadline override
+        resumed = _with_deadline(schedule, sfl.deadline)
+        if not np.array_equal(resumed.deadline, schedule.deadline):
+            sched_eff = resumed
+    rows = range(start_round, rounds)
+    # two sets of (n_run, M) rows, as the reference keeps them: the
     # schedule's own masks set the simulated round times and what a
     # controller observes; the algorithm's round_mask rows are what its
-    # rounds consume and what weights their losses
-    time_masks = np.stack([schedule.masks[r % R] for r in range(rounds)])
-    masks = np.stack([algo.round_mask(schedule, r) for r in range(rounds)])
-    round_times = np.array([algo.time_model(schedule.delays[r % R],
-                                            time_masks[r], sfl, schedule)
-                            for r in range(rounds)])
-    tau_used = np.full(rounds, sfl.tau, np.int64)
-    segments = [(r, min(r + chunk_size, rounds))
-                for r in range(0, rounds, chunk_size)]
+    # rounds consume and what weights their losses. Row i is round
+    # start_round + i.
+    time_masks = np.stack([sched_eff.masks[r % R] for r in rows])
+    masks = np.stack([algo.round_mask(sched_eff, r) for r in rows])
+    round_times = np.array([algo.time_model(sched_eff.delays[r % R],
+                                            time_masks[i], sfl, sched_eff)
+                            for i, r in enumerate(rows)])
+    tau_used = np.full(n_run, sfl.tau, np.int64)
+    segments = _segments(start_round, rounds, chunk_size, ckpt_every)
     cohort_bounds = _cohort_bounds_of(schedule)
 
     if controller is not None and hasattr(controller, "bind"):
@@ -470,12 +596,28 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
 
     chunks: List[Dict[str, np.ndarray]] = []
     last_info: Optional[ChunkInfo] = None
+    applied: Dict[str, Any] = {}    # controller overrides in effect
+
+    def ckpt_meta(**extra):
+        md = {"has_state": _has_state(state), **extra}
+        if controller is not None:
+            if applied:             # JSON values
+                md["controller_overrides"] = {k: _json_value(v)
+                                              for k, v in applied.items()}
+            if hasattr(controller, "state_dict"):
+                md["controller_state"] = controller.state_dict()
+        return md
+
+    def save(step, block=False, **extra):
+        checkpointer.save(step, _ckpt_tree(params, state),
+                          metadata=ckpt_meta(**extra), block=block)
 
     def chunk_info(host, r0, r1):
-        m = masks[r0:r1]
+        i0, i1 = r0 - start_round, r1 - start_round
+        m = masks[i0:i1]
         rl = ((host["loss"] * m).sum(1)
               / np.maximum(m.sum(1), 1.0)).astype(np.float64)
-        return ChunkInfo(r0, r1, host, m, rl, round_times[r0:r1])
+        return ChunkInfo(r0, r1, host, m, rl, round_times[i0:i1])
 
     def seg_info(r0, r1):
         seg = chunks[-(r1 - r0):]
@@ -485,9 +627,9 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
     def cohort_arrival(r0, r1):
         """Per-cohort mean arrival latency (delay + uplink) of the
         window's active clients."""
-        arr = (np.stack([schedule.delays[rr % R] for rr in range(r0, r1)])
-               + _comm_of(schedule)[None, :])
-        m = time_masks[r0:r1]
+        arr = (np.stack([sched_eff.delays[rr % R] for rr in range(r0, r1)])
+               + _comm_of(sched_eff)[None, :])
+        m = time_masks[r0 - start_round:r1 - start_round]
         out = np.zeros(len(cohort_bounds), np.float64)
         for ci, (cs, ce) in enumerate(cohort_bounds):
             w = m[:, cs:ce]
@@ -504,43 +646,51 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
         last_info = chunk_info(host, r0, r1)
         if tele:    # durations: the same slice ChunkInfo carries
             telemetry.emit(RoundTelemetry(
-                r0, r1, "sim", mode, round_times[r0:r1].copy(),
+                r0, r1, "sim", mode,
+                round_times[r0 - start_round:r1 - start_round].copy(),
                 cohort_arrival=cohort_arrival(r0, r1)))
         if chunk_callback is not None:
             chunk_callback(last_info, params, state)
 
     def controller_step(seg_idx):
         """Apply the controller's overrides for rounds >= this segment and
-        re-derive the simulated times they change."""
-        nonlocal sfl
+        re-derive the masks and simulated times they change."""
+        nonlocal sfl, sched_eff
         r0 = segments[seg_idx][0]
         window = None
         if seg_idx > 0:
             p0, p1 = segments[seg_idx - 1]
             window = SchedWindow(
                 p0, p1,
-                np.stack([schedule.delays[rr % R] for rr in range(p0, p1)]),
-                time_masks[p0:p1], schedule.t_server, schedule.t_comm,
+                np.stack([sched_eff.delays[rr % R] for rr in range(p0, p1)]),
+                time_masks[p0 - start_round:p1 - start_round],
+                sched_eff.t_server, sched_eff.t_comm,
                 telemetry=telemetry.window(p0, p1) if tele else ())
         upd = controller.update(r0, window, last_info) or {}
         changed = {k: v for k, v in upd.items() if getattr(sfl, k) != v}
         if not changed:
             return
-        if "deadline" in changed:
-            raise NotImplementedError(
-                "a controller that moves the deadline is not ported (the "
-                "reference re-derives the masks from the schedule's delays)")
+        applied.update(changed)
         sfl = dataclasses.replace(sfl, **changed)
-        for rr in range(r0, rounds):
-            round_times[rr] = algo.time_model(schedule.delays[rr % R],
-                                              time_masks[rr], sfl, schedule)
-        tau_used[r0:] = sfl.tau
+        i = r0 - start_round
+        if "deadline" in changed:
+            sched_eff = _with_deadline(sched_eff, sfl.deadline)
+            for j in range(i, n_run):
+                rr = start_round + j
+                time_masks[j] = sched_eff.masks[rr % R]
+                masks[j] = algo.round_mask(sched_eff, rr)
+        for j in range(i, n_run):
+            round_times[j] = algo.time_model(
+                sched_eff.delays[(start_round + j) % R], time_masks[j], sfl,
+                sched_eff)
+        tau_used[i:] = sfl.tau
 
     def one_round(rr, batch):
         nonlocal params, state
         params, state, met = algo.round_fn(
             cfg, sfl, params, state, batch,
-            torch.from_numpy(masks[rr]).to(device), prng.fold_in(key, rr))
+            torch.from_numpy(masks[rr - start_round]).to(device),
+            prng.fold_in(key, rr))
         return met
 
     for si, (r0, r1) in enumerate(segments):
@@ -552,6 +702,9 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
             for rr in range(r0, r1):
                 flush([one_round(rr, to_device_batch(batch_fn(rr), device))],
                       rr, rr + 1)
+                if (checkpointer is not None and ckpt_every
+                        and (rr + 1) % ckpt_every == 0 and rr + 1 < rounds):
+                    save(rr)
             if tele:    # the per-round flushes above are the synchronises
                 dt = perf_counter() - t_seg
                 telemetry.emit(RoundTelemetry(
@@ -578,6 +731,9 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                 dispatch_seconds=t_sync - t_disp))
         with span("engine.flush", start=r0, stop=r1):
             flush(mets, r0, r1)
+        if (checkpointer is not None and ckpt_every
+                and r1 % ckpt_every == 0 and r1 < rounds):
+            save(r1 - 1)
 
     def _cat(k2):
         arrs = [c[k2] for c in chunks]
@@ -592,5 +748,7 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
     metrics = {k2: _cat(k2) for k2 in chunks[0]}
     round_loss = ((metrics["loss"] * masks).sum(1)
                   / np.maximum(masks.sum(1), 1.0)).astype(np.float64)
+    if checkpointer is not None:
+        save(rounds - 1, block=True, loss=float(round_loss[-1]))
     return EngineResult(params, state, metrics, round_loss, round_times,
                         float(round_times.sum()), tau_used)

@@ -18,7 +18,12 @@ the start (at the chunk's end, where the metrics reach the host) and the
 simulated clock. ``--telemetry`` attaches a TelemetrySink and prints its
 summary and the metrics at the end; ``--log-jsonl`` writes round and
 chunk rows; ``--trace-out`` writes the engine's spans (.json Chrome
-trace, .jsonl one span a line).
+trace, .jsonl one span a line). ``--ckpt-dir`` checkpoints the run every
+``--ckpt-every`` rounds and at its end, and a run started on a directory
+that holds a checkpoint resumes from the latest one that verifies: the
+parameters, the algorithm's state (GAS's buffer, FedLoRA's adapters), the
+controller's overrides and EMA, and the run log cut back to the resumed
+round.
 
 Runs on the card unless ``--device cpu`` is given:
     python -m repro_torch.launch.train --arch paper-opt-1.3b --clients 4 \\
@@ -29,9 +34,11 @@ Runs on the card unless ``--device cpu`` is given:
         --tau-source measured --telemetry --log-jsonl run.jsonl
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 3 --seq 16 --algorithm fedlora
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --rounds 2 --seq 16 --ckpt-dir ckpt --ckpt-every 2   # then --rounds 4
 
-Not ported yet (ROADMAP.md, queue 1): checkpoints (--ckpt-dir,
---ckpt-every), --async and its flags, --faults and --adaptive-quorum.
+Not ported yet (ROADMAP.md, queue 1): --async and its flags, --faults and
+--adaptive-quorum.
 """
 from __future__ import annotations
 
@@ -44,6 +51,7 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.ckpt import Checkpointer, latest_good_step, read_meta
 from repro_torch.configs import ModelConfig, SFLConfig, get_config
 from repro_torch.core import engine, prng
 from repro_torch.core import straggler as strag
@@ -124,6 +132,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--chunk-size", type=int, default=8,
                     help="rounds between host flushes (and controller "
                          "boundaries)")
+    ap.add_argument("--ckpt-dir", default="",
+                    help="checkpoint here, and resume from the latest "
+                         "checkpoint that verifies")
+    ap.add_argument("--ckpt-every", type=int, default=10,
+                    help="rounds between checkpoints (chunks are cut at "
+                         "its multiples)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--lr-server", type=float, default=1e-3)
     ap.add_argument("--lr-client", type=float, default=5e-4)
@@ -208,7 +222,10 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
                chunk_callback: Optional[Callable] = None):
     """``engine.run_rounds`` over the run's schedule, printing each round
     as the reference driver does, with the run's telemetry sink, span
-    tracer and run log. Returns (EngineResult, the controller or None).
+    tracer, run log and checkpoints; with ``--ckpt-dir`` on a directory
+    that holds a checkpoint, it resumes from the latest one that verifies
+    (the reference driver's resume). Returns (EngineResult, the controller
+    or None).
     ``sfl``, if given, replaces the run's config (``chip_smoke.py`` sets
     counter noise this way); ``chunk_callback`` runs after the printing
     and logging."""
@@ -225,7 +242,21 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
     tracer = obs.SpanTracer() if a.trace_out else None
     prev_tracer = obs.install(tracer) if tracer is not None else None
     registry = obs.get_registry()
-    runlog = (obs.RunLog(a.log_jsonl, log_every=a.log_every)
+    # resume: the controller's overrides and EMA replay before the restore,
+    # so a state template is built from the adapted config
+    ck = Checkpointer(a.ckpt_dir) if a.ckpt_dir else None
+    params, start_round, state = run.params, 0, None
+    step = latest_good_step(a.ckpt_dir) if ck is not None else None
+    if step is not None:
+        sfl = engine.apply_resume_overrides(
+            sfl, read_meta(a.ckpt_dir, step), controller)
+        params, state, meta = engine.restore_run(
+            ck, algo, run.cfg, sfl, params, run.loader.round_batch, step=step)
+        start_round = meta["step"] + 1
+        if log is not None:
+            log(f"[resume] from round {start_round} (tau={sfl.tau})")
+    runlog = (obs.RunLog(a.log_jsonl, resume_round=start_round,
+                         log_every=a.log_every)
               if a.log_jsonl else None)
     wall = strag.WallClock()
     t0 = time.time()
@@ -264,10 +295,11 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
 
     try:
         result = engine.run_rounds(
-            algo, run.cfg, sfl, run.params, run.loader.round_batch,
+            algo, run.cfg, sfl, params, run.loader.round_batch,
             schedule(run), prng.PRNGKey(a.seed), rounds=a.rounds,
-            chunk_size=a.chunk_size, mode=a.loop, chunk_callback=on_chunk,
-            controller=controller, telemetry=sink)
+            start_round=start_round, state=state, chunk_size=a.chunk_size,
+            mode=a.loop, checkpointer=ck, ckpt_every=a.ckpt_every,
+            chunk_callback=on_chunk, controller=controller, telemetry=sink)
     finally:
         if tracer is not None:
             obs.install(prev_tracer)

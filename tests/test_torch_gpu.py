@@ -539,3 +539,104 @@ def test_bf16_logits_product_gradient(cuda):
         assert a.dtype == torch.bfloat16
         assert float((a.float() - b).abs().max()) <= 2.0 ** -6 * float(
             b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# checkpoints on the card: exact round trips and an exact resume
+# ---------------------------------------------------------------------------
+
+def _ckpt_tree(device):
+    gen = torch.Generator(device="cpu").manual_seed(21)
+    return {"w": torch.randn(64, 33, generator=gen).to(torch.bfloat16),
+            "b": {"f": torch.randn(7, generator=gen),
+                  "i": torch.arange(-3, 9, dtype=torch.int32)}}
+
+
+def _to(t, device):
+    from repro_torch.utils import tree
+    return tree.tree_map(lambda a: a.to(device), t)
+
+
+def test_ckpt_cuda_leaves_round_trip_exactly(cuda, tmp_path):
+    """bf16, f32 and int32 leaves on the card saved and restored onto the
+    card: bit-equal, same dtypes, on the card."""
+    from repro_torch.ckpt import restore_params, save_params
+    from repro_torch.utils import tree
+    src = _to(_ckpt_tree("cpu"), cuda)
+    save_params(str(tmp_path), 0, src)
+    got, meta = restore_params(str(tmp_path), src)
+    assert meta["dtypes"] == {"w": "bfloat16", "b/f": "float32",
+                              "b/i": "int32"}
+    for a, b in zip(tree.leaves(got), tree.leaves(src)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_ckpt_cpu_checkpoint_restores_onto_the_card(cuda, tmp_path):
+    """A checkpoint written from CPU tensors restores onto the card through
+    ``device=``, its template on the CPU, bit-equal."""
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.utils import tree
+    src = _ckpt_tree("cpu")
+    ck = Checkpointer(str(tmp_path))
+    ck.save(5, src, block=True)
+    got, meta = ck.restore(src, device=cuda)
+    assert meta["step"] == 5
+    for a, b in zip(tree.leaves(got), tree.leaves(src)):
+        assert a.is_cuda and a.dtype == b.dtype and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("algorithm,opts", [
+    ("mu_splitfed", {"aggregation": "seed_replay"}),
+    ("gas", {"aggregation": "seed_replay"}), ("fedlora", {})])
+def test_scan_resume_on_the_card_is_exact(cuda, tmp_path, algorithm, opts):
+    """A small bf16 run on the card (counter noise for the zeroth-order
+    ones, so zo_update and zo_replay launch; FedLoRA's backward kernels),
+    4 rounds in 'scan' chunks of 2, against a run of 2 rounds checkpointed
+    and resumed for rounds 2-3: round losses, parameters and the state
+    torch.equal."""
+    import dataclasses
+
+    from repro_torch.ckpt import Checkpointer
+    from repro_torch.configs import SFLConfig, get_config
+    from repro_torch.core import engine, prng
+    from repro_torch.core import straggler as strag
+    from repro_torch.data import (FederatedLoader, SyntheticLM,
+                                  dirichlet_partition)
+    from repro_torch.models import init_params, untie_params
+    from repro_torch.utils import tree
+    cfg = get_config("olmo-1b", smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=2)
+    params = _to(untie_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0))), cuda)
+    sfl = dataclasses.replace(
+        SFLConfig(n_clients=3, tau=2, cut_units=2, participation=0.67,
+                  straggler_rate=2.0), perturbation_dist="counter")
+    loader = FederatedLoader(SyntheticLM(cfg.vocab_size, 64, 0),
+                             dirichlet_partition(np.arange(256) % 10, 3,
+                                                 alpha=0.5, seed=0), 1,
+                             seed=0)
+    sched = strag.make_schedule(
+        0, 4, population=strag.ClientPopulation.resolve(sfl), t_server=0.5)
+    key = prng.PRNGKey(0)
+
+    def run(p, rounds, **kw):
+        return engine.run_rounds(algorithm, cfg, sfl, p, loader.round_batch,
+                                 sched, key, rounds=rounds, chunk_size=2,
+                                 mode="scan", **opts, **kw)
+
+    full = run(params, 4)
+    ck = Checkpointer(str(tmp_path))
+    part1 = run(params, 2, checkpointer=ck, ckpt_every=2)
+    p2, s2, meta = engine.restore_run(ck, algorithm, cfg, sfl, params,
+                                      loader.round_batch, **opts)
+    assert meta["step"] == 1
+    part2 = run(p2, 4, start_round=2, state=s2)
+    assert np.array_equal(full.round_loss,
+                          np.concatenate([part1.round_loss,
+                                          part2.round_loss]))
+    for tag in ("params", "state"):
+        got = tree.path_leaves(getattr(part2, tag))
+        want = tree.path_leaves(getattr(full, tag))
+        assert [k for k, _ in got] == [k for k, _ in want]
+        for (k, a), (_, b) in zip(got, want):
+            assert a.is_cuda and torch.equal(a, b), k

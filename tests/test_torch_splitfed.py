@@ -192,8 +192,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.obs.measure", "repro_torch.obs.metrics",
             "repro_torch.obs.runlog", "repro_torch.obs.telemetry",
             "repro_torch.obs.trace", "repro_torch.optim.optimizers",
-            "repro_torch.optim.schedules", "repro_torch.optim.lora"
-            } <= set(mods)
+            "repro_torch.optim.schedules", "repro_torch.optim.lora",
+            "repro_torch.ckpt.checkpoint"} <= set(mods)
     assert len(mods) >= 32
 
 
