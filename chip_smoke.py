@@ -42,7 +42,7 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; FedAvg with
-     SGD and AdamW, FedLoRA), then the six main paths through the
+     SGD and AdamW, FedLoRA), then the seven main paths through the
      training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
      kernel launch counter set to 0 just before and read just after, and
@@ -51,11 +51,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
        - olmo-1b at its full config (LayerNorm; no rmsnorm), counter
          noise, full participation, 3 rounds, one a chunk;
        - qwen3-14b at its full published width (RMSNorm, qk-norm, GQA
-         40/8), its depth cut to 16 of 40 layers, as the first. A ZO
+         40/8), its depth cut to 8 of 40 layers, as the first. A ZO
          round holds about 3.9x the parameter bytes (olmo-1b: 9.18 GiB
          for 1.28 B parameters), so the full 14.8 B model (27.5 GiB in
-         bf16) would need about 106 GiB; 16 layers are 6.84 B
-         parameters;
+         bf16) would need about 106 GiB; 8 layers are 4.20 B
+         parameters (16 until path 7 joined, to keep this script's run
+         near 600 s);
        - the reference driver's default run: olmo-1b at its full config
          with its default threefry gaussian noise and dense aggregation,
          4 rounds in chunks of 2, on a straggler
@@ -84,6 +85,18 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
          for rounds 2-3: losses equal and every parameter and state leaf
          torch.equal; save, wait, restore and verify seconds and the
          checkpoint's GiB printed;
+       - path 7, the semi-async event engine on path 4's model, flags
+         and schedule (quorum 2, staleness discount 0.5, tau 2, seed
+         replay, 4 versions in chunks of 2): (a) the dense timeline,
+         whose per-version start sets, apply weights, durations and
+         quorum waits must equal the host compile_timeline's; (b) the
+         sparse timeline with subset staging, its round times equal to
+         (a)'s and its losses and parameters within one bf16 ulp; (c)
+         crash, loss, duplicate and corrupt faults with a quorum timeout
+         and the adaptive quorum, the fault counters equal to the host
+         timeline's; (d) the driver SIGKILLed by --faults kill=2 in a
+         subprocess and resumed by a second, its final checkpoint equal
+         leaf by leaf to an uninterrupted run's (``phase_async``);
   5. one JSON line with every kernel's numbers (launches summed over the
      paths), then the result line.
 
@@ -134,7 +147,7 @@ PATH_ARGV = ["--clients", "2", "--tau", "2", "--batch", "1", "--seq", "512",
              "seed_replay"]
 OLMO_ARGV = ["--arch", "olmo-1b", *PATH_ARGV]
 QWEN_ARGV = ["--arch", "qwen3-14b", *PATH_ARGV]
-QWEN_LAYERS = 16            # of 40: the depth cut of the qwen3-14b path
+QWEN_LAYERS = 8             # of 40: the depth cut of the qwen3-14b path
 # path 3: the reference driver's default run (gaussian noise, dense
 # aggregation) on a straggler schedule with adaptive tau
 DRIVER_ARGV = ["--arch", "olmo-1b", "--clients", "4", "--tau", "2",
@@ -1526,7 +1539,8 @@ def phase_small_fo(dev):
             f"small round ({what}): a backward kernel did not launch")
 
 
-def drive(dev, name: str, run, sfl, kernels, frozen: bool = False) -> tuple:
+def drive(dev, name: str, run, sfl, kernels, frozen: bool = False,
+          profile: bool = True) -> tuple:
     """Rounds of a path through the driver's engine (``train.run_engine``
     on ``run`` with ``sfl``): every launch counter set to 0 just before and
     read just after, and every kernel in ``kernels`` must have launched.
@@ -1535,7 +1549,8 @@ def drive(dev, name: str, run, sfl, kernels, frozen: bool = False) -> tuple:
     finite, and the parameters must have moved (a sample of each leaf is
     kept before the rounds), or with ``frozen`` (FedLoRA's base) must not
     have. One more round at the last tau then runs under
-    the profiler (without the run's telemetry, log or trace). Returns
+    the profiler (without the run's telemetry, log or trace), unless
+    ``profile`` is False. Returns
     (EngineResult, controller or None, launches, chunks): chunks is a list
     of (masks, seconds, peak GiB), one a chunk."""
     from repro_torch.kernels import build
@@ -1591,6 +1606,8 @@ def drive(dev, name: str, run, sfl, kernels, frozen: bool = False) -> tuple:
         require(moved == 0, f"{name}: frozen parameters changed")
     else:
         require(moved > 0, f"{name}: parameters did not change")
+    if not profile:
+        return res, ctl, launches, chunks
     tau = int(res.tau_per_round[-1])
     one = run._replace(
         args=argparse.Namespace(**{**vars(run.args), "rounds": 1,
@@ -1639,6 +1656,18 @@ def phase_driver(dev) -> dict:
     return launches
 
 
+def paper_run(name: str, argv):
+    """``train.setup(argv)`` on paper-opt-1.3b at its full config (paths
+    4-7), after emptying the allocator's cache."""
+    from repro_torch.launch import train
+    torch.cuda.empty_cache()
+    run = train.setup(argv)
+    require(run.cfg.n_layers == 24 and run.cfg.d_model == 2048
+            and run.cfg.d_head == 64 and run.cfg.vocab_size == 50272,
+            f"{name}: not paper-opt-1.3b's full config")
+    return run
+
+
 def phase_paper(dev) -> dict:
     """Path 4, the paper's comparison on paper-opt-1.3b at its full
     config: three runs through ``train.setup`` + ``drive`` on the same
@@ -1656,7 +1685,6 @@ def phase_paper(dev) -> dict:
 
     import numpy as np
     from repro_torch import obs
-    from repro_torch.launch import train
     launches, summary = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         log, trace = f"{tmp}/run.jsonl", f"{tmp}/trace.json"
@@ -1670,11 +1698,8 @@ def phase_paper(dev) -> dict:
                  ("zo_update", "zo_replay", "flash_attention"))]
         for algorithm, extra, dist, kernels in runs:
             name = f"paper path ({algorithm})"
-            torch.cuda.empty_cache()
-            run = train.setup([*PAPER_ARGV, "--algorithm", algorithm, *extra])
-            require(run.cfg.n_layers == 24 and run.cfg.d_model == 2048
-                    and run.cfg.d_head == 64,
-                    f"{name}: not paper-opt-1.3b's full config")
+            run = paper_run(name, [*PAPER_ARGV, "--algorithm", algorithm,
+                                   *extra])
             sfl = dataclasses.replace(run.sfl, perturbation_dist=dist)
             res, ctl, n, chunks = drive(dev, name, run, sfl, kernels)
             for k, v in n.items():
@@ -1857,17 +1882,12 @@ def phase_fo_paper(dev, zo_summary) -> dict:
     runs. Returns the launch counts."""
     import numpy as np
     from repro_torch.core import engine
-    from repro_torch.launch import train
     from repro_torch.utils import tree
     launches, summary = {}, {}
     for algorithm in ("fedavg", "fedlora"):
         name = f"FO paper path ({algorithm})"
-        torch.cuda.empty_cache()
-        run = train.setup([*PAPER_ARGV, "--algorithm", algorithm])
+        run = paper_run(name, [*PAPER_ARGV, "--algorithm", algorithm])
         cfg = run.cfg
-        require(cfg.n_layers == 24 and cfg.d_model == 2048
-                and cfg.d_head == 64 and cfg.vocab_size == 50272,
-                f"{name}: not paper-opt-1.3b's full config")
         if algorithm == "fedavg":
             fo_memory(dev, run)
         res, _, n, chunks = drive(dev, name, run, run.sfl,
@@ -1946,9 +1966,13 @@ RESUME_RUNS = (
 
 
 def host_leaves(tree_) -> list:
-    """(path, tensor on the host) for every leaf of a tree."""
+    """(path, tensor on the host) for every leaf of a tree; a numpy leaf
+    (the semi-async store's uint32 keys) as an int64 tensor."""
+    import numpy as np
     from repro_torch.utils import tree
-    return [(k, t.detach().cpu()) for k, t in tree.path_leaves(tree_)]
+    return [(k, torch.from_numpy(t.astype(np.int64))
+             if isinstance(t, np.ndarray) else t.detach().cpu())
+            for k, t in tree.path_leaves(tree_)]
 
 
 def require_equal(name: str, got, want) -> None:
@@ -2002,11 +2026,7 @@ def phase_resume(dev) -> dict:
             print(f"{name}: {line}")
 
         def setup(*more):
-            torch.cuda.empty_cache()
-            run = train.setup([*argv, *more])
-            require(run.cfg.n_layers == 24 and run.cfg.d_model == 2048
-                    and run.cfg.d_head == 64,
-                    f"{name}: not paper-opt-1.3b's full config")
+            run = paper_run(name, [*argv, *more])
             return run, dataclasses.replace(run.sfl, perturbation_dist=dist)
 
         run, sfl = setup()
@@ -2086,6 +2106,245 @@ def phase_resume(dev) -> dict:
     return launches
 
 
+# path 7: path 4's model, flags and schedule under the semi-async engine
+ASYNC_ARGV = [*PAPER_ARGV, "--tau", "2", "--async", "--quorum", "2",
+              "--staleness-discount", "0.5"]
+ASYNC_FAULTS = "crash=0.2,loss=0.2,dup=0.1,corrupt=0.1"
+ASYNC_KERNELS = ("zo_update", "zo_replay", "flash_attention")
+
+
+def sim_records(log: str) -> list:
+    """The 'sim' telemetry records of a run log's chunk rows."""
+    from repro_torch import obs
+    return [t for c in obs.read_jsonl(log, kind="chunk")
+            for t in c["telemetry"] if t["source"] == "sim"]
+
+
+def phase_async(dev) -> dict:
+    """Path 7, the semi-async event engine on paper-opt-1.3b at its full
+    config with ``ASYNC_ARGV`` (path 4's flags, schedule and 4 versions in
+    chunks of 2; quorum 2, staleness discount 0.5, τ 2, seed replay),
+    through ``train.setup`` + ``drive`` (counter noise set after setup):
+      a. the dense timeline: each version's start set and apply weights as
+         the device step received them, its staleness, simulated commit
+         time and duration and its quorum wait (the run log's 'sim'
+         records) must equal the host ``compile_timeline``'s on the same
+         schedule;
+      b. the sparse timeline with ``--loader subset`` and the automatic
+         k_max and ring: round times equal run a's; losses within 2^-7 of
+         run a's relatively and every parameter leaf within 2^-7 of its
+         largest magnitude (one bf16 ulp: the sparse replay sums the
+         gathered records without the dense store's zero-weight ones);
+      c. faults (``ASYNC_FAULTS``, quorum timeout 1.0, ``--adaptive-quorum``,
+         ``--telemetry``): the fault counters of each chunk's 'sim' record
+         must equal the host timeline's under the quorums the controller
+         chose; its decisions are printed;
+      d. SIGKILL and resume: ``python -m repro_torch.launch.train`` with
+         run a's flags and the driver's default threefry gaussian noise,
+         ``--ckpt-dir``, ``--ckpt-every 2`` and ``--faults kill=2`` must
+         die by SIGKILL after printing the kill line, leaving only
+         step_0000000001; a second one without the kill must resume at
+         version 2; its final checkpoint must be ``torch.equal``, leaf by
+         leaf over the parameters and the store, to an uninterrupted
+         in-process run's, and its logged losses equal.
+    Returns the launch counts of runs a-c and of d's in-process run."""
+    import os
+    import signal
+    import tempfile
+
+    import numpy as np
+    from repro_torch import obs
+    from repro_torch.ckpt import restore_params
+    from repro_torch.core import engine, events
+    from repro_torch.kernels import build
+    from repro_torch.launch import train
+    from repro_torch.utils import tree
+    card = ", ".join(smi("name,power.limit"))
+    launches = {}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t_path = time.perf_counter()
+    V = 4
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. the dense timeline, each device step's rows recorded
+        name = "async path (a: dense timeline, counter)"
+        run = paper_run(name, [*ASYNC_ARGV, "--log-jsonl", f"{tmp}/a.jsonl"])
+        sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
+        step, seen = events.async_mu_splitfed_step, []
+
+        def spy(cfg, sfl_, params, store, batches, start_mask, apply_w, key,
+                **kw):
+            seen.append((np.asarray(start_mask).copy(),
+                         np.asarray(apply_w).copy()))
+            return step(cfg, sfl_, params, store, batches, start_mask,
+                        apply_w, key, **kw)
+
+        events.async_mu_splitfed_step = spy
+        try:
+            res_a, _, n, chunks = drive(dev, name, run, sfl, ASYNC_KERNELS)
+        finally:
+            events.async_mu_splitfed_step = step
+        add(n)
+        sched = train.schedule(run)
+        tl = events.compile_timeline(sched, V, quorum=2, discount=0.5, tau=2)
+        qw = np.concatenate([r["quorum_wait"] for r in
+                             sim_records(f"{tmp}/a.jsonl")])
+        for v in range(V):
+            start, w = seen[v]
+            starts = np.flatnonzero(start > 0).tolist()
+            print(f"{name}: version {v}: starts {starts}  apply weights "
+                  f"{w.tolist()}  staleness "
+                  f"{tl.staleness_m[v].tolist()}  commit at "
+                  f"{tl.commit_times[v]} s (duration {res_a.round_times[v]}"
+                  f" s)  quorum wait {qw[v]} s  loss {res_a.round_loss[v]}")
+            require(np.array_equal(start, tl.start_mask[v])
+                    and np.array_equal(w, tl.apply_w[v]),
+                    f"{name}: version {v} ran other rows than the host "
+                    f"timeline's")
+        require(np.array_equal(res_a.round_times, tl.durations)
+                and np.array_equal(qw, tl.quorum_wait),
+                f"{name}: round times or quorum waits differ from the host "
+                f"timeline's")
+        require(bool((tl.staleness_m > 0).any()),
+                f"{name}: no contribution was stale")
+        print(f"{name}: seconds a version by chunk "
+              f"{[c[1] / len(c[0]) for c in chunks]}, peak GiB by chunk "
+              f"{[c[2] for c in chunks]} ({card})")
+        want = (res_a.round_loss, res_a.params)
+        del run, res_a
+
+        print(f"async path: run a {time.perf_counter() - t_path:.1f} s")
+        t_run = time.perf_counter()
+
+        # b. the sparse timeline with subset staging
+        name = "async path (b: sparse timeline, subset loader)"
+        run = paper_run(name, [*ASYNC_ARGV, "--timeline", "sparse",
+                               "--loader", "subset"])
+        sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
+        print(f"{name}: k_max, ring capacity "
+              f"{events.resolve_store_geometry(sfl)}")
+        res_b, _, n, chunks = drive(dev, name, run, sfl, ASYNC_KERNELS,
+                                    profile=False)
+        add(n)
+        loss_rel = float(np.max(np.abs(res_b.round_loss - want[0])
+                                / np.maximum(np.abs(want[0]), 1e-30)))
+        param_rel = 0.0
+        for a, b in zip(tree.leaves(res_b.params), tree.leaves(want[1])):
+            param_rel = max(param_rel, max_err(a, b)
+                            / max(float(b.float().abs().max()), 1e-30))
+        print(f"{name}: against run a: round times equal "
+              f"{np.array_equal(res_b.round_times, tl.durations)}, losses "
+              f"within {loss_rel:.3e} relative, parameters within "
+              f"{param_rel:.3e} of each leaf's max |x|; seconds a version "
+              f"by chunk {[c[1] / len(c[0]) for c in chunks]} ({card})")
+        require(np.array_equal(res_b.round_times, tl.durations),
+                f"{name}: round times differ from run a's")
+        require(loss_rel <= 2.0 ** -7 and param_rel <= 2.0 ** -7,
+                f"{name}: losses or parameters past one bf16 ulp of run a's")
+        del run, res_b, want
+
+        print(f"async path: run b {time.perf_counter() - t_run:.1f} s")
+        t_run = time.perf_counter()
+
+        # c. faults with the adaptive quorum
+        name = "async path (c: faults, adaptive quorum)"
+        run = paper_run(name, [*ASYNC_ARGV, "--faults", ASYNC_FAULTS,
+                               "--quorum-timeout", "1.0",
+                               "--adaptive-quorum", "--telemetry",
+                               "--log-jsonl", f"{tmp}/c.jsonl"])
+        sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
+        res_c, ctl, n, _ = drive(dev, name, run, sfl, ASYNC_KERNELS,
+                                 profile=False)
+        add(n)
+        quorums = np.full(V, 2, np.int64)
+        for r, k in ctl.trace:
+            quorums[r:] = k
+        tl = events.compile_timeline(
+            sched, V, quorum=quorums, discount=0.5, tau=2, faults=sfl.faults,
+            quorum_timeout=1.0, max_retries=sfl.max_retries)
+        recs = sim_records(f"{tmp}/c.jsonl")
+        require(len(recs) == 2, f"{name}: {len(recs)} sim records, not 2")
+        for rec in recs:
+            r0, r1 = rec["start"], rec["stop"]
+            got = {f: rec[f] for f in engine.FAULT_COLS}
+            host = {f: int(getattr(tl, f)[r0:r1].sum())
+                    if getattr(tl, f, None) is not None else 0
+                    for f in engine.FAULT_COLS}
+            print(f"{name}: versions {r0}-{r1 - 1}: fault counters {got}")
+            require(got == host, f"{name}: the counters differ from the "
+                    f"host timeline's {host}")
+        require(sum(r[f] for r in recs for f in
+                    ("crashed", "lost", "corrupt", "dups", "retries")) > 0,
+                f"{name}: the fault plan never acted")
+        print(f"{name}: adaptive quorum decisions {ctl.trace}, quorum per "
+              f"version {quorums.tolist()}, losses "
+              f"{list(res_c.round_loss)} ({card})")
+        del run, res_c, ctl
+
+        print(f"async path: run c {time.perf_counter() - t_run:.1f} s")
+
+        # d. SIGKILL after the chunk holding version 2, then the resume
+        name = "async path (d: SIGKILL and resume, gaussian)"
+        ck, log = f"{tmp}/ck", f"{tmp}/d.jsonl"
+        cmd = [sys.executable, "-m", "repro_torch.launch.train", *ASYNC_ARGV,
+               "--ckpt-dir", ck, "--ckpt-every", "2", "--log-jsonl", log]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        killed = subprocess.run([*cmd, "--faults", "kill=2"], cwd=ROOT,
+                                env=env, capture_output=True, text=True,
+                                timeout=300)
+        t1 = time.perf_counter()
+        print(f"{name}: killed run: exit {killed.returncode} in "
+              f"{t1 - t0:.1f} s; checkpoints {sorted(os.listdir(ck))}")
+        require(killed.returncode == -signal.SIGKILL
+                and "[faults] kill=2: SIGKILL after chunk [2, 4)"
+                in killed.stdout,
+                f"{name}: the run did not die by SIGKILL after chunk [2, 4):"
+                f" {killed.stdout[-1000:]} {killed.stderr[-2000:]}")
+        require(sorted(os.listdir(ck)) == ["step_0000000001"],
+                f"{name}: the killed chunk's checkpoint landed")
+        resumed = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                 text=True, timeout=300)
+        t2 = time.perf_counter()
+        print(f"{name}: resumed run: exit {resumed.returncode} in "
+              f"{t2 - t1:.1f} s")
+        require(resumed.returncode == 0
+                and "[resume] from round 2 (tau=2)" in resumed.stdout,
+                f"{name}: the rerun did not resume at version 2: "
+                f"{resumed.stdout[-1000:]} {resumed.stderr[-2000:]}")
+        t3 = time.perf_counter()
+        run = paper_run(name, [*ASYNC_ARGV, "--log-jsonl", f"{tmp}/u.jsonl"])
+        require(run.sfl.perturbation_dist == "gaussian",
+                f"{name}: the driver's default noise is not gaussian")
+        torch.cuda.synchronize()
+        build.reset_launches()
+        full, _ = train.run_engine(run, log=None)
+        torch.cuda.synchronize()
+        add(dict(build.LAUNCHES))
+        print(f"{name}: uninterrupted run in process "
+              f"{time.perf_counter() - t3:.1f} s (setup included)")
+        print(f"{name}: uninterrupted run launches {dict(build.LAUNCHES)}")
+        require(build.LAUNCHES.get("threefry", 0) > 0,
+                f"{name}: threefry was never launched")
+        bundle = engine._ckpt_tree(full.params, full.state)
+        got, _ = restore_params(ck, bundle, V - 1)
+        require_equal(name, host_leaves(got), host_leaves(bundle))
+        losses = [r["loss"] for r in obs.read_jsonl(log, kind="round")]
+        want = [r["loss"] for r in obs.read_jsonl(f"{tmp}/u.jsonl",
+                                                  kind="round")]
+        print(f"{name}: losses resumed {losses} uninterrupted {want}; "
+              f"every parameter and store leaf of the final checkpoint "
+              f"equal ({card})")
+        require(losses == want and len(losses) == V,
+                f"{name}: the logged losses differ")
+        del run, full, bundle, got
+    print(f"async path: {time.perf_counter() - t_path:.1f} s in all")
+    return launches
+
+
 def profile_round(name: str, fn):
     """One round of a path (``fn``) under torch.profiler: device time by
     kernel, and the device's busy share of the round's wall time."""
@@ -2154,6 +2413,9 @@ def main() -> int:
         launches[k] = launches.get(k, 0) + n
     torch.cuda.empty_cache()
     for k, n in phase_resume(dev).items():
+        launches[k] = launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    for k, n in phase_async(dev).items():
         launches[k] = launches.get(k, 0) + n
     src = "src/repro_torch/kernels/csrc/"
     rows = [("zo_update", src + "zo_update.cu",

@@ -11,7 +11,9 @@ restores the other's checkpoints).
              serialises it; the next save or ``wait()`` joins it (a one-deep
              pipeline).
   placement: ``restore_params`` puts each leaf on the device of its
-             counterpart in ``like``, or on ``device``. The reference's
+             counterpart in ``like``, or on ``device``; a numpy leaf of
+             ``like`` (the semi-async record store's host keys) comes back
+             as a numpy array of its dtype. The reference's
              ``shardings`` re-lays leaves onto a new mesh; one card has no
              mesh, so a device is all there is to choose.
 
@@ -178,8 +180,9 @@ def read_meta(ckpt_dir: str, step: Optional[int] = None) -> dict:
         return json.load(f)
 
 
-def _from_stored(arr: np.ndarray, dtype: str, proto,
-                 device) -> torch.Tensor:
+def _from_stored(arr: np.ndarray, dtype: str, proto, device):
+    if isinstance(proto, np.ndarray):       # a host leaf stays on the host
+        return np.array(arr, dtype=proto.dtype)
     t = (torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
          if dtype == _BF16 else torch.from_numpy(arr))
     if (isinstance(proto, torch.Tensor) and proto.dtype != t.dtype
@@ -195,7 +198,8 @@ def restore_params(ckpt_dir: str, like: Params, step: Optional[int] = None,
                    device=None) -> Tuple[Params, dict]:
     """Restore into the structure of ``like``: each leaf as a tensor on
     ``device`` when given, else on the device of its counterpart in
-    ``like`` (the CPU for a leaf that is not a tensor)."""
+    ``like`` (the CPU for a leaf that is not a tensor); a numpy leaf of
+    ``like`` as a numpy array of its dtype."""
     step = _resolve_step(ckpt_dir, step)
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     try:

@@ -94,8 +94,11 @@ class SFLConfig:
     ``population`` (a ``repro_torch.core.population.ClientPopulation``);
     ``straggler_rate`` / ``participation`` are the reference's deprecated
     single-cohort shorthand, resolved by ``ClientPopulation.resolve(sfl)``.
-    The semi-async and fault fields come back with the slice that reads
-    them (ROADMAP.md, queue 1, item 5)."""
+    The semi-async fields (``quorum``, ``staleness_discount``,
+    ``timeline``, ``k_max``, ``ring_capacity``) and the fault fields
+    (``faults``, a ``core.faults.FaultPlan``; ``quorum_timeout``;
+    ``max_retries``) are read by the engine's mode='async'
+    (``core/events.py``)."""
     n_clients: int = 16         # M
     tau: int = 2                # unbalanced server update steps per round
     n_perturbations: int = 1    # P (SPSA averaging)
@@ -111,3 +114,24 @@ class SFLConfig:
     straggler_rate: float = 0.0     # DEPRECATED shorthand (see population)
     deadline: float = 0.0           # drop clients beyond deadline (0 = off)
     population: Optional[Any] = None  # None -> one cohort from the shorthand
+    # semi-async execution (engine mode='async', core/events.py): commit a
+    # server version once `quorum` contributions arrived (0 = wait for all
+    # pending, the synchronous barrier); a contribution applied s commits
+    # after its fetch weighs staleness_discount**s (1.0 = no discount)
+    quorum: int = 0
+    staleness_discount: float = 1.0
+    # timeline backend for mode='async': 'dense' precompiles (V, M) rows;
+    # 'sparse' streams (V, k_max) commit batches over an arrival-slot ring
+    # store of ring_capacity slots (0 = auto for both knobs,
+    # events.resolve_store_geometry)
+    timeline: str = "dense"
+    k_max: int = 0
+    ring_capacity: int = 0
+    # fault injection and graceful degradation (core/faults.py): None (or
+    # FaultPlan.none()) keeps the event stream bit-exact with the clean
+    # engine; quorum_timeout > 0 lets a commit go ahead with whatever
+    # arrived by t + quorum_timeout; a lost delivery is resent up to
+    # max_retries times before the contribution is dropped
+    faults: Optional[Any] = None
+    quorum_timeout: float = 0.0
+    max_retries: int = 3

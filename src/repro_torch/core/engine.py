@@ -1,12 +1,12 @@
-"""The synchronous algorithm engine (counterpart of the synchronous part of
-``repro.core.engine``).
+"""The algorithm engine (counterpart of ``repro.core.engine``).
 
   Algorithm    protocol (init_state / round_fn / time_model) with the
-               registered ``mu_splitfed``, ``vanilla``, ``gas``, ``fedavg``
-               and ``fedlora`` adapters: a round is (params, state, batch,
-               mask, key) -> (params, state, metrics), and every system
-               effect enters as the (M,) mask row (GAS carries its
-               activation buffer as state, FedLoRA its adapters).
+               registered ``mu_splitfed``, ``vanilla``, ``gas``, ``fedavg``,
+               ``fedlora`` and ``async_mu_splitfed`` adapters: a round is
+               (params, state, batch, mask, key) -> (params, state,
+               metrics), and every system effect enters as the (M,) mask
+               row (GAS carries its activation buffer as state, FedLoRA
+               its adapters, the semi-async one its record store).
   run_rounds   the driver. Straggler delays and participation / deadline
                masks come from a host ``straggler.Schedule``, round r's key
                is fold_in(key, r), and the simulated wall-clock of each
@@ -21,12 +21,19 @@
                boundaries aligned to ``ckpt_every``; ``restore_run`` and
                ``apply_resume_overrides`` bring a run back, and
                ``run_rounds(start_round=..., state=...)`` continues it.
+               mode 'async' runs the semi-async event engine
+               (``core/events.py``): each "round" is one quorum-committed
+               server version of the compiled ('dense') or streamed
+               ('sparse') timeline, with faults and quorum_timeout.
   Controller   chunk-boundary policy hook; ``AdaptiveTau`` is the paper's
                adaptive τ (§5), re-planned from the observed straggler gap
-               (simulated or measured) with ``straggler.plan_tau``.
+               (simulated or measured) with ``straggler.plan_tau``;
+               ``AdaptiveQuorum`` resizes the commit quorum from the
+               observed fault pressure.
 
-Not ported yet (ROADMAP.md, queue 1): mode='async' and the sparse
-timeline (item 5).
+The reference's ``batch_put`` (the sharded placement of a sparse chunk on
+a multi-device mesh, ``launch/fleet.py``) is not taken: the port runs on
+one card.
 """
 from __future__ import annotations
 
@@ -40,7 +47,7 @@ import torch
 
 from repro_torch.ckpt.checkpoint import read_meta
 from repro_torch.configs.base import ModelConfig, SFLConfig
-from repro_torch.core import prng
+from repro_torch.core import events, prng
 from repro_torch.core import straggler as strag
 from repro_torch.core.baselines import (fedavg_round, fedlora_round,
                                         gas_init_state, gas_round,
@@ -88,8 +95,7 @@ def get_algorithm(name: Union[str, Algorithm], **opts) -> Algorithm:
     if isinstance(name, str):
         if name not in ALGORITHMS:
             raise ValueError(f"unknown algorithm {name!r}; registered: "
-                             f"{sorted(ALGORITHMS)} (async_mu_splitfed is "
-                             f"ROADMAP.md, queue 1, item 5)")
+                             f"{sorted(ALGORITHMS)}")
         return ALGORITHMS[name](**opts)
     if opts:
         raise ValueError("opts only apply when resolving by name")
@@ -147,6 +153,60 @@ class VanillaSplitFed(MuSplitFed):
     def time_model(self, delays, mask, sfl, sched):
         return strag.round_time_vanilla(delays, mask, sched.t_server,
                                         sched.comm_for(mask))
+
+
+@register
+class AsyncMuSplitFed(MuSplitFed):
+    """Semi-async MU-SplitFed over the event timeline (core/events.py): the
+    server commits a version as soon as a quorum of contributions has
+    arrived; late arrivals fold into a later commit with a staleness
+    discount, applied through seed replay. Run it with ``mode='async'``;
+    the quorum and discount live in SFLConfig (``quorum``,
+    ``staleness_discount``). Under the sync modes it is MU-SplitFed with
+    seed-replay aggregation (its record store rides along untouched). The
+    in-flight buffer is the (key, coeff) wire format, so anything but
+    aggregation='seed_replay' is rejected."""
+    name = "async_mu_splitfed"
+
+    def __init__(self, client_mode: str = "parallel",
+                 aggregation: str = "seed_replay", replay: str = "auto",
+                 eval_loss: bool = True):
+        if client_mode != "parallel":
+            raise ValueError("async_mu_splitfed: the event-driven store "
+                             "needs stacked per-client replicas "
+                             "(client_mode='parallel')")
+        if aggregation != "seed_replay":
+            raise ValueError("async_mu_splitfed: the record store is the "
+                             "seed-replay wire format; aggregation "
+                             f"{aggregation!r} is not replayable")
+        super().__init__(client_mode=client_mode, aggregation=aggregation,
+                         replay=replay, eval_loss=eval_loss)
+
+    def init_state(self, cfg, sfl, params, batch0):
+        return events.init_store(sfl, tree.leaves(params)[0].device)
+
+    def async_round_fn(self, cfg, sfl, params, store, batch, start_mask,
+                       apply_w, key):
+        return events.async_mu_splitfed_step(
+            cfg, sfl, params, store, batch, start_mask, apply_w, key,
+            replay=self.replay, eval_loss=self.eval_loss)
+
+    def async_sparse_round_fn(self, cfg, sfl, params, store, batch,
+                              start_client, start_slot, apply_slot,
+                              apply_w, key):
+        return events.async_mu_splitfed_sparse_step(
+            cfg, sfl, params, store, batch, start_client, start_slot,
+            apply_slot, apply_w, key, replay=self.replay,
+            eval_loss=self.eval_loss)
+
+    def time_model(self, delays, mask, sfl, sched):
+        # the sync modes run the full barrier, so the version ends at the
+        # last pending arrival (quorum 0); mode='async' reads the quorum
+        # pacing off the timeline instead
+        return events.quorum_round_time(delays, mask, sched.t_server,
+                                        sfl.tau, quorum=0,
+                                        t_comm=sched.t_comm,
+                                        t_comm_scale=sched.t_comm_scale)
 
 
 @register
@@ -250,15 +310,16 @@ class SchedWindow(NamedTuple):
     rows of the rounds run since its previous update, and the
     TelemetrySink records overlapping them when run_rounds was given a
     sink (both producers, 'sim' and 'measured', so a controller chooses
-    its clock). ``quorum_wait`` is the semi-async engine's (not ported):
-    always None here."""
+    its clock). Async runs also carry ``quorum_wait``, the per-version
+    waits for the quorum's arrival before the τ·t_server floor: under
+    event-driven commits that is the gap adaptive τ should fill."""
     start: int
     stop: int
     delays: np.ndarray   # (C, M) simulated client compute times
     masks: np.ndarray    # (C, M) the schedule's participation·deadline rows
     t_server: float
     t_comm: float
-    quorum_wait: Optional[np.ndarray] = None
+    quorum_wait: Optional[np.ndarray] = None   # (C,) async quorum waits
     telemetry: Tuple[RoundTelemetry, ...] = ()  # sink records for the window
 
 
@@ -351,6 +412,61 @@ class AdaptiveTau:
         return out
 
 
+class AdaptiveQuorum:
+    """Graceful degradation: resize the commit quorum K from the observed
+    fault pressure (core/faults.py).
+
+    At each chunk boundary it reads the window's simulator RoundTelemetry
+    records (``SchedWindow.telemetry``): started dispatches against
+    contributions lost to crashes, exhausted retries, checksum drops and
+    ring evictions. It EMA-smooths the delivery rate and re-plans
+    K = ceil(K0 · rate), clipped to [k_min, K0]. ``trace`` records the
+    (round_idx, K) decisions."""
+
+    def __init__(self, k_min: int = 1, ema: float = 0.5):
+        if k_min < 1:
+            raise ValueError(f"AdaptiveQuorum k_min must be >= 1, "
+                             f"got {k_min}")
+        self.k_min = int(k_min)
+        self.ema = ema
+        self.k0: Optional[int] = None
+        self.rate: Optional[float] = None      # EMA'd delivery rate
+        self.trace: List[Tuple[int, int]] = []
+
+    def bind(self, sfl) -> None:
+        if self.k0 is None:
+            if sfl.quorum <= 0:
+                raise ValueError(
+                    "AdaptiveQuorum needs a finite initial quorum "
+                    "(sfl.quorum > 0): K0 anchors the [k_min, K0] range")
+            self.k0 = int(sfl.quorum)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"k0": self.k0, "rate": self.rate}
+
+    def load_state_dict(self, d: Dict[str, Any]) -> None:
+        self.k0 = d.get("k0")
+        self.rate = d.get("rate")
+
+    def update(self, round_idx, window, metrics):
+        if window is None or self.k0 is None:
+            return {}
+        recs = [r for r in getattr(window, "telemetry", ()) or ()
+                if r.source == "sim"]
+        started = sum(r.started for r in recs)
+        if not started:                  # no sink, or no dispatch counted
+            return {}
+        dropped = sum(r.crashed + r.lost + r.corrupt + r.evicted
+                      for r in recs)
+        obs = max(0.0, 1.0 - dropped / started)
+        self.rate = (obs if self.rate is None
+                     else self.ema * obs + (1.0 - self.ema) * self.rate)
+        k = int(np.clip(int(np.ceil(self.k0 * self.rate)),
+                        self.k_min, self.k0))
+        self.trace.append((round_idx, k))
+        return {"quorum": k}
+
+
 class EngineResult(NamedTuple):
     params: Params
     state: State
@@ -384,19 +500,22 @@ def _synchronize(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _comm_of(schedule) -> np.ndarray:
-    """(M,) per-client uplink seconds."""
-    comm = np.full(schedule.n_clients, schedule.t_comm, np.float64)
-    if schedule.t_comm_scale is not None:
-        comm = schedule.t_comm * np.asarray(schedule.t_comm_scale, np.float64)
-    return comm
-
-
-def _cohort_bounds_of(schedule) -> List[Tuple[int, int]]:
-    pop = getattr(schedule, "population", None)
-    if pop is None:
-        return [(0, schedule.n_clients)]
-    return [(s.start, s.stop) for s in pop.slices()]
+def _stack_sparse_chunk(batch_fn, r0: int, start_clients: np.ndarray,
+                        device, subset_fn=None) -> List[Dict]:
+    """A sparse chunk's device batches, one (K, ...) dict a version: the
+    starting clients' rows of that round's batch (a pad, -1, re-reads
+    client 0; its record lands in the ring's dropped pad slot).
+    ``subset_fn(round, client_ids)`` (``FederatedLoader.subset_batch``)
+    materialises only those K rows on the host, bit-exact with the
+    gather."""
+    out = []
+    for j in range(start_clients.shape[0]):
+        idx = np.clip(start_clients[j], 0, None)
+        host = (subset_fn(r0 + j, idx) if subset_fn is not None
+                else {k: np.asarray(v)[idx]
+                      for k, v in batch_fn(r0 + j).items()})
+        out.append(to_device_batch(host, device))
+    return out
 
 
 def _has_state(state) -> bool:
@@ -493,6 +612,10 @@ def _json_value(v):
     return v.item() if isinstance(v, np.generic) else v
 
 
+FAULT_COLS = ("started", "evicted", "crashed", "lost", "corrupt", "dups",
+              "retries", "timeouts")
+
+
 def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                sfl: SFLConfig, params: Params, batch_fn: Callable[[int], Batch],
                schedule: strag.Schedule, key, *, rounds: int,
@@ -501,6 +624,9 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                checkpointer=None, ckpt_every: int = 0,
                chunk_callback: Optional[Callable] = None,
                controller: Optional[Controller] = None,
+               tau_history: Optional[List[int]] = None,
+               quorum_history: Optional[List[int]] = None,
+               batch_subset_fn: Optional[Callable] = None,
                telemetry: Optional[TelemetrySink] = None,
                **algo_opts) -> EngineResult:
     """Run rounds [start_round, rounds) of ``algorithm`` on the device the
@@ -516,49 +642,92 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
     at each segment's start ``controller`` may override SFLConfig fields
     for the remaining rounds ('tau' re-plans the server steps and the
     simulated round times, 'deadline' re-derives the deadline masks from
-    the schedule's delay rows). mode 'scan' flushes the metrics to the
-    host (and runs ``chunk_callback(ChunkInfo, params, state)``) once a
-    segment; mode 'python' once a round, with a one-round ChunkInfo,
-    while the controller still sees the whole segment's. Masks, simulated
-    round times and the τ trace always reflect what ran; their rows, the
-    metrics and EngineResult cover rounds [start_round, rounds), and
-    ChunkInfo, telemetry records and controller windows carry absolute
-    round numbers.
+    the schedule's delay rows, 'quorum' the async commit quorum). mode
+    'scan' flushes the metrics to the host (and runs
+    ``chunk_callback(ChunkInfo, params, state)``) once a segment; mode
+    'python' once a round, with a one-round ChunkInfo, while the
+    controller still sees the whole segment's. Masks, simulated round
+    times and the τ trace always reflect what ran; their rows, the metrics
+    and EngineResult cover rounds [start_round, rounds), and ChunkInfo,
+    telemetry records and controller windows carry absolute round
+    numbers.
+
+    mode 'async' is the semi-async event engine (core/events.py), flushed
+    once a segment as 'scan': each round is one quorum-committed server
+    version (sfl.quorum, sfl.staleness_discount), the in-flight record
+    store is the state, the masks are the normalized staleness-discounted
+    apply weights, and the round times are the timeline's
+    commit-to-commit durations; it needs an algorithm with
+    ``async_round_fn`` (async_mu_splitfed). With quorum 0 and discount 1.0
+    it reproduces mode 'scan'. sfl.timeline picks the backend: 'dense'
+    compiles the whole (V, M) timeline from version 0 and slices it from
+    start_round; 'sparse' streams (chunk, k_max) commit batches from the
+    heap DES (skipped to start_round on a resume) over a bounded ring
+    store (events.resolve_store_geometry), and stages only the starting
+    clients' batch rows, through ``batch_subset_fn(round, client_ids)``
+    when given (``FederatedLoader.subset_batch``). ``sfl.faults`` (a
+    core/faults.py FaultPlan) perturbs the event stream and
+    ``sfl.quorum_timeout`` caps a commit's wait; the fault counters reach
+    the 'sim' telemetry records. ``tau_history`` / ``quorum_history``
+    (the checkpoint metadata's 'tau_per_version' / 'quorum_per_version')
+    replay a resumed controller run's per-version τ and quorum onto the
+    timeline's prefix.
 
     ``checkpointer`` (a ``ckpt.Checkpointer``) saves at step = the last
     round of a segment that ends on a multiple of ``ckpt_every`` ('python'
     mode: after such a round), and at rounds - 1, blocking, with the last
     round's loss. The tree is the params, or {'params','state'} for a
     stateful algorithm; the metadata records 'has_state' and, with a
-    controller, its overrides so far ('controller_overrides') and its
-    state_dict ('controller_state'). Resume with ``restore_run``,
-    ``apply_resume_overrides`` and start_round = step + 1. As in the
-    reference, a resumed run's first boundary gives the controller no
-    window, so it keeps the restored τ. Unlike the reference, a resumed
-    run whose ``sfl.deadline`` (a restored override) differs from the
-    deadline ``schedule`` was drawn with re-derives the deadline masks
-    from the schedule's delay rows before its first round.
+    controller, its overrides so far ('controller_overrides'), its
+    state_dict ('controller_state') and, in mode 'async', the per-version
+    τ and quorum. Resume with ``restore_run``, ``apply_resume_overrides``
+    and start_round = step + 1. As in the reference, a resumed run's first
+    boundary gives the controller no window, so it keeps the restored τ.
+    Unlike the reference, a resumed synchronous run whose ``sfl.deadline``
+    (a restored override) differs from the deadline ``schedule`` was drawn
+    with re-derives the deadline masks from the schedule's delay rows
+    before its first round (an async run compiles its timeline from
+    version 0 and keeps the schedule's masks, as the reference does).
 
     ``telemetry`` (an ``obs.TelemetrySink``) turns on both producers: a
     'sim' record at every flush (durations bit-identical to
-    ChunkInfo.round_times, per-cohort arrival latencies) and one
-    'measured' record a segment (in 'scan' the host staging seconds and
-    bytes, and the dispatch seconds up to a ``torch.cuda.synchronize``; in
+    ChunkInfo.round_times, per-cohort arrival latencies, async quorum
+    waits and fault counters) and one 'measured' record a segment (in
+    'scan' and 'async' the host staging seconds and bytes, and the
+    dispatch seconds up to a ``torch.cuda.synchronize``, with the sparse
+    stream's prefetch of the next chunk inside them as overlap_seconds; in
     'python' the segment's seconds, its per-round flushes being the
     synchronises). Controllers see the window's records in
     ``SchedWindow.telemetry``. With telemetry=None no clock is read and
-    no extra synchronise happens. Spans ``engine.stage``,
-    ``engine.dispatch`` and ``engine.flush`` go to the installed
-    ``obs.trace`` tracer ('scan' mode).
+    no extra synchronise happens. Spans ``engine.compile_timeline``,
+    ``engine.des_take``, ``engine.stage``, ``engine.dispatch``,
+    ``engine.des_prefetch`` and ``engine.flush`` go to the installed
+    ``obs.trace`` tracer.
     """
     algo = get_algorithm(algorithm, **algo_opts)
-    if mode == "async":
-        raise NotImplementedError(
-            "mode='async' (the semi-async event engine) is not ported: "
-            "ROADMAP.md, queue 1, item 5")
-    if mode not in ("scan", "python"):
+    if mode not in ("scan", "python", "async"):
         raise ValueError(f"run_rounds: mode must be 'scan'|'python'|'async', "
                          f"got {mode!r}")
+    if mode == "async" and not hasattr(algo, "async_round_fn"):
+        raise ValueError(
+            f"mode='async' needs an async-capable algorithm (e.g. "
+            f"'async_mu_splitfed'); {algo.name!r} has no async_round_fn")
+    if sfl.timeline not in ("dense", "sparse"):
+        raise ValueError(f"run_rounds: sfl.timeline must be 'dense'|"
+                         f"'sparse', got {sfl.timeline!r}")
+    sparse = sfl.timeline == "sparse"
+    if sparse and mode != "async":
+        raise ValueError(
+            "timeline='sparse' is the streaming semi-async path; run it "
+            "with mode='async' (the sync modes scan dense schedule rows)")
+    if sparse and not hasattr(algo, "async_sparse_round_fn"):
+        raise ValueError(f"timeline='sparse' needs an algorithm with "
+                         f"async_sparse_round_fn; {algo.name!r} has none")
+    if batch_subset_fn is not None and not sparse:
+        raise ValueError(
+            "batch_subset_fn is the sparse timeline's O(K) staging hook; "
+            "the dense modes consume fleet-width batches — set "
+            "sfl.timeline='sparse' (with mode='async') to use it")
     n_run = rounds - start_round
     if n_run <= 0:
         empty = np.zeros((0,), np.float64)
@@ -566,30 +735,95 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                             empty, empty, 0.0, np.zeros((0,), np.int64))
     device = tree.leaves(params)[0].device
     if state is None:
+        # the subset path never builds a fleet-width batch, not even for
+        # the state template (the ring store is sized from sfl)
+        batch0 = (batch_subset_fn(start_round, np.zeros(1, np.int64))
+                  if batch_subset_fn is not None else batch_fn(start_round))
         state = algo.init_state(cfg, sfl, params,
-                                to_device_batch(batch_fn(start_round), device))
+                                to_device_batch(batch0, device))
     tele = telemetry is not None
+    is_async = mode == "async"
 
     R = schedule.n_rounds
     sched_eff = schedule            # re-derived on a controller's deadline
-    if start_round > 0:             # a restored deadline override
+    if start_round > 0 and not is_async:    # a restored deadline override
         resumed = _with_deadline(schedule, sfl.deadline)
         if not np.array_equal(resumed.deadline, schedule.deadline):
             sched_eff = resumed
     rows = range(start_round, rounds)
-    # two sets of (n_run, M) rows, as the reference keeps them: the
-    # schedule's own masks set the simulated round times and what a
-    # controller observes; the algorithm's round_mask rows are what its
-    # rounds consume and what weights their losses. Row i is round
-    # start_round + i.
-    time_masks = np.stack([sched_eff.masks[r % R] for r in rows])
-    masks = np.stack([algo.round_mask(sched_eff, r) for r in rows])
-    round_times = np.array([algo.time_model(sched_eff.delays[r % R],
-                                            time_masks[i], sfl, sched_eff)
-                            for i, r in enumerate(rows)])
+    # the schedule's own masks set the sync round times and what a
+    # controller observes (the sparse timeline never builds them: its
+    # windows rebuild rows from the mask epochs); the algorithm's
+    # round_mask rows (async: the apply weights) are what its rounds
+    # consume and what weights their losses. Row i is round start_round + i.
+    time_masks = (None if sparse else
+                  np.stack([sched_eff.masks[r % R] for r in rows]))
+    timeline: Optional[events.Timeline] = None
+    stream: Optional[events.TimelineStream] = None
+    start_masks = qwaits = fcounts = None
+    if is_async:
+        # per-version τ and quorum over the whole run; a resumed controller
+        # run replays the values that ran onto the prefix (the DES is only
+        # prefix-stable if the prefix is compiled with them)
+        taus_v = np.full(rounds, sfl.tau, np.int64)
+        quorums_v = np.full(rounds, sfl.quorum, np.int64)
+        for arr, hist in ((taus_v, tau_history), (quorums_v, quorum_history)):
+            if hist is not None:
+                h = np.asarray(hist, np.int64)[:rounds]
+                arr[:len(h)] = h
+        if sparse:
+            k_geo, cap_geo = events.resolve_store_geometry(sfl)
+            # deadline re-plans append (from_version, schedule) epochs
+            mask_epochs: List[Tuple[int, strag.Schedule]] = [(0, sched_eff)]
+
+            def mask_row_at(v: int) -> np.ndarray:
+                sch = mask_epochs[0][1]
+                for v0, cand in mask_epochs:
+                    if v >= v0:
+                        sch = cand
+                return sch.masks[v % R]
+
+            def new_stream(skip_to: int) -> events.TimelineStream:
+                st = events.TimelineStream(
+                    sched_eff, rounds, quorum=sfl.quorum,
+                    discount=sfl.staleness_discount, taus=taus_v,
+                    k_max=k_geo, capacity=cap_geo, mask_row_fn=mask_row_at,
+                    quorums=quorums_v, faults=sfl.faults,
+                    quorum_timeout=sfl.quorum_timeout,
+                    max_retries=sfl.max_retries)
+                st.skip(skip_to)
+                return st
+
+            stream = new_stream(start_round)
+            masks = np.zeros((n_run, k_geo), np.float32)
+            round_times = np.zeros(n_run, np.float64)
+            qwaits = np.zeros(n_run, np.float64)
+            fcounts = np.zeros((n_run, len(FAULT_COLS)), np.int64)
+        else:
+            amask_rows = np.stack([sched_eff.masks[v % R]
+                                   for v in range(rounds)])
+
+            def compile_timeline() -> events.Timeline:
+                return events.compile_timeline(
+                    sched_eff, rounds, quorum=quorums_v,
+                    discount=sfl.staleness_discount, tau=taus_v,
+                    mask_rows=amask_rows, faults=sfl.faults,
+                    quorum_timeout=sfl.quorum_timeout,
+                    max_retries=sfl.max_retries)
+
+            with span("engine.compile_timeline", versions=rounds):
+                timeline = compile_timeline()
+            masks = timeline.apply_w[start_round:rounds].copy()
+            start_masks = timeline.start_mask[start_round:rounds].copy()
+            round_times = timeline.durations[start_round:rounds].copy()
+    else:
+        masks = np.stack([algo.round_mask(sched_eff, r) for r in rows])
+        round_times = np.array([algo.time_model(sched_eff.delays[r % R],
+                                                time_masks[i], sfl, sched_eff)
+                                for i, r in enumerate(rows)])
     tau_used = np.full(n_run, sfl.tau, np.int64)
     segments = _segments(start_round, rounds, chunk_size, ckpt_every)
-    cohort_bounds = _cohort_bounds_of(schedule)
+    cohort_bounds = events._cohort_bounds_of(schedule)
 
     if controller is not None and hasattr(controller, "bind"):
         controller.bind(sfl)
@@ -606,6 +840,9 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                                               for k, v in applied.items()}
             if hasattr(controller, "state_dict"):
                 md["controller_state"] = controller.state_dict()
+            if is_async:
+                md["tau_per_version"] = [int(t) for t in taus_v]
+                md["quorum_per_version"] = [int(q) for q in quorums_v]
         return md
 
     def save(step, block=False, **extra):
@@ -626,9 +863,12 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
 
     def cohort_arrival(r0, r1):
         """Per-cohort mean arrival latency (delay + uplink) of the
-        window's active clients."""
+        window's active clients (None on the sparse timeline, which never
+        builds fleet-width rows)."""
+        if sparse:
+            return None
         arr = (np.stack([sched_eff.delays[rr % R] for rr in range(r0, r1)])
-               + _comm_of(sched_eff)[None, :])
+               + events._comm_of(sched_eff)[None, :])
         m = time_masks[r0 - start_round:r1 - start_round]
         out = np.zeros(len(cohort_bounds), np.float64)
         for ci, (cs, ce) in enumerate(cohort_bounds):
@@ -637,6 +877,26 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
             out[ci] = float((arr[:, cs:ce] * w).sum() / tot) if tot else 0.0
         return out
 
+    def sim_record(r0, r1) -> RoundTelemetry:
+        """The simulator's record: durations the same slice ChunkInfo
+        carries, quorum waits the same rows a controller window reads."""
+        i0, i1 = r0 - start_round, r1 - start_round
+        qw, counts = None, {}
+        if sparse:
+            qw = qwaits[i0:i1].copy()
+            counts = {f: int(fcounts[i0:i1, j].sum())
+                      for j, f in enumerate(FAULT_COLS)}
+        elif is_async:
+            qw = timeline.quorum_wait[r0:r1].copy()
+            for f in FAULT_COLS:
+                col = getattr(timeline, f, None)
+                if col is not None:
+                    counts[f] = int(col[r0:r1].sum())
+        return RoundTelemetry(r0, r1, "sim", mode,
+                              round_times[i0:i1].copy(), quorum_wait=qw,
+                              cohort_arrival=cohort_arrival(r0, r1),
+                              **counts)
+
     def flush(mets, r0, r1):
         """The metrics of rounds [r0, r1) reach the host (a synchronise)."""
         nonlocal last_info
@@ -644,55 +904,107 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                 for k in mets[0]}
         chunks.append(host)
         last_info = chunk_info(host, r0, r1)
-        if tele:    # durations: the same slice ChunkInfo carries
-            telemetry.emit(RoundTelemetry(
-                r0, r1, "sim", mode,
-                round_times[r0 - start_round:r1 - start_round].copy(),
-                cohort_arrival=cohort_arrival(r0, r1)))
+        if tele:
+            telemetry.emit(sim_record(r0, r1))
         if chunk_callback is not None:
             chunk_callback(last_info, params, state)
 
     def controller_step(seg_idx):
         """Apply the controller's overrides for rounds >= this segment and
-        re-derive the masks and simulated times they change."""
-        nonlocal sfl, sched_eff
+        re-derive the masks and simulated times they change. In async mode
+        the future of the timeline is recompiled (the DES is prefix-stable,
+        so the versions already run are untouched)."""
+        nonlocal sfl, sched_eff, timeline, stream, state
         r0 = segments[seg_idx][0]
         window = None
         if seg_idx > 0:
             p0, p1 = segments[seg_idx - 1]
+            i0, i1 = p0 - start_round, p1 - start_round
+            if sparse:
+                wmasks = np.stack([mask_row_at(rr) for rr in range(p0, p1)])
+                qw = qwaits[i0:i1].copy()
+            else:
+                wmasks = time_masks[i0:i1]
+                qw = (timeline.quorum_wait[p0:p1].copy()
+                      if timeline is not None else None)
             window = SchedWindow(
                 p0, p1,
                 np.stack([sched_eff.delays[rr % R] for rr in range(p0, p1)]),
-                time_masks[p0 - start_round:p1 - start_round],
-                sched_eff.t_server, sched_eff.t_comm,
+                wmasks, sched_eff.t_server, sched_eff.t_comm, qw,
                 telemetry=telemetry.window(p0, p1) if tele else ())
         upd = controller.update(r0, window, last_info) or {}
         changed = {k: v for k, v in upd.items() if getattr(sfl, k) != v}
         if not changed:
             return
+        if is_async and "staleness_discount" in changed:
+            raise ValueError(
+                "controllers cannot override staleness_discount mid-run: "
+                "already-applied records carry its weights, so the "
+                "timeline is not prefix-stable under that change")
+        if sparse and "quorum" in changed:
+            # the ring geometry was resolved from the initial config and
+            # is baked into the store's shape; pin it so the new quorum
+            # cannot re-derive another k_max/capacity under the autos
+            if sfl.k_max != k_geo:
+                changed["k_max"] = k_geo
+            if sfl.ring_capacity != cap_geo:
+                changed["ring_capacity"] = cap_geo
         applied.update(changed)
         sfl = dataclasses.replace(sfl, **changed)
         i = r0 - start_round
         if "deadline" in changed:
             sched_eff = _with_deadline(sched_eff, sfl.deadline)
+            if sparse:
+                mask_epochs.append((r0, sched_eff))
+            else:
+                for j in range(i, n_run):
+                    time_masks[j] = sched_eff.masks[(start_round + j) % R]
+            if not is_async:
+                for j in range(i, n_run):
+                    masks[j] = algo.round_mask(sched_eff, start_round + j)
+        if is_async:
+            if {"tau", "deadline", "quorum"} & set(changed):
+                # versions >= r0 take the new values; the prefix keeps
+                # what it ran with
+                taus_v[r0:] = sfl.tau
+                quorums_v[r0:] = sfl.quorum
+                if sparse:
+                    stream = new_stream(r0)
+                else:
+                    amask_rows[r0:] = np.stack(
+                        [sched_eff.masks[v % R] for v in range(r0, rounds)])
+                    timeline = compile_timeline()
+                    masks[i:] = timeline.apply_w[r0:rounds]
+                    start_masks[i:] = timeline.start_mask[r0:rounds]
+                    round_times[i:] = timeline.durations[r0:rounds]
+            if "tau" in changed:
+                state = events.resize_store(state, sfl.tau)
+        else:
             for j in range(i, n_run):
-                rr = start_round + j
-                time_masks[j] = sched_eff.masks[rr % R]
-                masks[j] = algo.round_mask(sched_eff, rr)
-        for j in range(i, n_run):
-            round_times[j] = algo.time_model(
-                sched_eff.delays[(start_round + j) % R], time_masks[j], sfl,
-                sched_eff)
+                round_times[j] = algo.time_model(
+                    sched_eff.delays[(start_round + j) % R], time_masks[j],
+                    sfl, sched_eff)
         tau_used[i:] = sfl.tau
 
-    def one_round(rr, batch):
+    def one_round(rr, batch, sparse_rows=None, j=0):
         nonlocal params, state
-        params, state, met = algo.round_fn(
-            cfg, sfl, params, state, batch,
-            torch.from_numpy(masks[rr - start_round]).to(device),
-            prng.fold_in(key, rr))
+        i = rr - start_round
+        k = prng.fold_in(key, rr)
+        if sparse_rows is not None:
+            params, state, met = algo.async_sparse_round_fn(
+                cfg, sfl, params, state, batch, sparse_rows.start_client[j],
+                sparse_rows.start_slot[j], sparse_rows.apply_slot[j],
+                masks[i], k)
+        elif is_async:
+            params, state, met = algo.async_round_fn(
+                cfg, sfl, params, state, batch, start_masks[i], masks[i], k)
+        else:
+            params, state, met = algo.round_fn(
+                cfg, sfl, params, state, batch,
+                torch.from_numpy(masks[i]).to(device), k)
         return met
 
+    pending_rows: Optional[events.SparseRows] = None
     for si, (r0, r1) in enumerate(segments):
         if controller is not None:
             controller_step(si)
@@ -713,13 +1025,41 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
             if controller is not None and C > 1:
                 last_info = seg_info(r0, r1)
             continue
+        i = r0 - start_round
         t_host = perf_counter() if tele else 0.0
-        with span("engine.stage", start=r0, stop=r1):
-            staged = [to_device_batch(batch_fn(rr), device)
-                      for rr in range(r0, r1)]
+        rows_c, overlap = None, 0.0
+        if sparse:
+            with span("engine.des_take", start=r0, stop=r1):
+                rows_c = (pending_rows if pending_rows is not None
+                          else stream.take(C))
+            pending_rows = None
+            masks[i:i + C] = rows_c.apply_w
+            round_times[i:i + C] = rows_c.durations
+            qwaits[i:i + C] = rows_c.quorum_wait
+            for j, f in enumerate(FAULT_COLS):
+                fcounts[i:i + C, j] = getattr(rows_c, f)
+            with span("engine.stage", start=r0, stop=r1):
+                staged = _stack_sparse_chunk(batch_fn, r0,
+                                             rows_c.start_client, device,
+                                             batch_subset_fn)
+        else:
+            with span("engine.stage", start=r0, stop=r1):
+                staged = [to_device_batch(batch_fn(rr), device)
+                          for rr in range(r0, r1)]
         t_disp = perf_counter() if tele else 0.0
         with span("engine.dispatch", start=r0, stop=r1):
-            mets = [one_round(rr, b) for rr, b in zip(range(r0, r1), staged)]
+            mets = [one_round(rr, b, rows_c, j)
+                    for j, (rr, b) in enumerate(zip(range(r0, r1), staged))]
+            if sparse and controller is None and si + 1 < len(segments):
+                # the DES makes the next chunk's rows while the device runs
+                # this one (a controller run cannot: the next boundary may
+                # rebuild the stream)
+                n0, n1 = segments[si + 1]
+                t_pre = perf_counter() if tele else 0.0
+                with span("engine.des_prefetch", start=n0, stop=n1):
+                    pending_rows = stream.take(n1 - n0)
+                if tele:
+                    overlap = perf_counter() - t_pre
         if tele:
             _synchronize(device)
             t_sync = perf_counter()
@@ -728,7 +1068,7 @@ def run_rounds(algorithm: Union[str, Algorithm], cfg: ModelConfig,
                 staging_seconds=t_disp - t_host,
                 staging_bytes=sum(t.nbytes for b in staged
                                   for t in b.values()),
-                dispatch_seconds=t_sync - t_disp))
+                dispatch_seconds=t_sync - t_disp, overlap_seconds=overlap))
         with span("engine.flush", start=r0, stop=r1):
             flush(mets, r0, r1)
         if (checkpointer is not None and ckpt_every

@@ -1,5 +1,5 @@
-"""Synchronous split federated training driver for the port (counterpart
-of ``repro.launch.train`` in its synchronous modes).
+"""Split federated training driver for the port (counterpart of
+``repro.launch.train``).
 
 The run is the reference driver's: ``straggler.make_schedule`` builds the
 system model (per-client delays, participation and deadline masks,
@@ -23,7 +23,18 @@ trace, .jsonl one span a line). ``--ckpt-dir`` checkpoints the run every
 that holds a checkpoint resumes from the latest one that verifies: the
 parameters, the algorithm's state (GAS's buffer, FedLoRA's adapters), the
 controller's overrides and EMA, and the run log cut back to the resumed
-round.
+round. ``--async`` runs the semi-async event engine (``core/events.py``,
+``async_mu_splitfed`` with seed replay): a server version commits once
+``--quorum`` contributions arrived, late ones fold in discounted by
+``--staleness-discount``; ``--timeline sparse`` streams the timeline over
+a ring store (``--k-max``, ``--ring-capacity``; ``--loader subset``
+stages only the starting clients' rows); ``--faults`` injects crashes,
+lost, duplicated and corrupt deliveries (``--quorum-timeout``,
+``--max-retries``; ``--adaptive-quorum`` resizes the quorum from the
+delivery rate), and its ``kill=R`` SIGKILLs the process after the chunk
+that holds round R flushed, before that chunk's checkpoint lands, in any
+mode; the next run on the same ``--ckpt-dir`` resumes from the checkpoint
+before it, with the async run's per-version τ and quorum.
 
 Runs on the card unless ``--device cpu`` is given:
     python -m repro_torch.launch.train --arch paper-opt-1.3b --clients 4 \\
@@ -36,14 +47,21 @@ Runs on the card unless ``--device cpu`` is given:
         --rounds 3 --seq 16 --algorithm fedlora
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 2 --seq 16 --ckpt-dir ckpt --ckpt-every 2   # then --rounds 4
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --rounds 4 --seq 16 --chunk-size 2 --straggler-scale 2.0 --async \\
+        --quorum 2 --staleness-discount 0.5 --faults crash=0.2,loss=0.2 \\
+        --quorum-timeout 1.0 --adaptive-quorum --telemetry
 
-Not ported yet (ROADMAP.md, queue 1): --async and its flags, --faults and
---adaptive-quorum.
+The reference's ``--fleet-shard`` (``launch/fleet.py``: the sparse ring
+store sharded over a multi-device mesh) is not taken: the port runs on
+one card.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import signal
 import time
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -53,8 +71,9 @@ import torch
 from repro_torch import obs
 from repro_torch.ckpt import Checkpointer, latest_good_step, read_meta
 from repro_torch.configs import ModelConfig, SFLConfig, get_config
-from repro_torch.core import engine, prng
+from repro_torch.core import engine, events, prng
 from repro_torch.core import straggler as strag
+from repro_torch.core.faults import parse_faults
 from repro_torch.data import FederatedLoader, SyntheticLM, dirichlet_partition
 from repro_torch.models import init_params, untie_params
 
@@ -63,8 +82,8 @@ N_SAMPLES = 4096
 
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
-        description="Synchronous split federated training (PyTorch port "
-                    "of repro.launch.train's synchronous modes).")
+        description="Split federated training (PyTorch port of "
+                    "repro.launch.train).")
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--algorithm", default="mu_splitfed",
@@ -84,6 +103,61 @@ def build_parser() -> argparse.ArgumentParser:
                          "core/population.py:parse_population); overrides "
                          "--clients/--participation; --straggler-scale "
                          "becomes the shared jitter")
+    ap.add_argument("--async", dest="run_async", action="store_true",
+                    help="event-driven semi-async execution (core/events.py)"
+                         ": commit a server version as soon as --quorum "
+                         "contributions arrive; late arrivals fold into a "
+                         "later commit, discounted by --staleness-discount "
+                         "per missed commit. Implies "
+                         "--algorithm async_mu_splitfed")
+    ap.add_argument("--quorum", type=int, default=0,
+                    help="semi-async commit quorum K (0 = wait for all "
+                         "pending contributions, the synchronous barrier)")
+    ap.add_argument("--staleness-discount", type=float, default=1.0,
+                    help="weight base for stale contributions: a record "
+                         "applied s commits after its fetch weighs "
+                         "discount**s before per-commit normalization")
+    ap.add_argument("--timeline", default="dense",
+                    choices=["dense", "sparse"],
+                    help="async timeline backend: 'dense' precompiles "
+                         "(V, M) rows; 'sparse' streams (chunk, k_max) "
+                         "commit batches over an arrival-slot ring store")
+    ap.add_argument("--k-max", type=int, default=0,
+                    help="sparse timeline: per-version commit-batch width "
+                         "(0 = auto: 4x quorum, floor 16, capped at M)")
+    ap.add_argument("--ring-capacity", type=int, default=0,
+                    help="sparse timeline: in-flight record slots (0 = "
+                         "auto: an 8-batch staleness window, capped at M)")
+    ap.add_argument("--loader", default="fleet",
+                    choices=["fleet", "subset"],
+                    help="sparse data staging: 'fleet' gathers each "
+                         "version's rows from a fleet-width (M, ...) batch; "
+                         "'subset' materializes only the <= k_max clients "
+                         "that start each version (bit-exact with the "
+                         "gather); requires --timeline sparse")
+    ap.add_argument("--faults", default="",
+                    help="fault-injection plan (core/faults.py), e.g. "
+                         "'crash=0.1,loss=0.05,dup=0.02,corrupt=0.01,"
+                         "kill=40': crash-after-fetch, delivery-loss, "
+                         "duplication and corruption rates per dispatch, "
+                         "'key@cohort=rate' per-cohort overrides, "
+                         "'backoff=s' the crash re-dispatch base, 'kill=R' "
+                         "SIGKILLs the process after the chunk containing "
+                         "round R (checkpoint-resume exercise). Event "
+                         "rates require --async")
+    ap.add_argument("--quorum-timeout", type=float, default=0.0,
+                    help="graceful degradation: commit with however many "
+                         "contributions arrived once the quorum has "
+                         "waited this long (weights renormalized; 0 = "
+                         "wait forever). Requires --async")
+    ap.add_argument("--max-retries", type=int, default=3,
+                    help="retransmissions per lost delivery before the "
+                         "contribution is dropped")
+    ap.add_argument("--adaptive-quorum", action="store_true",
+                    help="shrink/grow the commit quorum K from the "
+                         "observed delivery rate (engine.AdaptiveQuorum; "
+                         "--quorum is K0, the cap). Requires --async and "
+                         "a --quorum > 0")
     ap.add_argument("--adaptive-tau", action="store_true",
                     help="re-plan tau at chunk boundaries from the observed "
                          "straggler gap (engine.AdaptiveTau; --tau is the "
@@ -120,15 +194,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="simulated per-round communication time (s)")
     ap.add_argument("--aggregation", default=None,
                     choices=["dense", "seed_replay"],
-                    help="server aggregation (default dense)")
+                    help="server aggregation (default dense; --async "
+                         "requires seed_replay, the record store being the "
+                         "replay wire format)")
     ap.add_argument("--client-mode", default="parallel",
                     choices=["parallel", "sequential"],
                     help="accepted for the reference's flags: both are the "
                          "one client loop here")
-    ap.add_argument("--loop", default="scan", choices=["scan", "python"],
-                    help="'scan' flushes the metrics once a chunk, "
-                         "'python' once a round (the reference's legacy "
-                         "loop)")
+    ap.add_argument("--loop", default=None, choices=["scan", "python"],
+                    help="'scan' (default) flushes the metrics once a "
+                         "chunk, 'python' once a round (the reference's "
+                         "legacy loop); incompatible with --async")
     ap.add_argument("--chunk-size", type=int, default=8,
                     help="rounds between host flushes (and controller "
                          "boundaries)")
@@ -157,6 +233,68 @@ class Run(NamedTuple):
     device: torch.device
 
 
+def check_async_args(ap: argparse.ArgumentParser, args: argparse.Namespace):
+    """The reference driver's checks of the semi-async and fault flags
+    (those that need no fleet size), resolving --algorithm, --aggregation
+    and --loop for --async. Returns the parsed FaultPlan or None."""
+    if args.run_async:
+        if args.loop is not None:
+            raise SystemExit("--async and --loop are mutually exclusive: "
+                             "--async runs the event-driven mode")
+        if args.algorithm == "mu_splitfed":
+            args.algorithm = "async_mu_splitfed"
+        elif args.algorithm != "async_mu_splitfed":
+            raise SystemExit(f"--async supports async_mu_splitfed, "
+                             f"not {args.algorithm}")
+        if args.aggregation == "dense":
+            raise SystemExit("--async requires --aggregation seed_replay: "
+                             "the in-flight record store is the seed-replay "
+                             "wire format")
+        args.aggregation = "seed_replay"
+        args.loop = "async"
+    else:
+        if args.quorum or args.staleness_discount != 1.0:
+            raise SystemExit("--quorum/--staleness-discount only take "
+                             "effect under --async (the synchronous modes "
+                             "never read them)")
+        if args.timeline != "dense":
+            ap.error("--timeline sparse is the semi-async streaming "
+                     "backend; it requires --async")
+        if args.loop is None:
+            args.loop = "scan"
+        if args.aggregation is None:
+            args.aggregation = "dense"
+    fault_plan = None
+    if args.faults:
+        try:
+            fault_plan = parse_faults(args.faults)
+        except ValueError as e:
+            ap.error(str(e))
+    if not args.run_async:
+        if fault_plan is not None and fault_plan.any():
+            ap.error("--faults event rates perturb the semi-async event "
+                     "stream; they require --async (kill=R alone works "
+                     "in any mode)")
+        if args.quorum_timeout or args.adaptive_quorum:
+            ap.error("--quorum-timeout/--adaptive-quorum are semi-async "
+                     "degradation knobs; they require --async")
+    if args.quorum_timeout < 0:
+        ap.error(f"--quorum-timeout must be >= 0: got "
+                 f"{args.quorum_timeout}")
+    if args.max_retries < 0:
+        ap.error(f"--max-retries must be >= 0: got {args.max_retries}")
+    if args.adaptive_quorum and args.quorum <= 0:
+        ap.error("--adaptive-quorum plans within [1, K0]; pass a finite "
+                 "initial --quorum > 0")
+    if args.adaptive_quorum and args.adaptive_tau:
+        ap.error("--adaptive-tau and --adaptive-quorum are separate "
+                 "controllers; the engine runs one controller per run")
+    if args.loader == "subset" and args.timeline != "sparse":
+        ap.error("--loader subset is the sparse O(K) staging path; it "
+                 "requires --async --timeline sparse")
+    return fault_plan
+
+
 def setup(argv=None, cfg: Optional[ModelConfig] = None) -> Run:
     """Parse the flags and build config, random parameters (seeded) and
     the data loader on the chosen device. ``cfg``, if given, is run in
@@ -164,8 +302,7 @@ def setup(argv=None, cfg: Optional[ModelConfig] = None) -> Run:
     qwen3-14b with its depth cut this way)."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    if args.aggregation is None:
-        args.aggregation = "dense"
+    fault_plan = check_async_args(ap, args)
     if args.log_every < 1:
         ap.error(f"--log-every must be >= 1: got {args.log_every}")
     if args.tau_source == "measured" and not args.adaptive_tau:
@@ -181,12 +318,28 @@ def setup(argv=None, cfg: Optional[ModelConfig] = None) -> Run:
         args.population, straggler_scale=args.straggler_scale)
         if args.population else None)
     n_clients = population.n_clients if population else args.clients
+    # the semi-async knobs are checked against the resolved fleet size
+    if args.quorum < 0 or args.quorum > n_clients:
+        ap.error(f"--quorum must be in [0, n_clients]: got {args.quorum} "
+                 f"with n_clients={n_clients} (0 = wait for all pending)")
+    if not 0.0 <= args.staleness_discount <= 1.0:
+        ap.error(f"--staleness-discount must be in [0.0, 1.0]: got "
+                 f"{args.staleness_discount} (weight base per missed "
+                 f"commit)")
+    if args.k_max < 0 or args.ring_capacity < 0:
+        ap.error("--k-max/--ring-capacity must be >= 0 (0 = auto)")
     sfl = SFLConfig(n_clients=n_clients, tau=args.tau,
                     cut_units=args.cut or cfg.default_cut_units,
                     lr_server=args.lr_server, lr_client=args.lr_client,
                     participation=args.participation,
                     straggler_rate=args.straggler_scale,
-                    deadline=args.deadline, population=population)
+                    deadline=args.deadline, population=population,
+                    quorum=args.quorum,
+                    staleness_discount=args.staleness_discount,
+                    timeline=args.timeline, k_max=args.k_max,
+                    ring_capacity=args.ring_capacity, faults=fault_plan,
+                    quorum_timeout=args.quorum_timeout,
+                    max_retries=args.max_retries)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = untie_params(cfg, init_params(cfg, gen))
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
@@ -209,7 +362,7 @@ def schedule(run: Run) -> strag.Schedule:
 def algorithm_options(args: argparse.Namespace) -> Dict:
     """The reference driver's options for each algorithm: GAS takes no
     client mode, FedAvg and FedLoRA run on their defaults."""
-    if args.algorithm in ("mu_splitfed", "vanilla"):
+    if args.algorithm in ("mu_splitfed", "vanilla", "async_mu_splitfed"):
         return {"client_mode": args.client_mode,
                 "aggregation": args.aggregation}
     if args.algorithm == "gas":
@@ -228,17 +381,37 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
     or None).
     ``sfl``, if given, replaces the run's config (``chip_smoke.py`` sets
     counter noise this way); ``chunk_callback`` runs after the printing
-    and logging."""
+    and logging. A ``kill=R`` in ``sfl.faults`` SIGKILLs the process after
+    the chunk that holds round R, the callback included, before its
+    checkpoint is saved (and after the previous checkpoint's write has
+    finished)."""
     a = run.args
     sfl = run.sfl if sfl is None else sfl
+    out = log if log is not None else (lambda line: None)
     controller = (engine.AdaptiveTau(tau_max=a.tau_max, source=a.tau_source)
-                  if a.adaptive_tau else None)
+                  if a.adaptive_tau
+                  else engine.AdaptiveQuorum() if a.adaptive_quorum
+                  else None)
     algo = engine.get_algorithm(a.algorithm, **algorithm_options(a))
-    # the sink feeds the controller and the log; the tracer records spans
-    # over the engine's hot path; the registry keeps running totals
+    plan = sfl.faults
+    if plan is not None:
+        out(f"faults: {plan.describe()}"
+            + (f"  quorum_timeout={sfl.quorum_timeout:g}"
+               if sfl.quorum_timeout else "")
+            + f"  max_retries={sfl.max_retries}")
+    if a.run_async:
+        out(f"semi-async: quorum {sfl.quorum or 'all'} of {sfl.n_clients}, "
+            f"staleness discount {sfl.staleness_discount}, "
+            f"timeline {sfl.timeline}" + (
+                " (k_max {}, ring {})".format(
+                    *events.resolve_store_geometry(sfl))
+                if sfl.timeline == "sparse" else ""))
+    # the sink feeds the controllers and the log (AdaptiveQuorum observes
+    # the fault counters through it); the tracer records spans over the
+    # engine's hot path; the registry keeps running totals
     sink = (obs.TelemetrySink()
-            if a.telemetry or a.log_jsonl or a.tau_source == "measured"
-            else None)
+            if (a.telemetry or a.log_jsonl or a.adaptive_quorum
+                or a.tau_source == "measured") else None)
     tracer = obs.SpanTracer() if a.trace_out else None
     prev_tracer = obs.install(tracer) if tracer is not None else None
     registry = obs.get_registry()
@@ -246,6 +419,7 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
     # so a state template is built from the adapted config
     ck = Checkpointer(a.ckpt_dir) if a.ckpt_dir else None
     params, start_round, state = run.params, 0, None
+    tau_history = quorum_history = None
     step = latest_good_step(a.ckpt_dir) if ck is not None else None
     if step is not None:
         sfl = engine.apply_resume_overrides(
@@ -253,8 +427,11 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
         params, state, meta = engine.restore_run(
             ck, algo, run.cfg, sfl, params, run.loader.round_batch, step=step)
         start_round = meta["step"] + 1
-        if log is not None:
-            log(f"[resume] from round {start_round} (tau={sfl.tau})")
+        # an async controller run recompiles the timeline's prefix with
+        # the per-version τ and quorum that ran
+        tau_history = meta["metadata"].get("tau_per_version")
+        quorum_history = meta["metadata"].get("quorum_per_version")
+        out(f"[resume] from round {start_round} (tau={sfl.tau})")
     runlog = (obs.RunLog(a.log_jsonl, resume_round=start_round,
                          log_every=a.log_every)
               if a.log_jsonl else None)
@@ -286,12 +463,30 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
                     meas.dispatch_seconds)
                 registry.counter("train.staging_bytes").inc(
                     meas.staging_bytes)
+            # the chunk's simulated fault counters, as running totals
+            for rec in sink.window(info.start, info.stop, "sim"):
+                for f in engine.FAULT_COLS:
+                    n = getattr(rec, f)
+                    if n:
+                        registry.counter(f"train.faults.{f}").inc(n)
         if runlog is not None:
             runlog.chunk(info.start, info.stop,
                          telemetry=(sink.window(info.start, info.stop)
                                     if sink is not None else ()))
         if chunk_callback is not None:
             chunk_callback(info, p, s)
+        if plan is not None and info.start <= plan.kill_round < info.stop:
+            # the host-kill schedule: SIGKILL (no cleanup) right after the
+            # chunk holding kill_round flushed, before its checkpoint; a
+            # resume restarts from the previous boundary, whose write
+            # (seconds for a 2.6 GiB model, in the checkpointer's thread)
+            # is joined first so that the kill loses the chunk, not the
+            # checkpoint before it
+            if ck is not None:
+                ck.wait()
+            print(f"[faults] kill={plan.kill_round}: SIGKILL after "
+                  f"chunk [{info.start}, {info.stop})", flush=True)
+            os.kill(os.getpid(), signal.SIGKILL)
 
     try:
         result = engine.run_rounds(
@@ -299,17 +494,24 @@ def run_engine(run: Run, sfl: Optional[SFLConfig] = None,
             schedule(run), prng.PRNGKey(a.seed), rounds=a.rounds,
             start_round=start_round, state=state, chunk_size=a.chunk_size,
             mode=a.loop, checkpointer=ck, ckpt_every=a.ckpt_every,
-            chunk_callback=on_chunk, controller=controller, telemetry=sink)
+            chunk_callback=on_chunk, controller=controller,
+            tau_history=tau_history, quorum_history=quorum_history,
+            batch_subset_fn=(run.loader.subset_batch
+                             if a.loader == "subset" else None),
+            telemetry=sink)
     finally:
         if tracer is not None:
             obs.install(prev_tracer)
         if runlog is not None:
             runlog.close()
-    out = log if log is not None else (lambda line: None)
     if controller is not None and controller.trace:
         vals = [t for _, t in controller.trace]
-        out(f"adaptive tau ({a.tau_source}): start {a.tau} -> final "
-            f"{vals[-1]} (decisions: {vals})")
+        if a.adaptive_quorum:
+            out(f"adaptive quorum: K0 {a.quorum} -> final {vals[-1]} "
+                f"(decisions: {vals})")
+        else:
+            out(f"adaptive tau ({a.tau_source}): start {a.tau} -> final "
+                f"{vals[-1]} (decisions: {vals})")
     if runlog is not None:
         out(f"run log: {a.log_jsonl}")
     if tracer is not None:

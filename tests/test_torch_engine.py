@@ -159,14 +159,20 @@ def test_run_rounds_matches_reference_engine(olmo_f32, dist, aggregation):
 
 
 def test_engine_raises_for_what_is_not_ported(olmo_f32):
+    """The semi-async engine is ported (tests/test_torch_async.py): what
+    the engine still refuses are the reference's own argument errors,
+    mode='async' on an algorithm without async_round_fn and an unknown
+    algorithm."""
     _, tcfg, _, tp = olmo_f32
     sched = tstrag.make_schedule(0, 2, 2)
     args = ("mu_splitfed", tcfg, TSFL(n_clients=2), tp, lambda r: {},
             sched, prng.PRNGKey(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="has no async_round_fn"):
         tengine.run_rounds(*args, rounds=2, mode="async")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tengine.get_algorithm("async_mu_splitfed")
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        tengine.get_algorithm("async_splitfed")
+    assert tengine.get_algorithm("async_mu_splitfed").name == \
+        "async_mu_splitfed"
 
 
 def test_driver_straggler_flags_match_reference_schedule():

@@ -640,3 +640,111 @@ def test_scan_resume_on_the_card_is_exact(cuda, tmp_path, algorithm, opts):
         assert [k for k, _ in got] == [k for k, _ in want]
         for (k, a), (_, b) in zip(got, want):
             assert a.is_cuda and torch.equal(a, b), k
+
+
+def _async_setup(timeline):
+    from repro_torch.configs import SFLConfig, get_config
+    from repro_torch.core import straggler as strag
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.data import (FederatedLoader, SyntheticLM,
+                                  dirichlet_partition)
+    from repro_torch.models import init_params, untie_params
+    cfg = get_config("olmo-1b", smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=2, dtype="float32")
+    params = untie_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    sfl = SFLConfig(n_clients=4, tau=2, cut_units=2, participation=0.75,
+                    straggler_rate=2.0, perturbation_dist="counter",
+                    quorum=2, staleness_discount=0.5, timeline=timeline,
+                    faults=FaultPlan(crash=0.2, loss=0.2), quorum_timeout=1.0,
+                    k_max=2 if timeline == "sparse" else 0, ring_capacity=3)
+    loader = FederatedLoader(SyntheticLM(cfg.vocab_size, 64, 0),
+                             dirichlet_partition(np.arange(256) % 10, 4,
+                                                 alpha=0.5, seed=0), 1,
+                             seed=0)
+    sched = strag.make_schedule(
+        0, 6, population=strag.ClientPopulation.resolve(sfl), t_server=0.5,
+        t_comm=0.2)
+    return cfg, params, sfl, loader, sched
+
+
+@pytest.mark.parametrize("timeline", ["dense", "sparse"])
+def test_async_versions_card_match_cpu(cuda, timeline):
+    """Six small f32 semi-async versions (quorum 2, discount 0.5, crash
+    and loss faults with a quorum timeout; the sparse ring at k_max 2,
+    capacity 3) on the card against the same versions on the CPU: apply
+    weights and round times exact, the store's keys exact, losses,
+    parameters and the store's coefficients within 1e-4. The counter
+    kernels launch."""
+    from repro_torch.core import engine, prng
+    from repro_torch.utils import tree
+    cfg, params, sfl, loader, sched = _async_setup(timeline)
+    runs = []
+    for d in ("cpu", cuda):
+        masks = []
+        before = dict(build.LAUNCHES)
+        res = engine.run_rounds(
+            "async_mu_splitfed", cfg, sfl, _to(params, d), loader.round_batch,
+            sched, prng.PRNGKey(0), rounds=6, chunk_size=2, mode="async",
+            batch_subset_fn=(loader.subset_batch if timeline == "sparse"
+                             else None),
+            chunk_callback=lambda i, p, s: masks.append(i.masks))
+        runs.append((res, np.concatenate(masks),
+                     {k: build.LAUNCHES.get(k, 0) - before.get(k, 0)
+                      for k in ("zo_update", "zo_replay")}))
+    (cpu, cpu_masks, cpu_n), (card, card_masks, card_n) = runs
+    assert cpu_n == {"zo_update": 0, "zo_replay": 0}
+    assert card_n["zo_update"] > 0 and card_n["zo_replay"] > 0
+    np.testing.assert_array_equal(card_masks, cpu_masks)
+    np.testing.assert_array_equal(card.round_times, cpu.round_times)
+    np.testing.assert_allclose(card.round_loss, cpu.round_loss, atol=1e-4)
+    for (k, a), (_, b) in zip(tree.path_leaves(card.params),
+                              tree.path_leaves(cpu.params)):
+        assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 1e-4, k
+    for k, a in card.state.items():
+        b = cpu.state[k]
+        if isinstance(a, np.ndarray):
+            assert a.dtype == np.uint32 and np.array_equal(a, b), k
+        else:
+            assert a.is_cuda and float((a.cpu() - b).abs().max()) <= 1e-4, k
+
+
+def test_store_scatter_and_gather_on_the_card(cuda):
+    """The ring store's scatter with pad slots (= capacity, dropped, as
+    the reference's mode='drop') and its clamped gather on CUDA tensors,
+    against the same on the CPU; host keys stay numpy."""
+    from repro_torch.configs import SFLConfig
+    from repro_torch.core import events
+    sfl = SFLConfig(n_clients=8, tau=3, n_perturbations=2,
+                    timeline="sparse", quorum=2, k_max=4, ring_capacity=5)
+    assert events.resolve_store_geometry(sfl) == (4, 5)
+    rng = np.random.default_rng(0)
+    slots = np.array([3, 5, 0, 5])          # two pads at capacity 5
+    fresh = {"srv_keys": rng.integers(0, 2**32, (4, 3, 2, 2),
+                                      dtype=np.uint32),
+             "srv_coeffs": rng.standard_normal((4, 3, 2)),
+             "ukey": rng.integers(0, 2**32, (4, 2), dtype=np.uint32),
+             "ccoeff": rng.standard_normal(4), "loss0": rng.random(4)}
+    take = np.array([0, 3, 5, 5])           # pads clamp to slot 4
+    outs = []
+    for d in ("cpu", cuda):
+        store = events.init_store(sfl, d)
+        assert store["loss0"].device.type == torch.device(d).type
+        f = {k: (v if v.dtype == np.uint32 else
+                 torch.tensor(v, dtype=torch.float32, device=d))
+             for k, v in fresh.items()}
+        new = events.scatter_rows(store, slots, f)
+        assert float(store["ccoeff"].abs().sum()) == 0   # a copy
+        outs.append({k: events.gather_rows(new[k], take) for k in new})
+        outs[-1]["all"] = new
+    cpu, card = outs
+    for k, v in fresh.items():
+        got = card["all"][k]
+        got = got if isinstance(got, np.ndarray) else got.cpu().numpy()
+        want = np.zeros_like(got)
+        want[[3, 0]] = np.asarray(v, got.dtype)[[0, 2]]
+        assert np.array_equal(got, want), k
+        g = card[k] if isinstance(card[k], np.ndarray) else card[k].cpu()
+        c = cpu[k] if isinstance(cpu[k], np.ndarray) else cpu[k]
+        assert np.array_equal(np.asarray(g), np.asarray(c)), k
+        assert np.array_equal(np.asarray(g)[2], want[4]), k

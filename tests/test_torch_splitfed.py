@@ -193,8 +193,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.obs.runlog", "repro_torch.obs.telemetry",
             "repro_torch.obs.trace", "repro_torch.optim.optimizers",
             "repro_torch.optim.schedules", "repro_torch.optim.lora",
-            "repro_torch.ckpt.checkpoint"} <= set(mods)
-    assert len(mods) >= 32
+            "repro_torch.ckpt.checkpoint", "repro_torch.core.events",
+            "repro_torch.core.faults", "repro_torch.data.loader",
+            "repro_torch.launch.train"} <= set(mods)
+    assert len(mods) >= 34
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
