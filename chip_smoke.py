@@ -41,8 +41,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      F.rms_norm timed beside them;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
-     seed_replay; vanilla SplitFed; GAS with a stale client; FedAvg with
-     SGD and AdamW, FedLoRA), then the seven main paths through the
+     seed_replay; vanilla SplitFed; GAS with a stale client; each on
+     olmo-1b and on mixtral-8x22b SMOKE widened to d_head 64; FedAvg with
+     SGD and AdamW, FedLoRA) and small f32 serving (mixtral-8x22b past its
+     window, qwen3-14b), then the seven training paths through the
      training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
      kernel launch counter set to 0 just before and read just after, and
@@ -97,6 +99,16 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
          timeline's; (d) the driver SIGKILLed by --faults kill=2 in a
          subprocess and resumed by a second, its final checkpoint equal
          leaf by leaf to an uninterrupted run's (``phase_async``);
+     and path 8, serving and the MoE family (``phase_serve``), through
+     ``serve.generate`` with every counter set to 0 before each request:
+     (a) qwen3-14b at full width, 8 of 40 layers, 4 requests of 512-token
+     prompts, greedy, 32 new tokens; (b) mixtral-8x22b at full width, 3
+     of 56 layers (7.91 B parameters), one 4160-token prompt past its
+     4096 window, 16 new tokens, at its capacity factor and at 4.0; each
+     request's prefill and decode steps held against the card's own
+     logits_fn (bf16, PREFILL_TOL and DECODE_TOL); (c) one MU-SplitFed
+     round of (b)'s model through the driver (counter noise, seed replay,
+     M=2, tau=2, seq 512) with its peak memory against the reckoning;
   5. one JSON line with every kernel's numbers (launches summed over the
      paths), then the result line.
 
@@ -1060,7 +1072,10 @@ def phase_rmsnorm(dev) -> dict:
              ("ragged rows, half-warp per row", (3, 7, 128), bf16),
              ("ragged rows, block per row", (1, 300, 5120), f32),
              ("D=100, element loads", (333, 100), bf16),
-             ("D=1030, element loads", (77, 1030), f32)]
+             ("D=1030, element loads", (77, 1030), f32),
+             ("mixtral-8x22b prefill block norm (path 8)", (1, 4160, 6144),
+              bf16),
+             ("qwen3-14b decode block norm (path 8)", (4, 1, 5120), bf16)]
     res = {"err": 0.0}
     for name, shape, dtype in cases:
         D = shape[-1]
@@ -1163,7 +1178,9 @@ def phase_flash(dev) -> dict:
              ("B=2, GQA 40/8", (2, 40, 8, 512, 128), True, 0),
              ("olmo-1b path", (1, 16, 16, 512, 128), True, 0),
              ("qwen3-14b path, GQA 40/8 (group 5)", (1, 40, 8, 512, 128),
-              True, 0)]
+              True, 0),
+             ("mixtral-8x22b prefill (path 8), GQA 48/8, window 4096",
+              (1, 48, 8, 4160, 128), True, 4096)]
     for name, shape, causal, window in cases:
         B, H, Hkv, S, d = shape
         q, k, v = qkv(*shape)
@@ -1187,7 +1204,7 @@ def phase_flash(dev) -> dict:
         line = (f"flash {name} bf16 {shape}: max|Δ| {err:.3e}  kernel "
                 f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {b_ms:.4f} ms "
                 f"({b_by})")
-        if "path" in name:
+        if "path" in name and "path 8" not in name:
             lib_ms = device_ms(lambda t: F.scaled_dot_product_attention(
                 *t, is_causal=True, enable_gqa=H != Hkv), sets, 50)
             require(lib_ms > 0, f"flash {name}: no device time for the "
@@ -1420,6 +1437,10 @@ SMALL_ROUNDS = (("mu_splitfed", "counter", "seed_replay"),
                 ("vanilla", "gaussian", "dense"),
                 ("gas", "gaussian", "dense"),
                 ("gas", "counter", "seed_replay"))
+# mixtral's: path 8 (c)'s round, and GAS, whose buffer carries the aux
+# (the MoE round's CPU side takes 2-4x olmo's, in its expert leaves' noise)
+MOE_SMALL_ROUNDS = (("mu_splitfed", "counter", "seed_replay"),
+                    ("gas", "counter", "seed_replay"))
 
 
 def small_round(algorithm, cfg, sfl, params, batch, mask, key, aggregation):
@@ -1443,18 +1464,28 @@ def phase_small_round(dev):
     """One round of a small f32 model (d_head 64) on the card against the
     same round on the CPU, where the plain versions run, for each
     algorithm, noise and aggregation in SMALL_ROUNDS (GAS with a stale
-    client: its buffer too)."""
+    client: its buffer, the MoE aux with it, too, an MoE buffer within 1e-4
+    of its largest magnitude): olmo-1b SMOKE, and
+    mixtral-8x22b SMOKE (4 experts top-2, window 32 under 64 tokens) for
+    MOE_SMALL_ROUNDS, each widened to d_model 128 with 2 query heads
+    (mixtral: 1 kv head)."""
+    for arch, kv, cases in (("olmo-1b", 2, SMALL_ROUNDS),
+                            ("mixtral-8x22b", 1, MOE_SMALL_ROUNDS)):
+        small_rounds(dev, arch, kv, cases)
+
+
+def small_rounds(dev, arch: str, n_kv_heads: int, cases):
     import numpy as np
     from repro_torch.configs import SFLConfig, get_config
     from repro_torch.core import prng
     from repro_torch.models import init_params, untie_params
     from repro_torch.utils import tree
-    cfg = get_config("olmo-1b", smoke=True).replace(
-        d_model=128, n_heads=2, n_kv_heads=2, dtype="float32")
+    cfg = get_config(arch, smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=n_kv_heads, dtype="float32")
     params = untie_params(cfg, init_params(
         cfg, torch.Generator().manual_seed(0)))
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
-    for algorithm, dist, aggregation in SMALL_ROUNDS:
+    for algorithm, dist, aggregation in cases:
         sfl = SFLConfig(n_clients=2, tau=2, n_perturbations=2, cut_units=2,
                         perturbation_dist=dist)
         mask = [1.0, 0.0] if algorithm == "gas" else [1.0, 0.5]
@@ -1472,11 +1503,15 @@ def phase_small_round(dev):
         dm = max(max_err(getattr(mg, f).cpu(), getattr(mc, f))
                  for f in mc._fields)
         ds = max([max_err(a.cpu(), b) for a, b in zip(sg, sc)], default=0.0)
-        what = f"{algorithm}, {dist}, {aggregation}"
+        # an MoE buffer's activations reach |h| ~ 10^2-10^3 (the experts'
+        # fan-in init), so its tolerance is relative to the largest
+        hs = (max(float(b.abs().max()) for b in sc)
+              if sc and cfg.moe is not None else 1.0)
+        what = f"{arch}, {algorithm}, {dist}, {aggregation}"
         print(f"small f32 round ({what}), card vs CPU: params max|Δ| "
               f"{dp:.3e}  metrics max|Δ| {dm:.3e}"
-              + (f"  buffer max|Δ| {ds:.3e}" if sc else ""))
-        require(dp <= 1e-4 and dm <= 1e-4 and ds <= 1e-4,
+              + (f"  buffer max|Δ| {ds:.3e} (of {hs:.3e})" if sc else ""))
+        require(dp <= 1e-4 and dm <= 1e-4 and ds <= 1e-4 * hs,
                 f"small round ({what}): card and CPU disagree")
 
 
@@ -2345,6 +2380,270 @@ def phase_async(dev) -> dict:
     return launches
 
 
+# path 8: serving and the MoE family. (a) qwen3-14b at full width, path
+# 2's depth; (b) mixtral-8x22b at full width, 3 of 56 layers (7.91 B
+# parameters; 4 would not fit a ZO round), a prompt past its 4096 window;
+# (c) one MU-SplitFed round of (b)'s model through the driver
+SERVE_QWEN = dict(batch=4, prompt_len=512, gen=32, steps=(1, 16, 32))
+SERVE_MIXTRAL = dict(batch=1, prompt_len=4160, gen=16, steps=(1, 8, 16))
+MIXTRAL_LAYERS = 3
+MIXTRAL_ARGV = ["--arch", "mixtral-8x22b", "--clients", "2", "--tau", "2",
+                "--batch", "1", "--seq", "512", "--rounds", "1",
+                "--chunk-size", "1", "--aggregation", "seed_replay"]
+# a ZO round holds about 3.9x the parameter bytes (module docstring)
+ZO_ROUND_BYTES_PER_PARAM_BYTE = 3.9
+# bf16 tolerances of path 8, relative to the largest |logit| of the full
+# forward: prefill's last position against logits_fn on the prompt (the
+# same computation but the head product's shape: a few bf16 ulps), and a
+# decode step against logits_fn on the prompt and the generated tokens
+# (decode attends in plain PyTorch with bf16 probabilities, the flash
+# kernel in f32, and every product has another shape: bf16 rounding
+# through every layer)
+PREFILL_TOL = 2.0 ** -6
+DECODE_TOL = 2.0 ** -4
+# mixtral's decode-vs-full check runs in f32: in bf16 the decode path's
+# activations, a few bf16 ulps off the full forward's, send a token whose
+# top-2 routing probabilities are that close to another expert (on the CPU
+# at SMOKE size, bf16, capacity 16: one step 38% of max|logit| off, while
+# f32 stays within 2e-6), a difference of rounding and not a fault
+F32_DECODE_TOL = 1e-4
+
+
+def serve_request(dev, name, cfg, params, prompt, gen, steps, kernels,
+                  decode_tol=DECODE_TOL, profile=True):
+    """One request through ``serve.generate`` (greedy), every launch
+    counter set to 0 just before and read just after; then the check pass:
+    prefill and decode_step on the generated tokens, each timed with a
+    synchronise, prefill's last logits held against ``logits_fn`` on the
+    prompt and the decode logits of ``steps`` (1-based) against
+    ``logits_fn`` on the prompt and the generated tokens (relative to that
+    forward's largest |logit|). The check pass must reproduce the tokens.
+    With ``profile``, one more request runs under the profiler (device
+    busy share, time by kernel). Returns (launches, {prefill_ms,
+    decode_ms, tok_s, peak})."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models import decode_step, logits_fn, prefill
+    B, S = prompt.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    toks = serve.generate(cfg, params, {"tokens": prompt}, S, gen)
+    wall = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    tok_s = serve.stats()["metrics"]["serve.last_tok_per_s"]["value"]
+    print(f"{name}: generate {B}x{gen} tokens after a {S}-token prompt in "
+          f"{wall:.3f} s ({tok_s:.1f} tokens/s, the serve.last_tok_per_s "
+          f"gauge); peak {peak:.2f} GiB; launches {launches}")
+    for k in kernels:
+        require(launches.get(k, 0) > 0, f"{name}: kernel {k} was never "
+                f"launched")
+    require(tuple(toks.shape) == (B, gen), f"{name}: tokens {toks.shape}")
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = prefill(cfg, params, {"tokens": prompt},
+                            cache_len=S + gen)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        step_logits = {}
+        t0 = time.perf_counter()
+        first = lg[:, -1].argmax(-1, keepdim=True)
+        for i in range(gen):
+            lg_i, cache = decode_step(cfg, params, toks[:, i:i + 1], cache,
+                                      S + i)
+            if i + 1 in steps:
+                step_logits[i + 1] = lg_i[:, 0]
+            if i + 1 < gen:
+                require(torch.equal(lg_i[:, -1].argmax(-1),
+                                    toks[:, i + 1]),
+                        f"{name}: the check pass's token {i + 2} differs")
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / gen
+        require(torch.equal(first, toks[:, :1]),
+                f"{name}: the check pass's first token differs")
+        want = logits_fn(cfg, params, {"tokens": prompt})[:, -1].float()
+        scale = float(want.abs().max())
+        d = float((lg[:, 0].float() - want).abs().max())
+        print(f"{name}: prefill {prefill_ms:.1f} ms, decode "
+              f"{decode_ms:.2f} ms a token ({B} requests a step); prefill "
+              f"logits vs logits_fn on the prompt max|Δ| {d:.4e} of "
+              f"max|logit| {scale:.4e} ({d / scale:.2e}; tolerance "
+              f"{PREFILL_TOL:.2e})")
+        require(math.isfinite(scale) and d <= PREFILL_TOL * scale,
+                f"{name}: prefill logits outside tolerance")
+        if steps:
+            full = logits_fn(cfg, params, {"tokens": torch.cat(
+                [prompt, toks], 1)})
+            scale = float(full.float().abs().max())
+        for j, got in step_logits.items():
+            want = full[:, S + j - 1].float()
+            d = float((got.float() - want).abs().max())
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            print(f"{name}: decode step {j} logits vs logits_fn max|Δ| "
+                  f"{d:.4e} ({d / scale:.2e} of max|logit|; tolerance "
+                  f"{decode_tol:.2e}); argmax agrees on {agree:.0%} of the "
+                  f"requests")
+            require(d <= decode_tol * scale,
+                    f"{name}: decode step {j} outside tolerance")
+    if profile:
+        profile_round(f"{name}, one more request", lambda: serve.generate(
+            cfg, params, {"tokens": prompt}, S, gen))
+    return launches, dict(prefill_ms=prefill_ms, decode_ms=decode_ms,
+                          tok_s=tok_s, peak=peak)
+
+
+def phase_serve(dev) -> dict:
+    """Path 8: serving (``serve.generate``: ``prefill`` through the flash
+    kernel, ``decode_step`` over the KV cache) and the MoE family, on the
+    card's own ``logits_fn`` as the reference:
+      a. qwen3-14b at full width, QWEN_LAYERS of 40 layers: 4 requests of
+         512-token prompts, greedy, 32 new tokens; decode steps 1, 16, 32
+         held against the full forward;
+      b. mixtral-8x22b at full width, MIXTRAL_LAYERS of 56 layers: one
+         request of a 4160-token prompt (past the 4096 window: prefill
+         fills the ring) and 16 new tokens (decode wraps it), in bf16 at
+         the config's capacity factor 1.25; then the decode-vs-full check
+         in f32 (F32_DECODE_TOL) at n_experts/top_k = 4.0, where no token
+         can drop (prefill sees 4160 tokens a group, the full forward
+         4176);
+      c. one MU-SplitFed round of (b)'s model through the driver
+         (``MIXTRAL_ARGV``: counter noise, seed replay, M=2, tau=2, batch
+         1, seq 512) with ``drive``, its peak against the reckoning of
+         ZO_ROUND_BYTES_PER_PARAM_BYTE times the parameter bytes, and the
+         client's aux loss after it.
+    Prints each part's seconds; returns the launches summed over a-c."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import (client_forward, init_params,
+                                    param_count, split_params)
+    t_path = time.perf_counter()
+    launches = {}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def prompt(cfg, B, S, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                             device=dev)
+
+    t0 = time.perf_counter()
+    qwen = get_config("qwen3-14b").replace(n_layers=QWEN_LAYERS)
+    params = init_params(qwen, torch.Generator(device=dev).manual_seed(0))
+    a = SERVE_QWEN
+    n, qs = serve_request(dev, f"serve path (a) qwen3-14b ({QWEN_LAYERS} of "
+                          f"40 layers)", qwen, params,
+                          prompt(qwen, a["batch"], a["prompt_len"], 1),
+                          a["gen"], a["steps"], ("flash_attention",
+                                                 "rmsnorm"))
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve path (a): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    mix = get_config("mixtral-8x22b").replace(n_layers=MIXTRAL_LAYERS)
+    params = init_params(mix, torch.Generator(device=dev).manual_seed(0))
+    b = SERVE_MIXTRAL
+    print(f"serve path (b) mixtral-8x22b: {MIXTRAL_LAYERS} of 56 layers, "
+          f"{param_count(params):,} parameters, window "
+          f"{mix.sliding_window}, {mix.moe.n_experts} experts top "
+          f"{mix.moe.top_k}, d_ff {mix.d_ff}")
+    p_b = prompt(mix, b["batch"], b["prompt_len"], 2)
+    n, ms = serve_request(dev, "serve path (b) mixtral-8x22b bf16, capacity "
+                          "factor 1.25", mix, params, p_b, b["gen"], (),
+                          ("flash_attention", "rmsnorm"))
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    lifted = mix.replace(dtype="float32", moe=dataclasses.replace(
+        mix.moe, capacity_factor=mix.moe.n_experts / mix.moe.top_k))
+    params = init_params(lifted, torch.Generator(device=dev).manual_seed(0))
+    n, _ = serve_request(dev, "serve path (b) mixtral-8x22b f32, capacity "
+                         "factor 4.0", lifted, params, p_b, b["gen"],
+                         b["steps"], ("flash_attention", "rmsnorm"),
+                         decode_tol=F32_DECODE_TOL, profile=False)
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve path (b): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    name = f"MoE round path (c) mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers)"
+    run = train.setup(MIXTRAL_ARGV, cfg=mix)
+    sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
+    res, _, n, chunks = drive(dev, name, run, sfl,
+                              ("zo_update", "zo_replay", "flash_attention",
+                               "rmsnorm"))
+    add(n)
+    gib = param_count(run.params) * 2 / 2 ** 30
+    peak = max(c[2] for c in chunks)
+    with torch.inference_mode():
+        xc, _ = split_params(mix, res.params, sfl.cut_units)
+        batch = {k: torch.as_tensor(v[0], device=dev)
+                 for k, v in run.loader.round_batch(0).items()}
+        aux = float(client_forward(mix, xc, batch)["aux"])
+    print(f"{name}: loss {list(res.round_loss)}; client aux (MoE load "
+          f"balance, after the round) {aux:.6f}; peak {peak:.2f} GiB "
+          f"against the reckoning {ZO_ROUND_BYTES_PER_PARAM_BYTE} x "
+          f"{gib:.2f} GiB of parameters = "
+          f"{ZO_ROUND_BYTES_PER_PARAM_BYTE * gib:.1f} GiB")
+    require(math.isfinite(aux) and aux > 0, f"{name}: aux {aux}")
+    del run, res, xc
+    torch.cuda.empty_cache()
+    print(f"MoE round path (c): {time.perf_counter() - t0:.1f} s")
+    print(f"serve path: qwen3-14b prefill {qs['prefill_ms']:.1f} ms, decode "
+          f"{qs['decode_ms']:.2f} ms a step, {qs['tok_s']:.1f} tokens/s, "
+          f"peak {qs['peak']:.2f} GiB; mixtral-8x22b prefill "
+          f"{ms['prefill_ms']:.1f} ms, decode {ms['decode_ms']:.2f} ms a "
+          f"step, {ms['tok_s']:.1f} tokens/s, peak {ms['peak']:.2f} GiB; "
+          f"path 8 {time.perf_counter() - t_path:.1f} s in all")
+    return launches
+
+
+def phase_small_serve(dev):
+    """Serving on the card against the CPU in f32 (the plain versions
+    there): mixtral-8x22b SMOKE past its window and qwen3-14b SMOKE (qk-
+    norm), both widened to d_head 64 (d_model 128, 2 query heads, 1 kv
+    head), which the flash kernel takes: tokens equal, and the prefill and
+    every decode step's logits within 1e-4 of max(|logits|, 1)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.utils import tree
+    for arch, S, gen in (("mixtral-8x22b", 40, 8), ("qwen3-14b", 24, 8)):
+        cfg = get_config(arch, smoke=True).replace(
+            d_model=128, n_heads=2, n_kv_heads=1, dtype="float32")
+        params = init_params(cfg, torch.Generator().manual_seed(0))
+        toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S))
+        outs = {}
+        for d in ("cpu", dev):
+            p = tree.tree_map(lambda a: a.to(d), params)
+            with torch.inference_mode():
+                lg, cache = prefill(cfg, p, {"tokens": torch.from_numpy(
+                    toks).to(d)}, cache_len=S + gen)
+                logits, out = [lg[:, 0].cpu()], []
+                for i in range(gen):
+                    tok = lg[:, -1].argmax(-1, keepdim=True)
+                    out.append(tok.cpu())
+                    lg, cache = decode_step(cfg, p, tok, cache, S + i)
+                    logits.append(lg[:, 0].cpu())
+            outs[str(d)] = torch.cat(out, 1), torch.stack(logits)
+        (tc, lc), (tg, lg_) = outs["cpu"], outs[str(dev)]
+        err = max_err(lg_, lc)
+        scale = max(float(lc.abs().max()), 1.0)
+        print(f"small f32 serving ({arch} SMOKE, d_head 64, prompt {S}, "
+              f"{gen} tokens), card vs CPU: tokens equal "
+              f"{torch.equal(tc, tg)}, logits max|Δ| {err:.3e} of "
+              f"{scale:.3e}")
+        require(torch.equal(tc, tg) and err <= 1e-4 * scale,
+                f"small serving ({arch}): card and CPU disagree")
+
+
 def profile_round(name: str, fn):
     """One round of a path (``fn``) under torch.profiler: device time by
     kernel, and the device's busy share of the round's wall time."""
@@ -2376,6 +2675,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2387,36 +2687,39 @@ def main() -> int:
     tf = phase_threefry(dev, tf_sass)
     flash_bwd = phase_flash_bwd(dev)
     norm_bwd = phase_rmsnorm_bwd(dev)
+    t_small = time.perf_counter()
     phase_small_round(dev)
     phase_small_fo(dev)
+    phase_small_serve(dev)
+    print(f"small card-vs-CPU cases: {time.perf_counter() - t_small:.1f} s")
     from repro_torch.configs import get_config
-    launches = phase_path(dev, "olmo-1b path", OLMO_ARGV, None,
-                          ("zo_update", "zo_replay", "flash_attention"))
-    torch.cuda.empty_cache()
     qwen = get_config("qwen3-14b").replace(n_layers=QWEN_LAYERS)
-    for k, n in phase_path(dev, f"qwen3-14b path ({QWEN_LAYERS} of 40 "
-                           f"layers)", QWEN_ARGV, qwen,
-                           ("zo_update", "zo_replay", "flash_attention",
-                            "rmsnorm")).items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    for k, n in phase_driver(dev).items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    paper_launches, zo_summary = phase_paper(dev)
-    for k, n in paper_launches.items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    for k, n in phase_fo_paper(dev, zo_summary).items():
-        launches[k] = launches.get(k, 0) + n
-    for k, n in phase_qwen_fo(dev).items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    for k, n in phase_resume(dev).items():
-        launches[k] = launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    for k, n in phase_async(dev).items():
-        launches[k] = launches.get(k, 0) + n
+    paths = [
+        ("path 1", lambda: phase_path(
+            dev, "olmo-1b path", OLMO_ARGV, None,
+            ("zo_update", "zo_replay", "flash_attention"))),
+        ("path 2", lambda: phase_path(
+            dev, f"qwen3-14b path ({QWEN_LAYERS} of 40 layers)", QWEN_ARGV,
+            qwen, ("zo_update", "zo_replay", "flash_attention", "rmsnorm"))),
+        ("path 3", lambda: phase_driver(dev)),
+        ("path 4", lambda: phase_paper(dev)),
+        ("path 5", lambda: [phase_fo_paper(dev, zo_summary),
+                            phase_qwen_fo(dev)]),
+        ("path 6", lambda: phase_resume(dev)),
+        ("path 7", lambda: phase_async(dev)),
+        ("path 8", lambda: phase_serve(dev))]
+    launches, seconds, zo_summary = {}, {}, None
+    for label, fn in paths:
+        t0 = time.perf_counter()
+        counts = fn()
+        if label == "path 4":           # (launches, the ZO runs' summary)
+            counts, zo_summary = counts
+        for n in counts if isinstance(counts, list) else [counts]:
+            for k, v in n.items():
+                launches[k] = launches.get(k, 0) + v
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        torch.cuda.empty_cache()
+    print(f"seconds by path: {seconds}")
     src = "src/repro_torch/kernels/csrc/"
     rows = [("zo_update", src + "zo_update.cu",
              "src/repro/kernels/zo_update.py:79", zo["zo_update"]),
@@ -2439,6 +2742,7 @@ def main() -> int:
     for name, *_ in rows:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was launched on no path")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": r["err"],

@@ -1,16 +1,27 @@
 """Model and algorithm configs (a copy of ``repro.configs.base``).
 
 Frozen dataclasses with the reference's fields and defaults, so a config
-built here compares field for field with its JAX counterpart. The
-sub-configs of other families (MoE, Mamba, xLSTM) are not ported yet;
-their fields stay, typed loosely, and are None for the archs this package
-knows.
+built here compares field for field with its JAX counterpart.
+``MoEConfig`` is copied too (mixtral-8x22b); the sub-configs of the
+families not ported yet (Mamba, xLSTM) keep their fields, typed loosely,
+and are None for the archs this package knows.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import Any, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts block config (GShard-style capacity dispatch)."""
+    n_experts: int
+    top_k: int
+    n_shared: int = 0           # always-on shared experts (DeepSeek-V2)
+    d_expert: int = 0           # expert FFN hidden size (0 -> use model d_ff)
+    capacity_factor: float = 1.25
+    group_size: int = 0         # dispatch group size in tokens (0 -> auto)
 
 
 @dataclass(frozen=True)
@@ -41,8 +52,8 @@ class ModelConfig:
     # --- norms / mlp ---
     norm_type: str = "rmsnorm"  # rmsnorm|layernorm|nonparam_ln
     mlp_type: str = "swiglu"    # swiglu|gelu
-    moe: Optional[Any] = None
-    moe_every: int = 1
+    moe: Optional[MoEConfig] = None
+    moe_every: int = 1          # layer i uses MoE iff i % moe_every == moe_offset
     moe_offset: int = 0
 
     # --- block pattern ---
@@ -77,6 +88,11 @@ class ModelConfig:
     @property
     def n_units(self) -> int:
         return self.n_layers // len(self.block_pattern)
+
+    def layer_uses_moe(self, pos_in_unit: int) -> bool:
+        if self.moe is None:
+            return False
+        return pos_in_unit % self.moe_every == self.moe_offset
 
     def replace(self, **kw) -> "ModelConfig":
         # d_head derives from d_model/n_heads; reset it when they change

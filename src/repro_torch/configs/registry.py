@@ -1,6 +1,7 @@
-"""Architecture registry for the port: ``--arch <id>`` lookup. Only the
-dense attention decoders are ported (LayerNorm and RMSNorm); the other
-families are queued in ROADMAP.md."""
+"""Architecture registry for the port: ``--arch <id>`` lookup. The dense
+attention decoders (LayerNorm and RMSNorm) and the GQA mixture of experts
+(mixtral-8x22b) are ported; the other families are queued in
+ROADMAP.md."""
 from __future__ import annotations
 
 import importlib
@@ -14,6 +15,7 @@ _MODULES: Dict[str, str] = {
     "qwen3-14b": "repro_torch.configs.qwen3_14b",
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
 }
 
 

@@ -54,18 +54,9 @@ def vanilla_splitfed_round(cfg: ModelConfig, sfl: SFLConfig, params: Params,
 
 class GasState(NamedTuple):
     h_buffer: Any       # {"h": (M, B, S, D), "aux": (M,)} last-used
-                        # unperturbed client forwards
+                        # unperturbed client forwards (aux: the client's
+                        # MoE aux loss, 0.0 on a dense model)
     label_buffer: Any   # {"tokens", "labels": (M, B, S)} their batches
-
-
-def _buffered_forward(cfg: ModelConfig, xc: Params, batch) -> Dict[str, Any]:
-    """The client forward as GAS buffers it: the cut activation and, as the
-    reference's client forward returns beside it, the f32 auxiliary loss
-    (the MoE term, 0.0 on the dense models ported), so the state holds the
-    reference's leaves."""
-    out = client_forward(cfg, xc, batch)
-    out["aux"] = torch.zeros((), dtype=torch.float32, device=out["h"].device)
-    return out
 
 
 def _stack(rows):
@@ -77,8 +68,8 @@ def gas_init_state(cfg: ModelConfig, sfl: SFLConfig, params: Params,
                    batches) -> GasState:
     """Fill the buffer with an initial sweep (round 0 everyone is fresh)."""
     xc, _ = split_params(cfg, params, sfl.cut_units)
-    h = _stack([_buffered_forward(cfg, xc,
-                                  {k: v[m] for k, v in batches.items()})
+    h = _stack([client_forward(cfg, xc,
+                               {k: v[m] for k, v in batches.items()})
                 for m in range(sfl.n_clients)])
     return GasState(h_buffer=h, label_buffer=dict(batches))
 
@@ -94,7 +85,7 @@ def _gas_client(cfg: ModelConfig, sfl: SFLConfig, xc: Params, xs: Params,
     ukey = prng.fold_in(mkey, 0)
     skey = prng.fold_in(mkey, 1)
     is_fresh = fresh > 0
-    h_new = _buffered_forward(cfg, xc, b_new)
+    h_new = client_forward(cfg, xc, b_new)
     h = {k: torch.where(is_fresh, h_new[k], h_old[k]) for k in h_new}
     b_used = {k: torch.where(is_fresh, b_new[k], b_old[k]) for k in b_new}
     hp = client_forward(cfg, zo.perturb(xc, ukey, +sfl.zo_eps, dist), b_new)

@@ -1,6 +1,9 @@
-"""Dense decoder LM over stacked-unit parameter dicts."""
-from repro_torch.models.transformer import (client_forward, forward_from_cut,
+"""Decoder LMs (dense and MoE) over stacked-unit parameter dicts, and their
+serving paths."""
+from repro_torch.models.transformer import (client_forward, decode_step,
+                                            forward_from_cut, init_cache,
                                             init_params, logits_fn, loss_fn,
                                             merge_params, param_count,
-                                            server_forward, split_dims,
-                                            split_params, untie_params)
+                                            prefill, server_forward,
+                                            split_dims, split_params,
+                                            untie_params)

@@ -29,14 +29,18 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, shape: Tuple[int, ...], dtype, *,
-               lead: Tuple[int, ...] = ()) -> torch.Tensor:
+               lead: Tuple[int, ...] = (), scale: float | None = None
+               ) -> torch.Tensor:
     """Truncated-normal (±2σ) fan-in init of a ``shape`` weight, stacked
-    over ``lead`` (the unit dim); fan-in is ``shape[0]``."""
-    scale = 1.0 / math.sqrt(max(shape[0], 1))
+    over ``lead`` (the unit dim); fan-in is ``shape[0]`` (an expert
+    weight's is its expert count, as in the reference) unless ``scale`` is
+    given."""
+    if scale is None:
+        scale = 1.0 / math.sqrt(max(shape[0], 1))
     w = torch.empty(lead + tuple(shape), dtype=torch.float32,
                     device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return (w * scale).to(dtype)
+    return w.mul_(scale).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Tuple[int, ...], dtype
@@ -128,3 +132,9 @@ def apply_mlp(cfg: ModelConfig, p, x: torch.Tensor) -> torch.Tensor:
     else:  # jax.nn.gelu defaults to the tanh approximation
         h = F.gelu(x @ p["wi"], approximate="tanh")
     return h @ p["wo"]
+
+
+# the expert-parallel MLP: x (..., E, C, D), weights (E, D, F) / (E, F, D).
+# apply_mlp's matrix products batch over the expert dim, one product per
+# expert (the reference computes the same as XLA einsums)
+apply_mlp_expert = apply_mlp

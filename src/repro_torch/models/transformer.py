@@ -1,26 +1,40 @@
-"""Dense decoder LM and the split-point machinery (counterpart of
-``repro.models.transformer``, dense ``attn`` path).
+"""Decoder LM, the split-point machinery and the serving paths
+(counterpart of ``repro.models.transformer`` for GQA ``attn`` decoders,
+dense or mixture-of-experts).
 
 Parameters are a nested dict of tensors whose per-layer leaves are stacked
 along a leading ``n_units`` dim, as in the reference: the ZO noise is laid
 out over each leaf's elements, so per-layer modules would change the noise.
 The reference's ``lax.scan`` over units is a Python loop over that dim.
 
-Everything here is differentiable with ``torch.autograd`` (the first-order
-baselines take gradients of ``loss_fn``): attention and RMSNorm through
-their kernels' autograd Functions, the bf16 head product on the card
-through ``_LogitsF32``.
+Everything in the training half is differentiable with ``torch.autograd``
+(the first-order baselines take gradients of ``loss_fn``): attention and
+RMSNorm through their kernels' autograd Functions, the bf16 head product
+on the card through ``_LogitsF32``. An MoE block returns its load-balancing
+aux loss beside x; the client's sum rides the cut in ``h["aux"]`` and the
+server adds ``MOE_AUX_COEF`` times the whole sum to its loss.
 
-Batch: {"tokens": (B, S) int, "labels": (B, S) int}.
+Serving (``init_cache``, ``prefill``, ``decode_step``) keeps one
+(n_units, B, Hkv, Sc, dh) k and v cache a block position, Sc the sequence
+length or, with a sliding window shorter than it, the window (a ring:
+position t lives in slot t mod Sc). ``decode_step`` writes the new token's
+k and v into the cache in place. Prefill attends through the flash kernel
+(with the window where the prompt exceeds it; the reference's banded form
+``_banded_swa`` computes the same and is not ported), and keeps the k and v
+it computed for the cache.
+
+Batch: {"tokens": (B, S) int, "labels": (B, S) int}; decode: a (B, 1)
+token.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        embed_init, init_mlp, init_norm,
                                        torch_dtype)
@@ -28,13 +42,17 @@ from repro_torch.utils import tree
 
 Params = Dict[str, Any]
 
+MOE_AUX_COEF = 0.01
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if (cfg.block_pattern != ("attn",) or cfg.moe is not None
+
+def _require_ported(cfg: ModelConfig) -> None:
+    """Admit the GQA ``("attn",)`` decoders, dense or MoE."""
+    if (cfg.block_pattern != ("attn",) or cfg.attn_impl != "gqa"
             or cfg.is_encoder_decoder or cfg.n_image_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense attn decoder is ported (ROADMAP.md, "
-            f"queue 1, item 6)")
+            f"{cfg.name}: only the GQA attn decoders (dense or MoE) are "
+            f"ported; MLA, SSM, cross-attention and encoder-decoder models "
+            f"follow (ROADMAP.md, queue 1, item 6)")
 
 
 # ===========================================================================
@@ -44,14 +62,16 @@ def _require_dense(cfg: ModelConfig) -> None:
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters on ``gen.device``, with the reference's shapes,
     dtypes and init scales."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     dtype = torch_dtype(cfg)
     lead = (cfg.n_units,)
     block = {"norm1": init_norm(cfg, cfg.d_model, gen.device, lead),
              "core": attn.init_attn(cfg, gen, lead)}
-    if cfg.d_ff > 0:
+    if cfg.d_ff > 0 or cfg.moe is not None:
         block["norm2"] = init_norm(cfg, cfg.d_model, gen.device, lead)
-        block["ffn"] = init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, lead)
+        block["ffn"] = (moe_lib.init_moe(cfg, gen, lead)
+                        if cfg.layer_uses_moe(0)
+                        else init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, lead))
     params: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
         "units": {"b0": block},
@@ -89,13 +109,28 @@ def split_dims(cfg: ModelConfig, cut_units: int) -> Tuple[int, int]:
 # blocks
 # ===========================================================================
 
+def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor):
+    """The block's feed-forward on norm2(x): (y, aux) for an MoE block,
+    (y, None) for an MLP."""
+    h = apply_norm(cfg, p["norm2"], x)
+    if "router" in p["ffn"]:
+        return moe_lib.apply_moe(cfg, p["ffn"], h)
+    return apply_mlp(cfg, p["ffn"], h), None
+
+
 def _apply_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                 positions: torch.Tensor, *, causal: bool) -> torch.Tensor:
+                 positions: torch.Tensor, *, causal: bool):
+    """One block, full sequence: (x, aux or None)."""
     h = apply_norm(cfg, p["norm1"], x)
     x = x + attn.gqa_attention(cfg, p["core"], h, positions, causal=causal)
-    if "ffn" in p:
-        x = x + apply_mlp(cfg, p["ffn"], apply_norm(cfg, p["norm2"], x))
-    return x
+    if "ffn" not in p:
+        return x, None
+    y, aux = _ffn(cfg, p, x)
+    return x + y, aux
+
+
+def _add(a: Optional[torch.Tensor], b: Optional[torch.Tensor]):
+    return b if a is None else a if b is None else a + b
 
 
 def _unbind_units(units: Params):
@@ -109,14 +144,16 @@ def _unbind_units(units: Params):
 
 
 def _unit_scan(cfg: ModelConfig, units, x: torch.Tensor,
-               positions: torch.Tensor, *, causal: bool = True
-               ) -> torch.Tensor:
-    """Apply the units in order: a stacked tree or a list of unit trees."""
+               positions: torch.Tensor, *, causal: bool = True):
+    """Apply the units in order (a stacked tree or a list of unit trees):
+    (x, the summed aux of the MoE blocks, None if there is none)."""
     if isinstance(units, dict):
         units = _unbind_units(units)
+    aux = None
     for unit in units:
-        x = _apply_block(cfg, unit["b0"], x, positions, causal=causal)
-    return x
+        x, a = _apply_block(cfg, unit["b0"], x, positions, causal=causal)
+        aux = _add(aux, a)
+    return x, aux
 
 
 # ===========================================================================
@@ -161,48 +198,61 @@ def _positions(batch_size: int, seq: int, device) -> torch.Tensor:
 
 
 def client_forward(cfg: ModelConfig, client: Params, batch) -> Dict:
-    """Client prefix -> the cut-layer activation {"h": (B, S, D)}."""
+    """Client prefix -> the cut-layer activation {"h": (B, S, D), "aux":
+    the client's MoE aux loss, f32 (0.0 for a dense model)}."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = client["embed"][tokens]
-    x = _unit_scan(cfg, client["units"], x,
-                   _positions(B, S, tokens.device), causal=True)
-    return {"h": x}
+    x, aux = _unit_scan(cfg, client["units"], x,
+                        _positions(B, S, tokens.device), causal=True)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return {"h": x, "aux": aux}
 
 
 def server_forward(cfg: ModelConfig, server: Params, h: Dict, batch
                    ) -> torch.Tensor:
-    """Server suffix from the cut activation -> scalar loss (f32)."""
+    """Server suffix from the cut activation -> scalar loss (f32), plus
+    ``MOE_AUX_COEF`` times the client's and the server's aux for an MoE
+    model."""
     x = h["h"]
     B, S, _ = x.shape
-    x = _unit_scan(cfg, server["units"], x, _positions(B, S, x.device),
-                   causal=True)
+    x, aux = _unit_scan(cfg, server["units"], x, _positions(B, S, x.device),
+                        causal=True)
     x = apply_norm(cfg, server["final_norm"], x)
-    return _chunked_ce(x, server["lm_head"], batch["labels"])
+    loss = _chunked_ce(x, server["lm_head"], batch["labels"])
+    return _with_aux(cfg, loss, _add(h.get("aux"), aux))
+
+
+def _with_aux(cfg: ModelConfig, loss: torch.Tensor, aux) -> torch.Tensor:
+    """loss + MOE_AUX_COEF·aux for an MoE model; a dense model's aux is
+    0.0 and its loss is returned as it is."""
+    if cfg.moe is None or aux is None:
+        return loss
+    return loss + MOE_AUX_COEF * aux
 
 
 def _check_cut(cfg: ModelConfig, cut_units: int) -> None:
-    _require_dense(cfg)
+    _require_ported(cfg)
     if not 1 <= cut_units <= cfg.n_units:
         raise ValueError(f"cut_units={cut_units} outside [1, {cfg.n_units}]")
 
 
-def _final_hidden(cfg: ModelConfig, params: Params, batch, cut_units: int
-                  ) -> torch.Tensor:
-    """The final norm's output (B, S, D): the client's units [:cut], then
-    the server's [cut:], as ``split_params`` would give them, but from
-    one unbind of each leaf, so a backward stacks each leaf's gradient
-    once (``split_params``' two slices would each fill a zero gradient
-    of the whole leaf)."""
+def _final_hidden(cfg: ModelConfig, params: Params, batch, cut_units: int):
+    """(the final norm's output (B, S, D), the summed aux or None): the
+    client's units [:cut], then the server's [cut:], as ``split_params``
+    would give them, but from one unbind of each leaf, so a backward stacks
+    each leaf's gradient once (``split_params``' two slices would each fill
+    a zero gradient of the whole leaf)."""
     _check_cut(cfg, cut_units)
     units = _unbind_units(params["units"])
     tokens = batch["tokens"]
     B, S = tokens.shape
     pos = _positions(B, S, tokens.device)
     x = params["embed"][tokens]
-    x = _unit_scan(cfg, units[:cut_units], x, pos, causal=True)
-    x = _unit_scan(cfg, units[cut_units:], x, pos, causal=True)
-    return apply_norm(cfg, params["final_norm"], x)
+    x, aux_c = _unit_scan(cfg, units[:cut_units], x, pos, causal=True)
+    x, aux_s = _unit_scan(cfg, units[cut_units:], x, pos, causal=True)
+    return apply_norm(cfg, params["final_norm"], x), _add(aux_c, aux_s)
 
 
 def _head(params: Params) -> torch.Tensor:
@@ -213,8 +263,9 @@ def _head(params: Params) -> torch.Tensor:
 def forward_from_cut(cfg: ModelConfig, params: Params, batch, cut_units: int
                      ) -> torch.Tensor:
     """Full loss via client/server composition (cut-invariant)."""
-    return _chunked_ce(_final_hidden(cfg, params, batch, cut_units),
-                       _head(params), batch["labels"])
+    x, aux = _final_hidden(cfg, params, batch, cut_units)
+    return _with_aux(cfg, _chunked_ce(x, _head(params), batch["labels"]),
+                     aux)
 
 
 def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
@@ -222,9 +273,9 @@ def loss_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
 
 
 def logits_fn(cfg: ModelConfig, params: Params, batch) -> torch.Tensor:
-    """Full-sequence logits (B, S, V) in the model's type (small configs and
-    the sentiment accuracy's last-position logits)."""
-    x = _final_hidden(cfg, params, batch, cfg.default_cut_units)
+    """Full-sequence logits (B, S, V) in the model's type (small configs,
+    the sentiment accuracy's last-position logits, and serving's check)."""
+    x, _ = _final_hidden(cfg, params, batch, cfg.default_cut_units)
     return x @ _head(params)
 
 
@@ -275,3 +326,89 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
         tot = tot + ((logz - gold) * mask).sum()
         cnt = cnt + mask.sum()
     return tot / cnt.clamp(min=1.0)
+
+
+# ===========================================================================
+# serving: cache init / prefill / decode
+# ===========================================================================
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+               device="cuda") -> Params:
+    """{"b0": {"k", "v"}}: zeros (n_units, B, Hkv, Sc, dh) in the model
+    type on ``device``; Sc = ``attention.gqa_cache_len``."""
+    _require_ported(cfg)
+    return {"b0": attn.gqa_init_cache(cfg, batch, seq_len, (cfg.n_units,),
+                                      device)}
+
+
+def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
+                cache: Params, pos: int):
+    """One-token decode. token: (B, 1) int; pos: the token's absolute
+    position. Writes the token's k and v into ``cache`` (in place) and
+    returns (logits (B, 1, V) in the model type, cache)."""
+    _require_ported(cfg)
+    x = params["embed"][token]
+    for u, unit in enumerate(_unbind_units(params["units"])):
+        p = unit["b0"]
+        y, _ = attn.gqa_decode(cfg, p["core"],
+                               apply_norm(cfg, p["norm1"], x),
+                               {k: c[u] for k, c in cache["b0"].items()},
+                               pos)
+        x = x + y
+        if "ffn" in p:
+            x = x + _ffn(cfg, p, x)[0]
+    x = apply_norm(cfg, params["final_norm"], x)
+    return x @ _head(params), cache
+
+
+def _right_pad(a: torch.Tensor, target: int, axis: int) -> torch.Tensor:
+    pad = target - a.shape[axis]
+    if pad <= 0:
+        return a
+    shape = list(a.shape)
+    shape[axis] = pad
+    return torch.cat([a, a.new_zeros(shape)], dim=axis)
+
+
+def _prefill_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   positions: torch.Tensor, seq_len: int):
+    """One block over the prompt that also fills its decode cache: (x,
+    {"k", "v"} (B, Hkv, Sc, dh)). The cache holds the k and v the
+    attention used; with Sc < S (a window shorter than the prompt) the last
+    Sc positions, each in its ring slot."""
+    B, S, _ = x.shape
+    q, k, v = attn.qkv(cfg, p["core"], apply_norm(cfg, p["norm1"], x),
+                       positions)
+    x = x + attn.attend(cfg, p["core"], q, k, v, causal=True)
+    Sc = attn.gqa_cache_len(cfg, max(seq_len, S))
+    if Sc < S:
+        keep = torch.arange(S - Sc, S, device=x.device)
+        slots = keep % Sc
+        ck = k.new_zeros((B, cfg.n_kv_heads, Sc, cfg.d_head))
+        cv = torch.zeros_like(ck)
+        ck[:, :, slots] = k[:, :, keep]
+        cv[:, :, slots] = v[:, :, keep]
+    else:
+        ck, cv = _right_pad(k, Sc, 2), _right_pad(v, Sc, 2)
+    if "ffn" in p:
+        x = x + _ffn(cfg, p, x)[0]
+    return x, {"k": ck, "v": cv}
+
+
+def prefill(cfg: ModelConfig, params: Params, batch, *, cache_len: int = 0):
+    """Run the prompt, building the decode cache for ``max(cache_len, S)``
+    positions. Returns (logits of the last position (B, 1, V), cache)."""
+    _require_ported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    seq_len = max(cache_len, S)
+    x = params["embed"][tokens]
+    pos = _positions(B, S, tokens.device)
+    ks, vs = [], []
+    for unit in _unbind_units(params["units"]):
+        x, c = _prefill_block(cfg, unit["b0"], x, pos, seq_len)
+        ks.append(c["k"])
+        vs.append(c["v"])
+    x = apply_norm(cfg, params["final_norm"], x[:, -1:].contiguous())
+    return x @ _head(params), {"b0": {"k": torch.stack(ks),
+                                      "v": torch.stack(vs)}}

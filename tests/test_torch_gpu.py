@@ -22,7 +22,9 @@ magnitude (sums run in another order), bf16 within one bf16 ulp of it
 also rounds P and dS to enter the tensor cores, which
 tests/test_torch_flash_bwd.py emulates on the CPU); the forward's lse
 within 1e-5 relative. Two bf16 flash backward launches are bit-equal. Small f32 FedAvg (SGD, AdamW) and FedLoRA rounds,
-card against CPU, within 1e-4.
+card against CPU, within 1e-4. The MoE block (mixtral-8x22b SMOKE, f32)
+card against CPU: routing equal, the output within 1e-5 of its largest
+magnitude; SMOKE serving in f32: tokens equal, logits within 1e-4.
 """
 import numpy as np
 import pytest
@@ -748,3 +750,67 @@ def test_store_scatter_and_gather_on_the_card(cuda):
         c = cpu[k] if isinstance(cpu[k], np.ndarray) else cpu[k]
         assert np.array_equal(np.asarray(g), np.asarray(c)), k
         assert np.array_equal(np.asarray(g)[2], want[4]), k
+
+
+def test_apply_moe_card_matches_cpu(cuda):
+    """mixtral-8x22b SMOKE's MoE block in f32 (4 experts top-2, capacity
+    1.25, tokens dropped) on the card against the CPU: expert indices and
+    kept mask equal (the router product in full f32 on both), the aux
+    within 1e-6 and the output within 1e-5 of its largest magnitude (the
+    expert products, in another order on the card, reach |y| ~ 10^2)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, moe
+    from repro_torch.utils import tree
+    cfg = get_config("mixtral-8x22b", smoke=True).replace(dtype="float32")
+    p = tree.tree_map(lambda a: a[0], init_params(
+        cfg, torch.Generator().manual_seed(0))["units"]["b0"]["ffn"])
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy((rng.standard_normal((2, 64, 64))
+                          + 1.5 * rng.standard_normal(64)).astype(np.float32))
+    outs = []
+    for d in ("cpu", cuda):
+        pd = tree.tree_map(lambda a: a.to(d), p)
+        xd = x.to(d)
+        _, idx, _ = moe.route(cfg, pd, xd)
+        _, kept = moe.dispatch_slots(idx, 4, moe.capacity(cfg, 64))
+        out, aux = moe.apply_moe(cfg, pd, xd)
+        outs.append((idx.cpu(), kept.cpu(), out.cpu(), float(aux)))
+    (i0, k0, o0, a0), (i1, k1, o1, a1) = outs
+    assert torch.equal(i0, i1) and torch.equal(k0, k1)
+    assert not bool(k0.all())
+    assert abs(a0 - a1) <= 1e-6
+    assert float((o1 - o0).abs().max()) <= 1e-5 * float(o0.abs().max())
+
+
+@pytest.mark.parametrize("arch,S", [("mixtral-8x22b", 40), ("qwen3-14b", 24)])
+def test_serving_card_matches_cpu(cuda, arch, S):
+    """SMOKE serving in f32, widened to d_head 64 (d_model 128, 2 query
+    heads, 1 kv head) for the flash kernel: ``serve.generate`` of 8 greedy
+    tokens (mixtral past its window of 32) on the card against the CPU,
+    tokens equal and the full forward over prompt and tokens within 1e-4
+    of max(|logits|, 1); the card's request launches flash and rmsnorm."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, logits_fn
+    from repro_torch.utils import tree
+    cfg = get_config(arch, smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=1, dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, S)))
+    outs = []
+    for d in ("cpu", cuda):
+        p = tree.tree_map(lambda a: a.to(d), params)
+        before = dict(build.LAUNCHES)
+        out = serve.generate(cfg, p, {"tokens": toks.to(d)}, S, 8)
+        n = {k: build.LAUNCHES[k] - before.get(k, 0)
+             for k in ("flash_attention", "rmsnorm")}
+        with torch.inference_mode():
+            full = logits_fn(cfg, p, {"tokens": torch.cat([toks.to(d), out],
+                                                          1)})
+        outs.append((out.cpu(), full.cpu(), n))
+    (t0, l0, _), (t1, l1, n) = outs
+    assert torch.equal(t0, t1)
+    assert float((l1 - l0).abs().max()) <= \
+        1e-4 * max(float(l0.abs().max()), 1.0)
+    assert n["flash_attention"] > 0 and n["rmsnorm"] > 0

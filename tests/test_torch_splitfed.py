@@ -195,8 +195,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.optim.schedules", "repro_torch.optim.lora",
             "repro_torch.ckpt.checkpoint", "repro_torch.core.events",
             "repro_torch.core.faults", "repro_torch.data.loader",
-            "repro_torch.launch.train"} <= set(mods)
-    assert len(mods) >= 34
+            "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.models.moe",
+            "repro_torch.configs.mixtral_8x22b"} <= set(mods)
+    assert len(mods) >= 37
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
