@@ -23,7 +23,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   3. each kernel against its plain version on the card: max |Δ|, kernel
      ms, plain ms (and the library call's ms where one PyTorch call
      computes the same function), at a set of parity shapes and at the
-     shapes of the paths below; the counter noise u bit-equal to the plain
+     shapes of the paths below (the flash kernel's MLA pair (192, 128) in
+     f32 and bf16 at path 9's round and prefill shapes, and rmsnorm at
+     path 9's kv_norm and q_norm widths); the counter
+     noise u bit-equal to the plain
      version's, and both Box-Muller factors bit-equal over all 2^32 hash
      values to libdevice's and to the plain version's torch ops
      (zo_update.noise_exhaustive_check); the threefry bits, gaussian and
@@ -42,9 +45,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
-     olmo-1b and on mixtral-8x22b SMOKE widened to d_head 64; FedAvg with
-     SGD and AdamW, FedLoRA) and small f32 serving (mixtral-8x22b past its
-     window, qwen3-14b), then the seven training paths through the
+     olmo-1b, and MU-SplitFed and GAS on mixtral-8x22b SMOKE widened to
+     d_head 64 and on deepseek-v2-236b SMOKE widened to MLA's (192, 128);
+     FedAvg with SGD and AdamW, FedLoRA) and small f32 serving
+     (mixtral-8x22b past its window, qwen3-14b, deepseek-v2-236b), then
+     the seven training paths through the
      training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
      kernel launch counter set to 0 just before and read just after, and
@@ -53,12 +58,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
        - olmo-1b at its full config (LayerNorm; no rmsnorm), counter
          noise, full participation, 3 rounds, one a chunk;
        - qwen3-14b at its full published width (RMSNorm, qk-norm, GQA
-         40/8), its depth cut to 8 of 40 layers, as the first. A ZO
-         round holds about 3.9x the parameter bytes (olmo-1b: 9.18 GiB
-         for 1.28 B parameters), so the full 14.8 B model (27.5 GiB in
-         bf16) would need about 106 GiB; 8 layers are 4.20 B
+         40/8), its depth cut to 8 of 40 layers, as the first. A dense
+         model's ZO round holds about 3.9x the parameter bytes (olmo-1b:
+         9.18 GiB for 1.28 B parameters), so the full 14.8 B model (27.5
+         GiB in bf16) would need about 106 GiB; 8 layers are 4.20 B
          parameters (16 until path 7 joined, to keep this script's run
-         near 600 s);
+         near 600 s). An MoE round holds less beside its experts, whose
+         activations are few: mixtral-8x22b at 3 layers measured 43.54
+         GiB for 14.74 GiB of parameters, 2.95x
+         (MOE_ROUND_BYTES_PER_PARAM_BYTE);
        - the reference driver's default run: olmo-1b at its full config
          with its default threefry gaussian noise and dense aggregation,
          4 rounds in chunks of 2, on a straggler
@@ -109,8 +117,17 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      logits_fn (bf16, PREFILL_TOL and DECODE_TOL); (c) one MU-SplitFed
      round of (b)'s model through the driver (counter noise, seed replay,
      M=2, tau=2, seq 512) with its peak memory against the reckoning;
+     and path 9, MLA and deepseek-v2-236b (``phase_mla``): (a) serving at
+     full width, 3 of 60 layers (MLA through the flash kernel at head
+     dims (192, 128), the compressed-cache decode, 160 experts top-6 and
+     2 shared), a 4096-token prompt and 16 new tokens in bf16, then a
+     512-token prompt and 8 tokens in f32 at capacity factor 160/6, each
+     decode step held against logits_fn; (b) one MU-SplitFed round of
+     (a)'s model through the driver, as path 8 (c);
   5. one JSON line with every kernel's numbers (launches summed over the
-     paths), then the result line.
+     paths; the flash row carries its MLA instance's numbers under
+     "mla", with the launches the wrapper counted at the (192, 128)
+     pair), then the result line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
 noise kernels at the path leaves, with the SM clock read by nvidia-smi
@@ -380,27 +397,36 @@ def phase_build():
     report_ptxas(ptxas_out["flash_attention.cu"])
     report_ptxas_bwd(ptxas_out["flash_attention_bwd.cu"])
     lib = build.library()
-    for d in (64, 128):
-        print(f"flash_fwd_bf16_kernel<{d}>: dynamic shared memory "
-              f"{lib.flash_attention_smem_bytes(d, 1)} bytes, "
-              f"{lib.flash_attention_blocks_per_sm(d, 1)} blocks per SM")
+    for d, dv in FLASH_PAIRS:
+        print(f"flash_fwd_bf16_kernel<{d}, {dv}>: dynamic shared memory "
+              f"{lib.flash_attention_smem_bytes(d, dv, 1)} bytes, "
+              f"{lib.flash_attention_blocks_per_sm(d, dv, 1)} blocks per SM; "
+              f"f32 flash_fwd_kernel<{d}, {dv}>: "
+              f"{lib.flash_attention_smem_bytes(d, dv, 0)} bytes, "
+              f"{lib.flash_attention_blocks_per_sm(d, dv, 0)} blocks per SM")
     check_sass(build.compile_library())
     return (zo_sass_report(build.compile_library(), ptxas_out["zo_update.cu"]),
             threefry_sass_report(build.compile_library(),
                                  ptxas_out["threefry.cu"]))
 
 
-FLASH_KERNEL = re.compile(r"(flash_fwd(?:_bf16)?_kernel)ILi(\d+)E")
+# the forward kernels' (d_qk, d_v) template pairs: the GQA models' and MLA's
+FLASH_PAIRS = ((64, 64), (128, 128), (192, 128))
+FLASH_KERNEL = re.compile(r"(flash_fwd(?:_bf16)?_kernel)ILi(\d+)ELi(\d+)E")
+
+
+def flash_name(m) -> str:
+    return f"{m.group(1)}<{m.group(2)}, {m.group(3)}>"
 
 
 def report_ptxas(out: str) -> None:
     """Print ptxas's lines for each flash kernel; the bf16 kernels (the
-    tensor-core ones, on both paths) must not spill."""
+    tensor-core ones, on every path) must not spill."""
     name, seen = None, set()
     for line in out.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             m = FLASH_KERNEL.search(line)
-            name = f"{m.group(1)}<{m.group(2)}>" if m else None
+            name = flash_name(m) if m else None
             continue
         if name is None or not line.strip():
             continue
@@ -411,8 +437,8 @@ def report_ptxas(out: str) -> None:
             seen.add(name)
             require(spills.groups() == ("0", "0"),
                     f"{name} spills registers: {line.strip()}")
-    require(seen == {"flash_fwd_bf16_kernel<64>",
-                     "flash_fwd_bf16_kernel<128>"},
+    require(seen == {f"flash_fwd_bf16_kernel<{d}, {dv}>"
+                     for d, dv in FLASH_PAIRS},
             f"ptxas -v reported no spill line for the bf16 flash kernels "
             f"(found {sorted(seen)})")
 
@@ -422,10 +448,11 @@ def report_ptxas(out: str) -> None:
 BWD_KERNEL = re.compile(r"(flash_bwd_(?:delta|dkdv|dq)(?:_bf16)?_kernel)"
                         r"ILi(\d+)E|(flash_bwd_dkdv_sum_kernel)")
 BWD_KERNELS = 13
-# the bf16 flash kernels that must run on the tensor cores (HMMA in SASS)
+# the bf16 flash kernels that must run on the tensor cores (HMMA in SASS):
+# the forward's three (d_qk, d_v) pairs, the backward's two head dims
 TC_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dkdv|bwd_dq)_bf16_kernel)"
-                       r"ILi(\d+)E")
-TC_KERNELS = 6
+                       r"ILi(\d+)E(?:Li(\d+)E)?")
+TC_KERNELS = 7
 
 
 def bwd_name(m) -> str:
@@ -470,7 +497,9 @@ def check_sass(lib: Path) -> None:
     for section in sass.split("Function : ")[1:]:
         m = TC_KERNEL.search(section.split("\n", 1)[0])
         if m:
-            counts[f"{m.group(1)}<{m.group(2)}>"] = section.count("HMMA")
+            name = (flash_name(m) if m.group(3)
+                    else f"{m.group(1)}<{m.group(2)}>")
+            counts[name] = section.count("HMMA")
     print(f"SASS ({tool.name} -sass): HMMA instructions {counts}")
     require(len(counts) == TC_KERNELS and min(counts.values()) > 0,
             f"no HMMA in the SASS of some bf16 flash kernel: {counts}")
@@ -1053,7 +1082,9 @@ def phase_threefry(dev, tf_sass) -> dict:
 def phase_rmsnorm(dev) -> dict:
     """The rmsnorm kernel against its plain version at the qwen3-14b
     path's shapes (the block norms' rows of 5120, the qk-norm's rows of
-    128 over 40 query and 8 kv heads), f32 and bf16, and at row counts and
+    128 over 40 query and 8 kv heads), f32 and bf16, at path 8's and path 9's
+    (mixtral's 6144, deepseek-v2-236b's kv_norm of 512 and q_norm of 1536
+    in prefill, the round and decode), and at row counts and
     widths that take the kernel's other branches: a row count that is no
     multiple of the 16 rows of a block of half-warp rows, and widths that are no
     multiple of a 16-byte load. F.rms_norm is timed beside it as the
@@ -1076,6 +1107,16 @@ def phase_rmsnorm(dev) -> dict:
              ("mixtral-8x22b prefill block norm (path 8)", (1, 4160, 6144),
               bf16),
              ("qwen3-14b decode block norm (path 8)", (4, 1, 5120), bf16)]
+    # path 9's MLA norms: kv_norm on the 512-wide latent (32 lanes a row,
+    # in bf16 the only case of that instance), q_norm on the 1536-wide q
+    # latent (a block a row), over prefill's and the round's rows and a
+    # decode row, bf16, and f32 as the f32 serving check runs them
+    for label, rows, dtype in (("prefill", 4096, bf16), ("round", 512, bf16),
+                               ("decode", 1, bf16), ("f32 check", 512, f32),
+                               ("f32 decode", 1, f32)):
+        for norm, D in (("kv_norm", 512), ("q_norm", 1536)):
+            cases.append((f"deepseek-v2-236b {norm} {label} (path 9)",
+                          (1, rows, D), dtype))
     res = {"err": 0.0}
     for name, shape, dtype in cases:
         D = shape[-1]
@@ -1218,6 +1259,77 @@ def phase_flash(dev) -> dict:
         print(line + f"  event-timed loop (host-paced) {paced_ms:.4f} ms "
               f"a call")
         del sets
+    return res
+
+
+# path 9's MLA attention shapes (B, H, S): the ZO round's sequence and the
+# serving prompt; q and k 192 wide (128 nope + 64 rope), v and o 128
+MLA_FLASH_SHAPES = (("round", (1, 128, 512)), ("prefill", (1, 128, 4096)))
+
+
+def top_kernel(by_kernel: dict) -> str:
+    """The name of the kernel that took the most device time."""
+    return max(by_kernel, key=by_kernel.get)[:80] if by_kernel else "none"
+
+
+def phase_flash_mla(dev) -> dict:
+    """The flash kernel at MLA's head dims (d_qk, d_v) = (192, 128), H =
+    Hkv = 128, causal, f32 and bf16, at MLA_FLASH_SHAPES, against its plain
+    version (bf16 within one bf16 ulp, f32 within 1e-5), with v a strided
+    view of a (B, S, H, 256) tensor as the model passes it, and
+    scaled_dot_product_attention (q and k 192 wide, v 128) timed beside it,
+    the backend it took named by its busiest kernel. Bounds: bytes of q,
+    k, v and o at 3.35 TB/s against (2·192 + 2·128) operations a causal
+    pair at the bf16 tensor-core peak (f32: the f32 CUDA-core peak; the
+    f32 kernel is scalar). Returns the bf16 round shape's numbers for the
+    JSON line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=dev).manual_seed(9)
+    res = {"err": 0.0}
+    for dtype, peak in ((torch.bfloat16, "bf16_tensor"),
+                        (torch.float32, "f32_core")):
+        for label, (B, H, S) in MLA_FLASH_SHAPES:
+            q, k = (torch.randn(B, H, S, 192, generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            kv = torch.randn(B, S, H, 256, generator=gen, device=dev).to(
+                dtype)
+            v = kv[..., 128:].transpose(1, 2)
+            name = f"flash MLA {label} (192, 128) {str(dtype)[6:]} " \
+                   f"({B},{H},{S})"
+            got = flash_attention(q, k, v, causal=True)
+            want = ref.flash_attention_ref(q, k, v, True, 0)
+            err = check_close(name, got, want, 1e-5)
+            del got, want
+            nbytes = q.element_size() * B * H * S * (2 * 192 + 2 * 128)
+            sets = [(q, k, v)] + [
+                (q.clone(), k.clone(), kv.clone()[..., 128:].transpose(1, 2))
+                for _ in range(L2_BYTES // nbytes + 1)]
+            ms = device_ms(lambda t: flash_attention(*t, causal=True), sets,
+                           20)
+            plain_ms = device_ms(lambda t: ref.flash_attention_ref(
+                *t, True, 0), sets, 3)
+            backend = {}
+            lib_ms = device_ms(lambda t: F.scaled_dot_product_attention(
+                *t, is_causal=True), sets, 20, by_kernel=backend)
+            require(min(ms, plain_ms, lib_ms) > 0,
+                    f"{name}: the profiler recorded no device time")
+            b_ms, b_by = bound(nbytes, (2 * 192 + 2 * 128) * B * H
+                               * flash_pairs(S, True, 0), peak)
+            print(f"{name}: max|Δ| {err:.3e}  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  library (scaled_dot_product_attention"
+                  f", {top_kernel(backend)}) {lib_ms:.4f} ms  bound "
+                  f"{b_ms:.4f} ms ({b_by})")
+            if dtype == torch.bfloat16:
+                res["err"] = max(res["err"], err)
+                if label == "round":
+                    res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               bound_ms=b_ms, bound_by=b_by,
+                               shape=f"({B},{H},{S},192/128) bf16 causal, "
+                                     f"v a strided view")
+            del sets, q, k, v, kv
+            torch.cuda.empty_cache()
     return res
 
 
@@ -1461,27 +1573,27 @@ def small_round(algorithm, cfg, sfl, params, batch, mask, key, aggregation):
 
 
 def phase_small_round(dev):
-    """One round of a small f32 model (d_head 64) on the card against the
-    same round on the CPU, where the plain versions run, for each
-    algorithm, noise and aggregation in SMALL_ROUNDS (GAS with a stale
-    client: its buffer, the MoE aux with it, too, an MoE buffer within 1e-4
-    of its largest magnitude): olmo-1b SMOKE, and
-    mixtral-8x22b SMOKE (4 experts top-2, window 32 under 64 tokens) for
-    MOE_SMALL_ROUNDS, each widened to d_model 128 with 2 query heads
-    (mixtral: 1 kv head)."""
+    """One round of a small f32 model on the card against the same round
+    on the CPU, where the plain versions run, for each algorithm, noise
+    and aggregation in SMALL_ROUNDS (GAS with a stale client: its buffer,
+    the MoE aux with it, too, an MoE buffer within 1e-4 of its largest
+    magnitude): olmo-1b SMOKE, and for MOE_SMALL_ROUNDS mixtral-8x22b
+    SMOKE (4 experts top-2, window 32 under 64 tokens) and deepseek-v2-236b
+    SMOKE (MLA, 8 experts top-2 and 1 shared), each as
+    ``configs.card_smoke_config`` widens it."""
     for arch, kv, cases in (("olmo-1b", 2, SMALL_ROUNDS),
-                            ("mixtral-8x22b", 1, MOE_SMALL_ROUNDS)):
+                            ("mixtral-8x22b", 1, MOE_SMALL_ROUNDS),
+                            ("deepseek-v2-236b", 2, MOE_SMALL_ROUNDS)):
         small_rounds(dev, arch, kv, cases)
 
 
 def small_rounds(dev, arch: str, n_kv_heads: int, cases):
     import numpy as np
-    from repro_torch.configs import SFLConfig, get_config
+    from repro_torch.configs import SFLConfig, card_smoke_config
     from repro_torch.core import prng
     from repro_torch.models import init_params, untie_params
     from repro_torch.utils import tree
-    cfg = get_config(arch, smoke=True).replace(
-        d_model=128, n_heads=2, n_kv_heads=n_kv_heads, dtype="float32")
+    cfg = card_smoke_config(arch, n_kv_heads)
     params = untie_params(cfg, init_params(
         cfg, torch.Generator().manual_seed(0)))
     toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
@@ -1641,18 +1753,23 @@ def drive(dev, name: str, run, sfl, kernels, frozen: bool = False,
         require(moved == 0, f"{name}: frozen parameters changed")
     else:
         require(moved > 0, f"{name}: parameters did not change")
-    if not profile:
-        return res, ctl, launches, chunks
-    tau = int(res.tau_per_round[-1])
+    if profile:
+        profile_one_round(name, run._replace(params=res.params), sfl,
+                          int(res.tau_per_round[-1]))
+    return res, ctl, launches, chunks
+
+
+def profile_one_round(name: str, run, sfl, tau: int) -> None:
+    """One more round of ``run`` (from its parameters) at ``tau`` under the
+    profiler, without the run's telemetry, log, trace or checkpoints."""
+    from repro_torch.launch import train
     one = run._replace(
         args=argparse.Namespace(**{**vars(run.args), "rounds": 1,
                                    "adaptive_tau": False, "tau_source": "sim",
                                    "telemetry": False, "log_jsonl": "",
-                                   "trace_out": "", "ckpt_dir": ""}),
-        params=res.params)
+                                   "trace_out": "", "ckpt_dir": ""}))
     profile_round(f"{name}, one round at tau {tau}", lambda: train.run_engine(
         one, sfl=dataclasses.replace(sfl, tau=tau), log=None))
-    return res, ctl, launches, chunks
 
 
 def phase_path(dev, name: str, argv, cfg, kernels) -> dict:
@@ -2390,8 +2507,9 @@ MIXTRAL_LAYERS = 3
 MIXTRAL_ARGV = ["--arch", "mixtral-8x22b", "--clients", "2", "--tau", "2",
                 "--batch", "1", "--seq", "512", "--rounds", "1",
                 "--chunk-size", "1", "--aggregation", "seed_replay"]
-# a ZO round holds about 3.9x the parameter bytes (module docstring)
-ZO_ROUND_BYTES_PER_PARAM_BYTE = 3.9
+# an MoE model's ZO round holds about 2.95x its parameter bytes (module
+# docstring; a dense model's about 3.9x)
+MOE_ROUND_BYTES_PER_PARAM_BYTE = 2.95
 # bf16 tolerances of path 8, relative to the largest |logit| of the full
 # forward: prefill's last position against logits_fn on the prompt (the
 # same computation but the head product's shape: a few bf16 ulps), and a
@@ -2511,14 +2629,10 @@ def phase_serve(dev) -> dict:
          4176);
       c. one MU-SplitFed round of (b)'s model through the driver
          (``MIXTRAL_ARGV``: counter noise, seed replay, M=2, tau=2, batch
-         1, seq 512) with ``drive``, its peak against the reckoning of
-         ZO_ROUND_BYTES_PER_PARAM_BYTE times the parameter bytes, and the
-         client's aux loss after it.
+         1, seq 512), ``moe_round``.
     Prints each part's seconds; returns the launches summed over a-c."""
     from repro_torch.configs import get_config
-    from repro_torch.launch import train
-    from repro_torch.models import (client_forward, init_params,
-                                    param_count, split_params)
+    from repro_torch.models import init_params, param_count
     t_path = time.perf_counter()
     launches = {}
 
@@ -2573,28 +2687,8 @@ def phase_serve(dev) -> dict:
     print(f"serve path (b): {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
-    name = f"MoE round path (c) mixtral-8x22b ({MIXTRAL_LAYERS} of 56 layers)"
-    run = train.setup(MIXTRAL_ARGV, cfg=mix)
-    sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
-    res, _, n, chunks = drive(dev, name, run, sfl,
-                              ("zo_update", "zo_replay", "flash_attention",
-                               "rmsnorm"))
-    add(n)
-    gib = param_count(run.params) * 2 / 2 ** 30
-    peak = max(c[2] for c in chunks)
-    with torch.inference_mode():
-        xc, _ = split_params(mix, res.params, sfl.cut_units)
-        batch = {k: torch.as_tensor(v[0], device=dev)
-                 for k, v in run.loader.round_batch(0).items()}
-        aux = float(client_forward(mix, xc, batch)["aux"])
-    print(f"{name}: loss {list(res.round_loss)}; client aux (MoE load "
-          f"balance, after the round) {aux:.6f}; peak {peak:.2f} GiB "
-          f"against the reckoning {ZO_ROUND_BYTES_PER_PARAM_BYTE} x "
-          f"{gib:.2f} GiB of parameters = "
-          f"{ZO_ROUND_BYTES_PER_PARAM_BYTE * gib:.1f} GiB")
-    require(math.isfinite(aux) and aux > 0, f"{name}: aux {aux}")
-    del run, res, xc
-    torch.cuda.empty_cache()
+    add(moe_round(dev, f"MoE round path (c) mixtral-8x22b ({MIXTRAL_LAYERS} "
+                  f"of 56 layers)", MIXTRAL_ARGV, mix))
     print(f"MoE round path (c): {time.perf_counter() - t0:.1f} s")
     print(f"serve path: qwen3-14b prefill {qs['prefill_ms']:.1f} ms, decode "
           f"{qs['decode_ms']:.2f} ms a step, {qs['tok_s']:.1f} tokens/s, "
@@ -2605,19 +2699,145 @@ def phase_serve(dev) -> dict:
     return launches
 
 
+def moe_round(dev, name: str, argv, cfg) -> dict:
+    """One MU-SplitFed round of an MoE model through the driver
+    (``train.setup(argv, cfg=cfg)``, counter noise set after it) with
+    ``drive``: zo_update, zo_replay, flash_attention and rmsnorm must
+    launch; its peak memory printed against the reckoning of
+    MOE_ROUND_BYTES_PER_PARAM_BYTE times the parameter bytes, with the
+    round's own ratio beside it; the client's MoE aux loss after the round
+    finite and positive. The profiled round runs after the initial
+    parameters are dropped (deepseek-v2's round, at 70.5 GiB, leaves no
+    room for a second copy). Returns the launches."""
+    from repro_torch.launch import train
+    from repro_torch.models import client_forward, param_count, split_params
+    run = train.setup(argv, cfg=cfg)
+    sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
+    res, _, launches, chunks = drive(
+        dev, name, run, sfl, ("zo_update", "zo_replay", "flash_attention",
+                              "rmsnorm"), profile=False)
+    gib = param_count(run.params) * 2 / 2 ** 30
+    peak = max(c[2] for c in chunks)
+    with torch.inference_mode():
+        xc, _ = split_params(cfg, res.params, sfl.cut_units)
+        batch = {k: torch.as_tensor(v[0], device=dev)
+                 for k, v in run.loader.round_batch(0).items()}
+        aux = float(client_forward(cfg, xc, batch)["aux"])
+    print(f"{name}: loss {list(res.round_loss)}; client aux (MoE load "
+          f"balance, after the round) {aux:.6f}; peak {peak:.2f} GiB "
+          f"against the reckoning {MOE_ROUND_BYTES_PER_PARAM_BYTE} x "
+          f"{gib:.2f} GiB of parameters = "
+          f"{MOE_ROUND_BYTES_PER_PARAM_BYTE * gib:.1f} GiB; measured ratio "
+          f"{peak / gib:.3f}")
+    require(math.isfinite(aux) and aux > 0, f"{name}: aux {aux}")
+    run = run._replace(params=res.params)
+    del res, xc
+    torch.cuda.empty_cache()
+    profile_one_round(name, run, sfl, sfl.tau)
+    del run
+    torch.cuda.empty_cache()
+    return launches
+
+
+# path 9: MLA and deepseek-v2-236b at full width (d_model 5120, 128 heads,
+# q_lora 1536, kv_lora 512, nope/rope/v 128/64/128, 160 experts top-6 of
+# d_expert 1536 and 2 shared, vocab 102400), DEEPSEEK_LAYERS of 60 layers
+# (cut 2 + 1 server unit: 12.97 B parameters, 24.15 GiB in bf16). (a)
+# serving: one 4096-token prompt, 16 greedy tokens in bf16 at the config's
+# capacity factor; then the decode-vs-full check in f32 (48.3 GiB of
+# parameters) on a 512-token prompt at capacity factor 160/6, where no
+# token drops; (b) one MU-SplitFed round through the driver
+DEEPSEEK_LAYERS = 3
+SERVE_DEEPSEEK = dict(batch=1, prompt_len=4096, gen=16)
+SERVE_DEEPSEEK_F32 = dict(batch=1, prompt_len=512, gen=8, steps=(1, 4, 8))
+DEEPSEEK_ARGV = ["--arch", "deepseek-v2-236b", "--clients", "2", "--tau",
+                 "2", "--batch", "1", "--seq", "512", "--rounds", "1",
+                 "--chunk-size", "1", "--aggregation", "seed_replay"]
+
+
+def phase_mla(dev) -> dict:
+    """Path 9: MLA and deepseek-v2-236b on the card's own ``logits_fn`` as
+    the reference:
+      a. ``serve.generate`` at full width, DEEPSEEK_LAYERS of 60 layers,
+         bf16 at capacity factor 1.25: one request of a 4096-token prompt
+         (MLA through the flash kernel at (192, 128), prefill filling the
+         compressed c_kv and k_rope cache), 16 new tokens (the
+         absorbed-weight decode), prefill's logits within PREFILL_TOL;
+         then in f32 at n_experts/top_k = 160/6 (no token drops) a
+         512-token prompt and 8 tokens, decode steps 1, 4, 8 within
+         F32_DECODE_TOL of logits_fn on prompt and tokens;
+      b. one MU-SplitFed round of (a)'s model through the driver
+         (``DEEPSEEK_ARGV``: counter noise, seed replay, M=2, tau=2, batch
+         1, seq 512), ``moe_round``.
+    Prints each part's seconds; returns the launches summed over a-b."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count
+    t_path = time.perf_counter()
+    launches = {}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    ds = get_config("deepseek-v2-236b").replace(n_layers=DEEPSEEK_LAYERS)
+    params = init_params(ds, torch.Generator(device=dev).manual_seed(0))
+    a = SERVE_DEEPSEEK
+    print(f"serve path (9a) deepseek-v2-236b: {DEEPSEEK_LAYERS} of 60 "
+          f"layers, {param_count(params):,} parameters, MLA head dims "
+          f"({ds.qk_nope_dim + ds.qk_rope_dim}, {ds.v_head_dim}), kv_lora "
+          f"{ds.kv_lora_rank}, {ds.moe.n_experts} experts top "
+          f"{ds.moe.top_k} and {ds.moe.n_shared} shared of d_expert "
+          f"{ds.moe.d_expert}")
+    g = torch.Generator(device=dev).manual_seed(3)
+    prompt = torch.randint(0, ds.vocab_size, (a["batch"], a["prompt_len"]),
+                           generator=g, device=dev)
+    n, st = serve_request(dev, "serve path (9a) deepseek-v2-236b bf16, "
+                          "capacity factor 1.25", ds, params, prompt,
+                          a["gen"], (), ("flash_attention", "rmsnorm"))
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    f = SERVE_DEEPSEEK_F32
+    lifted = ds.replace(dtype="float32", moe=dataclasses.replace(
+        ds.moe, capacity_factor=ds.moe.n_experts / ds.moe.top_k))
+    params = init_params(lifted, torch.Generator(device=dev).manual_seed(0))
+    n, _ = serve_request(dev, "serve path (9a) deepseek-v2-236b f32, "
+                         "capacity factor 160/6", lifted, params,
+                         prompt[:, :f["prompt_len"]], f["gen"], f["steps"],
+                         ("flash_attention", "rmsnorm"),
+                         decode_tol=F32_DECODE_TOL, profile=False)
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve path (9a): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    add(moe_round(dev, f"MoE round path (9b) deepseek-v2-236b "
+                  f"({DEEPSEEK_LAYERS} of 60 layers)", DEEPSEEK_ARGV, ds))
+    print(f"MoE round path (9b): {time.perf_counter() - t0:.1f} s")
+    print(f"MLA path: deepseek-v2-236b prefill {st['prefill_ms']:.1f} ms, "
+          f"decode {st['decode_ms']:.2f} ms a step, {st['tok_s']:.1f} "
+          f"tokens/s, peak {st['peak']:.2f} GiB; path 9 "
+          f"{time.perf_counter() - t_path:.1f} s in all")
+    return launches
+
+
 def phase_small_serve(dev):
     """Serving on the card against the CPU in f32 (the plain versions
-    there): mixtral-8x22b SMOKE past its window and qwen3-14b SMOKE (qk-
-    norm), both widened to d_head 64 (d_model 128, 2 query heads, 1 kv
-    head), which the flash kernel takes: tokens equal, and the prefill and
-    every decode step's logits within 1e-4 of max(|logits|, 1)."""
+    there): mixtral-8x22b SMOKE past its window, qwen3-14b SMOKE (qk-norm)
+    and deepseek-v2-236b SMOKE (MLA, the compressed-cache decode), widened
+    by ``configs.card_smoke_config`` (1 kv head for the GQA models), at
+    SMOKE's capacity factor: tokens equal, and
+    the prefill and every decode step's logits within 1e-4 of
+    max(|logits|, 1)."""
     import numpy as np
-    from repro_torch.configs import get_config
+    from repro_torch.configs import card_smoke_config
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.utils import tree
-    for arch, S, gen in (("mixtral-8x22b", 40, 8), ("qwen3-14b", 24, 8)):
-        cfg = get_config(arch, smoke=True).replace(
-            d_model=128, n_heads=2, n_kv_heads=1, dtype="float32")
+    for arch, S, gen in (("mixtral-8x22b", 40, 8), ("qwen3-14b", 24, 8),
+                         ("deepseek-v2-236b", 24, 8)):
+        cfg = card_smoke_config(arch, 1)
         params = init_params(cfg, torch.Generator().manual_seed(0))
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S))
         outs = {}
@@ -2636,8 +2856,9 @@ def phase_small_serve(dev):
         (tc, lc), (tg, lg_) = outs["cpu"], outs[str(dev)]
         err = max_err(lg_, lc)
         scale = max(float(lc.abs().max()), 1.0)
-        print(f"small f32 serving ({arch} SMOKE, d_head 64, prompt {S}, "
-              f"{gen} tokens), card vs CPU: tokens equal "
+        dv = cfg.v_head_dim if cfg.attn_impl == "mla" else cfg.d_head
+        print(f"small f32 serving ({arch} SMOKE, head dims ({cfg.d_head}, "
+              f"{dv}), prompt {S}, {gen} tokens), card vs CPU: tokens equal "
               f"{torch.equal(tc, tg)}, logits max|Δ| {err:.3e} of "
               f"{scale:.3e}")
         require(torch.equal(tc, tg) and err <= 1e-4 * scale,
@@ -2683,6 +2904,7 @@ def main() -> int:
     zo_sass, tf_sass = phase_build()
     zo = phase_zo(dev, zo_sass)
     flash = phase_flash(dev)
+    flash_mla = phase_flash_mla(dev)
     norm = phase_rmsnorm(dev)
     tf = phase_threefry(dev, tf_sass)
     flash_bwd = phase_flash_bwd(dev)
@@ -2707,7 +2929,8 @@ def main() -> int:
                             phase_qwen_fo(dev)]),
         ("path 6", lambda: phase_resume(dev)),
         ("path 7", lambda: phase_async(dev)),
-        ("path 8", lambda: phase_serve(dev))]
+        ("path 8", lambda: phase_serve(dev)),
+        ("path 9", lambda: phase_mla(dev))]
     launches, seconds, zo_summary = {}, {}, None
     for label, fn in paths:
         t0 = time.perf_counter()
@@ -2742,13 +2965,21 @@ def main() -> int:
     for name, *_ in rows:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was launched on no path")
+    # the flash row carries MLA's (192, 128) instance beside its other
+    # shapes: its own numbers, and its launches counted by the wrapper
+    mla_key = "flash_attention (192, 128)"
+    require(launches.get(mla_key, 0) > 0,
+            "the flash kernel's (192, 128) pair was launched on no path")
+    flash["err"] = max(flash["err"], flash_mla["err"])
+    flash["mla"] = {"launches": launches[mla_key],
+                    "max_abs_err": flash_mla.pop("err"), **flash_mla}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,
          "launches": launches.get(name, 0), "max_abs_err": r["err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "shape": r["shape"]}
+         "shape": r["shape"], **({"mla": r["mla"]} if "mla" in r else {})}
         for name, source, rep, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Architecture registry for the port: ``--arch <id>`` lookup. The dense
-attention decoders (LayerNorm and RMSNorm) and the GQA mixture of experts
-(mixtral-8x22b) are ported; the other families are queued in
+attention decoders (LayerNorm and RMSNorm), the GQA mixture of experts
+(mixtral-8x22b) and the MLA mixture of experts with shared experts
+(deepseek-v2-236b) are ported; the other families are queued in
 ROADMAP.md."""
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ _MODULES: Dict[str, str] = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
 }
 
 
@@ -27,3 +29,18 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
             f"in which the other families follow")
     mod = importlib.import_module(_MODULES[name])
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def card_smoke_config(name: str, n_kv_heads: int = 1) -> ModelConfig:
+    """``name``'s SMOKE config in f32, widened to head dims the flash
+    kernel takes (the SMOKE configs' are narrower): d_model 128, 2 query
+    heads of 64 and ``n_kv_heads`` kv heads; an MLA config to the kernel's
+    (192, 128) pair instead (nope 128, rope 64, v 128, 2 heads), its
+    latent ranks and MoE (capacity factor included) as in SMOKE. The small
+    card-vs-CPU checks run on it."""
+    cfg = get_config(name, smoke=True).replace(
+        d_model=128, n_heads=2, n_kv_heads=n_kv_heads, dtype="float32")
+    if cfg.attn_impl == "mla":
+        cfg = cfg.replace(n_kv_heads=2, qk_nope_dim=128, qk_rope_dim=64,
+                          v_head_dim=128, d_head=192)
+    return cfg

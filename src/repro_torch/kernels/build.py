@@ -15,7 +15,8 @@ no nvcc. Nothing is taken from outside the repository but the CUDA toolkit.
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a nonzero code. ``LAUNCHES`` counts the launches each
 wrapper made, so a run can show that its main path went through the
-kernels.
+kernels; the flash forward's are also counted by head-dim pair, under
+``"flash_attention (d_qk, d_v)"``.
 """
 from __future__ import annotations
 
@@ -54,10 +55,11 @@ SIGNATURES = {
     "zo_noise_factors_launch": (ctypes.c_uint, ctypes.c_longlong, _VOIDP,
                                 _VOIDP, _VOIDP),
     # q, k, v, o, lse (or null), then the (batch, head, row) strides of q,
-    # k, v and o, B, H, Hkv, S, D, dtype, scale, causal, window, stream
+    # k, v and o, B, H, Hkv, S, D (q and k), Dv (v and o), dtype, scale,
+    # causal, window, stream
     "flash_attention_launch": (_VOIDP,) * 5 + (ctypes.c_longlong,) * 12 + (
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP),
+        ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              _VOIDP),
     # q, k, v, o, dout, lse, dq, dk, dv, f32 scratch, then the (batch,
     # head, row) strides of q, k, v, o and dout, B, H, Hkv, S, D, dtype,
     # scale, causal, window, stream
@@ -70,9 +72,9 @@ SIGNATURES = {
     # memory; blocks that fit an SM
     "flash_attention_bwd_smem_bytes": (ctypes.c_int, ctypes.c_int),
     "flash_attention_bwd_blocks_per_sm": (ctypes.c_int, ctypes.c_int),
-    # D, dtype: a launch's dynamic shared memory; blocks that fit an SM
-    "flash_attention_smem_bytes": (ctypes.c_int, ctypes.c_int),
-    "flash_attention_blocks_per_sm": (ctypes.c_int, ctypes.c_int),
+    # D, Dv, dtype: a launch's dynamic shared memory; blocks that fit an SM
+    "flash_attention_smem_bytes": (ctypes.c_int,) * 3,
+    "flash_attention_blocks_per_sm": (ctypes.c_int,) * 3,
     # x, scale, y, rows, D, dtype, eps, stream
     "rmsnorm_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, _VOIDP),

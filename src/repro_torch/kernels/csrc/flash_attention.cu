@@ -59,6 +59,21 @@
 // tests do): flash_fwd_kernel, scalar f32 FMAs out of shared memory, as in
 // the first port. One block of 256 threads per 64-row query tile, four
 // threads to a query row; Q, K, V widened to f32 in shared memory.
+//
+// Head dims. Both kernels are templates on <DQK, DV>: q and k are DQK wide,
+// v and o DV wide, and the scale is the caller's (1/sqrt(DQK)). They are
+// built for (64, 64), (128, 128) and MLA's (192, 128) (deepseek-v2: 128
+// nope + 64 rope dims scored, v 128 wide; the Pallas kernel blocks q, k and
+// v at one d). Q and K tiles take the DQK stride, V tiles the DV stride,
+// and o is staged through the Q tile's rows. At (192, 128) the bf16 kernel
+// keeps 16 output n-tiles (64 registers) but not Q's 12 k-steps of
+// fragments (48 more, which spilled): it reads them from shared memory at
+// each k-step. It takes 111,616 bytes of shared memory (Q 64x200, two K
+// stages 64x200, two V stages 64x136): still two blocks per SM. The f32
+// kernel takes 151,552 bytes there (Q and K at 196, V at 132, P 64x68):
+// one block. The bound at (1,128,512,192/128), causal: 84 MB of q, k, v
+// and o, 0.025 ms at the byte rate, against 0.011 ms of tensor-core work;
+// at S = 4096 the 687 GFLOP of tensor-core work, 0.695 ms.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -82,9 +97,11 @@ constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;  // 4 threads per query row
 
-template <int D>
+// Q, K (stride DQK + 4), V (stride DV + 4), P
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((kBQ + 2 * kBK) * (D + 4) + kBQ * (kBK + 4));
+  return sizeof(float) * ((kBQ + kBK) * (DQK + 4) + kBK * (DV + 4) +
+                          kBQ * (kBK + 4));
 }
 
 // Rows [row0, row0 + ROWS) of an (S, D) matrix with row stride sr into a
@@ -100,21 +117,22 @@ __device__ __forceinline__ void load_tile(float* dst, const float* src,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, Layout L, int H, int Hkv, int S,
                  float scale, int causal, int window) {
-  constexpr int LD = D + 4;
+  constexpr int LD = DQK + 4;    // Q and K tiles
+  constexpr int LDV = DV + 4;    // V tiles
   constexpr int LDP = kBK + 4;
   constexpr int NCOL = kBK / 4;  // scores per thread per kv tile
-  constexpr int NV = D / 16;     // float4 output slots per thread
+  constexpr int NV = DV / 16;    // float4 output slots per thread
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
   float* Ks = Qs + kBQ * LD;
   float* Vs = Ks + kBK * LD;
-  float* Ps = Vs + kBK * LD;
+  float* Ps = Vs + kBK * LDV;
 
   const int b = blockIdx.y / H;
   const int h = blockIdx.y % H;
@@ -129,7 +147,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qd = threadIdx.x & 3;  // this thread's quarter of the columns
   const int row = q_lo + r;
 
-  load_tile<D, kBQ>(Qs, qp, L.q[2], q_lo, S);
+  load_tile<DQK, kBQ>(Qs, qp, L.q[2], q_lo, S);
 
   // the kv tiles that can hold an unmasked score for a row of this tile
   const int k_end = causal ? min(S, q_lo + kBQ) : S;
@@ -147,15 +165,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k_lo = k_begin; k_lo < k_end; k_lo += kBK) {
     __syncthreads();  // the previous tile's K, V and P are no longer read
-    load_tile<D, kBK>(Ks, kp, L.k[2], k_lo, S);
-    load_tile<D, kBK>(Vs, vp, L.v[2], k_lo, S);
+    load_tile<DQK, kBK>(Ks, kp, L.k[2], k_lo, S);
+    load_tile<DV, kBK>(Vs, vp, L.v[2], k_lo, S);
     __syncthreads();
 
     float s[NCOL];
 #pragma unroll
     for (int j = 0; j < NCOL; ++j) s[j] = 0.f;
 #pragma unroll 4
-    for (int dd = 0; dd < D; dd += 4) {
+    for (int dd = 0; dd < DQK; dd += 4) {
       const float4 qv = *reinterpret_cast<const float4*>(&Qs[r * LD + dd]);
 #pragma unroll
       for (int j = 0; j < NCOL; ++j) {
@@ -208,7 +226,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int m = 0; m < NV; ++m) {
         const float4 vv =
-            *reinterpret_cast<const float4*>(&Vs[c * LD + 4 * (qd + 4 * m)]);
+            *reinterpret_cast<const float4*>(&Vs[c * LDV + 4 * (qd + 4 * m)]);
         acc[m].x = fmaf(p, vv.x, acc[m].x);
         acc[m].y = fmaf(p, vv.y, acc[m].y);
         acc[m].z = fmaf(p, vv.z, acc[m].z);
@@ -232,17 +250,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, const Layout& L, int B, int H, int Hkv, int S,
                float scale, int causal, int window, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, L, H, Hkv,
       S, scale, causal, window);
@@ -267,10 +285,12 @@ __host__ __device__ constexpr int tc_ld() {
   return D + 8;
 }
 
-// Q, then two stages of K, then two stages of V
-template <int D>
+// Q, then two stages of K (stride tc_ld<DQK>), then two stages of V
+// (stride tc_ld<DV>)
+template <int DQK, int DV>
 constexpr size_t tc_smem_bytes() {
-  return sizeof(bf16) * (kTcBQ + 4 * kTcBK) * tc_ld<D>();
+  return sizeof(bf16) * ((kTcBQ + 2 * kTcBK) * tc_ld<DQK>() +
+                         2 * kTcBK * tc_ld<DV>());
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -357,16 +377,18 @@ __device__ __forceinline__ void tc_load(bf16* dst, const bf16* src,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kTcThreads, 2)
 flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, bf16* __restrict__ o,
                       float* __restrict__ lse, Layout L, int H, int Hkv,
                       int S, float scale, int causal, int window) {
-  constexpr int LD = tc_ld<D>();
-  constexpr int KD = D / 16;       // k-steps of Q·K^T
+  constexpr int LD = tc_ld<DQK>();   // Q and K tiles (and o's staging)
+  constexpr int LDV = tc_ld<DV>();   // V tiles
+  constexpr int KD = DQK / 16;     // k-steps of Q·K^T
   constexpr int NS = kTcBK / 8;    // n-tiles of a score tile
-  constexpr int NO = D / 8;        // n-tiles of the output
+  constexpr int NO = DV / 8;       // n-tiles of the output
+  static_assert(DV <= DQK, "o is staged through the Q tile's rows");
   extern __shared__ float4 smem_f4[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_f4);
   bf16* Ks = Qs + kTcBQ * LD;
@@ -399,13 +421,19 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   // cp.async groups: Q with K of the first tile, then V of the first tile;
   // in the loop, K and V of the next tile one group each
-  tc_load<D, kTcBQ>(Qs, qp, L.q[2], q_lo, S);
-  tc_load<D, kTcBK>(Ks, kp, L.k[2], k_begin, S);
+  tc_load<DQK, kTcBQ>(Qs, qp, L.q[2], q_lo, S);
+  tc_load<DQK, kTcBK>(Ks, kp, L.k[2], k_begin, S);
   cp_async_commit();
-  tc_load<D, kTcBK>(Vs, vp, L.v[2], k_begin, S);
+  tc_load<DV, kTcBK>(Vs, vp, L.v[2], k_begin, S);
   cp_async_commit();
 
-  uint32_t qf[KD][4];
+  // Q's fragments stay in registers across the kv tiles where they fit
+  // beside the accumulators. At DQK = 192 they would take 48 of them and
+  // ptxas spills under two blocks an SM, so there each k-step reads its
+  // fragment from Qs again (one ldmatrix beside the four of K).
+  constexpr bool kQRegs = DQK <= 128;
+  const int q_row = 16 * warp + (lane % 8) + ((lane / 8) % 2) * 8;
+  uint32_t qf[kQRegs ? KD : 1][4];
   float acc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n)
@@ -420,20 +448,21 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cp_async_wait<1>();  // K of tile t (V of tile t may still be in flight)
     __syncthreads();     // ... and every warp is done with tile t - 1's K
     if (t + 1 < n_tiles) {
-      tc_load<D, kTcBK>(Ks + next * kTcBK * LD, kp, L.k[2], k_lo + kTcBK, S);
+      tc_load<DQK, kTcBK>(Ks + next * kTcBK * LD, kp, L.k[2], k_lo + kTcBK,
+                          S);
       cp_async_commit();
     }
 
-    if (t == 0) {
+    if constexpr (kQRegs) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int r = 16 * warp + (lane % 8) + ((lane / 8) % 2) * 8;
-        ldmatrix_x4(qf[kk], smem_addr(Qs + r * LD + kk * 16 +
-                                      (lane / 16) * 8));
+        for (int kk = 0; kk < KD; ++kk)
+          ldmatrix_x4(qf[kk], smem_addr(Qs + q_row * LD + kk * 16 +
+                                        (lane / 16) * 8));
       }
     }
     const bf16* Kt = Ks + (t & 1) * kTcBK * LD;
-    const bf16* Vt = Vs + (t & 1) * kTcBK * LD;
+    const bf16* Vt = Vs + (t & 1) * kTcBK * LDV;
 
     // S = Q·K^T for this warp's 16 rows and the tile's 64 columns
     float s[NS][4];
@@ -443,14 +472,22 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qk[4];
+      if constexpr (kQRegs) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qk[e] = qf[kk][e];
+      } else {
+        ldmatrix_x4(qk, smem_addr(Qs + q_row * LD + kk * 16 +
+                                  (lane / 16) * 8));
+      }
 #pragma unroll
       for (int np = 0; np < NS / 2; ++np) {
         uint32_t kb[4];
         const int n = np * 16 + (lane / 16) * 8 + (lane % 8);
         ldmatrix_x4(kb, smem_addr(Kt + n * LD + kk * 16 +
                                   ((lane / 8) % 2) * 8));
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        mma_bf16(s[2 * np], qk, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qk, kb[2], kb[3]);
       }
     }
 
@@ -515,7 +552,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       cp_async_wait<0>();
     __syncthreads();
     if (t + 1 < n_tiles) {
-      tc_load<D, kTcBK>(Vs + next * kTcBK * LD, vp, L.v[2], k_lo + kTcBK, S);
+      tc_load<DV, kTcBK>(Vs + next * kTcBK * LDV, vp, L.v[2], k_lo + kTcBK,
+                         S);
       cp_async_commit();
     }
 
@@ -528,10 +566,10 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       split_bf16(s[2 * j + 1][0], s[2 * j + 1][1], ph[2], pl[2]);
       split_bf16(s[2 * j + 1][2], s[2 * j + 1][3], ph[3], pl[3]);
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vb[4];
         const int r = j * 16 + ((lane / 8) % 2) * 8 + (lane % 8);
-        ldmatrix_x4_trans(vb, smem_addr(Vt + r * LD + dp * 16 +
+        ldmatrix_x4_trans(vb, smem_addr(Vt + r * LDV + dp * 16 +
                                         (lane / 16) * 8));
         mma_bf16(acc[2 * dp], ph, vb[0], vb[1]);
         mma_bf16(acc[2 * dp], pl, vb[0], vb[1]);
@@ -544,7 +582,8 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // out = acc / max(l, 1e-30), as a product with the reciprocal (on an
   // H100 a division per element cost about 2 us a call at S = 512; the two
   // differ by an f32 ulp), staged through this warp's own rows of Qs (read
-  // into its registers at the first tile) for 16-byte stores
+  // into its registers at the first tile, DQK >= DV wide) for 16-byte
+  // stores
   float inv[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -566,7 +605,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         __floats2bfloat162_rn(acc[n][2] * inv[1], acc[n][3] * inv[1]);
   }
   __syncwarp();
-  constexpr int CH = D / 8;
+  constexpr int CH = DV / 8;
 #pragma unroll
   for (int e = lane; e < 16 * CH; e += 32) {
     const int r = e / CH;
@@ -577,7 +616,7 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, const Layout& L, int B, int H, int Hkv, int S,
                 float scale, int causal, int window, cudaStream_t stream) {
@@ -591,34 +630,37 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
       if (strides[t][i] % 8)
         return static_cast<int>(cudaErrorMisalignedAddress);
   }
-  constexpr size_t smem = tc_smem_bytes<D>();
+  constexpr size_t smem = tc_smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_bf16_kernel<DQK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(B * H, (S + kTcBQ - 1) / kTcBQ);
-  flash_fwd_bf16_kernel<D><<<grid, kTcThreads, smem, stream>>>(
+  flash_fwd_bf16_kernel<DQK, DV><<<grid, kTcThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(o), lse, L, H, Hkv, S,
       scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+template <int DQK_, int DV_>
+struct Pair {
+  static constexpr int dqk = DQK_;
+  static constexpr int dv = DV_;
+};
 
-// The dynamic shared memory a launch asks for, and how many blocks of the
-// kernel fit on one SM with it, for head dim D and dtype (as in
-// flash_attention_launch); -1 where the pair is not taken.
-extern "C" int flash_attention_smem_bytes(int D, int dtype) {
-  if (dtype == 0 && D == 64) return static_cast<int>(smem_bytes<64>());
-  if (dtype == 0 && D == 128) return static_cast<int>(smem_bytes<128>());
-  if (dtype == 1 && D == 64) return static_cast<int>(tc_smem_bytes<64>());
-  if (dtype == 1 && D == 128) return static_cast<int>(tc_smem_bytes<128>());
-  return -1;
+// f(Pair<DQK, DV>{}) for the head-dim pairs the kernels are built for, and
+// `missing` for any other
+template <typename F>
+int with_pair(int D, int Dv, int missing, F f) {
+  if (D == 64 && Dv == 64) return f(Pair<64, 64>{});
+  if (D == 128 && Dv == 128) return f(Pair<128, 128>{});
+  if (D == 192 && Dv == 128) return f(Pair<192, 128>{});
+  return missing;
 }
 
 template <typename Kernel>
-static int blocks_per_sm(Kernel kernel, int threads, int smem) {
+int blocks_per_sm(Kernel kernel, int threads, int smem) {
   int blocks = -1;
   if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||
@@ -628,50 +670,60 @@ static int blocks_per_sm(Kernel kernel, int threads, int smem) {
   return blocks;
 }
 
-extern "C" int flash_attention_blocks_per_sm(int D, int dtype) {
-  const int smem = flash_attention_smem_bytes(D, dtype);
-  if (dtype == 0 && D == 64)
-    return blocks_per_sm(flash_fwd_kernel<64>, kThreads, smem);
-  if (dtype == 0 && D == 128)
-    return blocks_per_sm(flash_fwd_kernel<128>, kThreads, smem);
-  if (dtype == 1 && D == 64)
-    return blocks_per_sm(flash_fwd_bf16_kernel<64>, kTcThreads, smem);
-  if (dtype == 1 && D == 128)
-    return blocks_per_sm(flash_fwd_bf16_kernel<128>, kTcThreads, smem);
-  return -1;
+}  // namespace
+
+// The dynamic shared memory a launch asks for, and how many blocks of the
+// kernel fit on one SM with it, for head dims (D, Dv) and dtype (as in
+// flash_attention_launch); -1 where the pair or dtype is not taken.
+extern "C" int flash_attention_smem_bytes(int D, int Dv, int dtype) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return with_pair(D, Dv, -1, [&](auto p) {
+    using P = decltype(p);
+    return static_cast<int>(dtype == 0 ? smem_bytes<P::dqk, P::dv>()
+                                       : tc_smem_bytes<P::dqk, P::dv>());
+  });
 }
 
-// q, o: (B, H, S, D); k, v: (B, Hkv, S, D), each given by its pointer and
-// its element strides along (batch, head, row); the stride along D is 1.
-// lse: null, or (B, H, S) contiguous f32 that receives each row's
-// log-sum-exp. dtype: 0 = float32, 1 = bfloat16 (pointers and strides on
-// 16 bytes). D in {64, 128}. Returns cudaGetLastError() after launch.
+extern "C" int flash_attention_blocks_per_sm(int D, int Dv, int dtype) {
+  const int smem = flash_attention_smem_bytes(D, Dv, dtype);
+  if (smem < 0) return -1;
+  return with_pair(D, Dv, -1, [&](auto p) {
+    using P = decltype(p);
+    return dtype == 0
+               ? blocks_per_sm(flash_fwd_kernel<P::dqk, P::dv>, kThreads, smem)
+               : blocks_per_sm(flash_fwd_bf16_kernel<P::dqk, P::dv>,
+                               kTcThreads, smem);
+  });
+}
+
+// q: (B, H, S, D); k: (B, Hkv, S, D); v: (B, Hkv, S, Dv); o: (B, H, S, Dv),
+// each given by its pointer and its element strides along (batch, head,
+// row); the stride along the head dim is 1. lse: null, or (B, H, S)
+// contiguous f32 that receives each row's log-sum-exp. dtype: 0 = float32,
+// 1 = bfloat16 (pointers and strides on 16 bytes). (D, Dv) in {(64, 64),
+// (128, 128), (192, 128)}. Returns cudaGetLastError() after launch.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_sb,
     long long q_sh, long long q_sr, long long k_sb, long long k_sh,
     long long k_sr, long long v_sb, long long v_sh, long long v_sr,
     long long o_sb, long long o_sh, long long o_sr, int B, int H, int Hkv,
-    int S, int D, int dtype, float scale, int causal, int window,
+    int S, int D, int Dv, int dtype, float scale, int causal, int window,
     void* stream) {
   if (B <= 0 || S <= 0) return 0;
-  if (H <= 0 || Hkv <= 0 || H % Hkv)
+  if (H <= 0 || Hkv <= 0 || H % Hkv || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout L = {{q_sb, q_sh, q_sr}, {k_sb, k_sh, k_sr},
                     {v_sb, v_sh, v_sr}, {o_sb, o_sh, o_sr}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (dtype == 0 && D == 64)
-    return launch_f32<64>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal, window,
-                          s);
-  if (dtype == 0 && D == 128)
-    return launch_f32<128>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal,
-                           window, s);
-  if (dtype == 1 && D == 64)
-    return launch_bf16<64>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal,
-                           window, s);
-  if (dtype == 1 && D == 128)
-    return launch_bf16<128>(q, k, v, o, l, L, B, H, Hkv, S, scale, causal,
-                            window, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return with_pair(
+      D, Dv, static_cast<int>(cudaErrorInvalidValue), [&](auto p) {
+        using P = decltype(p);
+        return dtype == 0
+                   ? launch_f32<P::dqk, P::dv>(q, k, v, o, l, L, B, H, Hkv, S,
+                                               scale, causal, window, s)
+                   : launch_bf16<P::dqk, P::dv>(q, k, v, o, l, L, B, H, Hkv,
+                                                S, scale, causal, window, s);
+      });
 }

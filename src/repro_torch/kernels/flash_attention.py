@@ -5,7 +5,9 @@
 Causal and/or sliding-window attention with GQA. A CUDA tensor launches
 the kernel (or raises): bf16 runs the tensor-core forward and backward,
 f32 the scalar ones. A CPU tensor takes the plain versions in
-``kernels/ref.py``.
+``kernels/ref.py``. The forward takes the head-dim pairs (d_qk, d_v) in
+``HEAD_DIMS``: q and k d_qk wide, v and o d_v wide, scaled by 1/√d_qk;
+(192, 128) is MLA's (deepseek-v2), which the backward does not take.
 
 Two routes, chosen by autograd's state and never by what the kernels take:
 - forward only (``torch.inference_mode()``, ``no_grad``, or no input that
@@ -16,7 +18,10 @@ Two routes, chosen by autograd's state and never by what the kernels take:
   the same kernel with the row log-sum-exp as a second output and saves
   q, k, v, o and the lse; its backward launches
   ``flash_attention_bwd``. What the kernels do not take (a head dim, a
-  dtype) raises on both routes.
+  dtype) raises on both routes, and so does a d_v other than d_qk, on
+  both devices and before anything runs: the backward kernels are built
+  for d_v = d_qk only (the MLA flash backward is queued in ROADMAP.md,
+  queue 1, item 6), and no plain version stands in for them.
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
-HEAD_DIMS = (64, 128)
+# (d_qk, d_v) pairs of the forward kernels; the backward takes the first two
+HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -57,14 +63,25 @@ def _readable(t: torch.Tensor) -> torch.Tensor:
 def _check_shapes(q, k, v) -> None:
     B, H, S, d = q.shape
     Hkv = k.shape[1]
-    if k.shape != (B, Hkv, S, d) or v.shape != k.shape or H % Hkv:
+    if k.shape != (B, Hkv, S, d) or v.shape[:3] != k.shape[:3] or H % Hkv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
 
 
+def _require_square(what: str, q: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise NotImplementedError where v's head dim differs from q's: the
+    backward kernels take d_v = d_qk only."""
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(
+            f"{what}: no backward at head dims ({q.shape[-1]}, "
+            f"{v.shape[-1]}); the MLA flash backward is not written yet "
+            f"(ROADMAP.md, queue 1, item 6): run MLA attention without a "
+            f"gradient (torch.no_grad or torch.inference_mode)")
+
+
 def _check_cuda(what: str, *ts: torch.Tensor) -> None:
     """Raise unless the tensors are CUDA tensors of one kernel dtype with a
-    head dim the kernels take."""
+    (d_qk, d_v) head-dim pair the kernels take (q first, v third)."""
     q = ts[0]
     if not q.is_cuda:
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got "
@@ -72,8 +89,9 @@ def _check_cuda(what: str, *ts: torch.Tensor) -> None:
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in ts):
         raise TypeError(f"{what}: dtypes {[t.dtype for t in ts]}; the "
                         f"kernel takes one of float32/bfloat16")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"{what}: head dim {q.shape[-1]} not in "
+    dims = (q.shape[-1], ts[2].shape[-1])
+    if dims not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dims (d_qk, d_v) {dims} not in "
                          f"{HEAD_DIMS}")
 
 
@@ -83,10 +101,12 @@ def _launch_forward(q, k, v, o, lse, causal: bool, window: int) -> None:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         None if lse is None else lse.data_ptr(),
         *_strides(q), *_strides(k), *_strides(v), *_strides(o), B, H,
-        k.shape[1], S, d, _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal),
-        int(window), torch.cuda.current_stream(q.device).cuda_stream)
+        k.shape[1], S, d, v.shape[-1], _DTYPES[q.dtype], 1.0 / math.sqrt(d),
+        int(causal), int(window),
+        torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention")
     build.LAUNCHES["flash_attention"] += 1
+    build.LAUNCHES[f"flash_attention ({d}, {v.shape[-1]})"] += 1
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
@@ -96,7 +116,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     kernels read as they lie (``_fits``) are read in place, others are
     copied first; the gradients come back contiguous, in the inputs' type.
     A CUDA tensor launches the backward kernel (or raises); a CPU tensor takes
-    ``ref.flash_attention_bwd_ref``."""
+    ``ref.flash_attention_bwd_ref``. d_v must equal d_qk."""
+    _require_square("flash_attention_bwd", q, v)
     _check_shapes(q, k, v)
     if o.shape != q.shape or do.shape != q.shape \
             or lse.shape != q.shape[:3]:
@@ -146,7 +167,7 @@ class _FlashAttention(torch.autograd.Function):
         else:
             _check_cuda("flash_attention", q, k, v)
             q, k, v = (_readable(t) for t in (q, k, v))
-            o = _out_buffer(q)
+            o = _out_buffer(q, v.shape[-1])
             lse = torch.empty(B, H, S, dtype=torch.float32, device=q.device)
             _launch_forward(q, k, v, o, lse, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
@@ -161,29 +182,33 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None
 
 
-def _out_buffer(q: torch.Tensor) -> torch.Tensor:
-    """A (B, H, S, d) view of a new (B, S, H, d) buffer: the layout the
+def _out_buffer(q: torch.Tensor, dv: int) -> torch.Tensor:
+    """A (B, H, S, dv) view of a new (B, S, H, dv) buffer: the layout the
     model's output projection reads, with no copy."""
-    B, H, S, d = q.shape
-    return torch.empty(B, S, H, d, dtype=q.dtype,
+    B, H, S, _ = q.shape
+    return torch.empty(B, S, H, dv, dtype=q.dtype,
                        device=q.device).transpose(1, 2)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, H, S, d); k, v: (B, Hkv, S, d) -> (B, H, S, d) in q's type,
-    on the card a view of a (B, S, H, d) buffer on both routes.
+    """q: (B, H, S, d); k: (B, Hkv, S, d); v: (B, Hkv, S, d_v) -> (B, H,
+    S, d_v) in q's type, on the card a view of a (B, S, H, d_v) buffer on
+    both routes. Under autograd d_v must equal d (NotImplementedError
+    otherwise, before anything runs).
 
     Views with a unit stride along d are read in place (the model passes v
-    as a transpose of its projection); others are copied first."""
+    as a transpose of its projection, MLA as a slice of one); others are
+    copied first."""
     _check_shapes(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
+        _require_square("flash_attention", q, v)
         return _FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)
     _check_cuda("flash_attention", q, k, v)
     q, k, v = (_readable(t) for t in (q, k, v))
-    o = _out_buffer(q)
+    o = _out_buffer(q, v.shape[-1])
     _launch_forward(q, k, v, o, None, causal, window)
     return o

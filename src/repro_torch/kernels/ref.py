@@ -159,10 +159,12 @@ def _attention_mask(S: int, causal: bool, window: int, device
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int = 0, *,
                         return_lse: bool = False):
-    """q: (B, H, S, d); k, v: (B, Hkv, S, d). Returns (B, H, S, d), and with
-    ``return_lse`` also each row's log-sum-exp of the scaled, masked scores
-    ((B, H, S) f32, what the backward recomputes the probabilities from).
-    f32 math; masked scores are -1e30; output in q's type."""
+    """q, k: (B, H, S, d) and (B, Hkv, S, d); v: (B, Hkv, S, d_v), where
+    d_v may differ from d (MLA: d 192, d_v 128). Returns (B, H, S, d_v),
+    and with ``return_lse`` also each row's log-sum-exp of the scaled,
+    masked scores ((B, H, S) f32, what the backward recomputes the
+    probabilities from). The scale is 1/√d; f32 math; masked scores are
+    -1e30; output in q's type."""
     B, H, S, d = q.shape
     Hkv = k.shape[1]
     G = H // Hkv
@@ -173,7 +175,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.where(ok, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.to(torch.float32))
-    out = out.reshape(B, H, S, d).to(q.dtype)
+    out = out.reshape(B, H, S, v.shape[-1]).to(q.dtype)
     if not return_lse:
         return out
     return out, torch.logsumexp(scores, dim=-1).reshape(B, H, S)

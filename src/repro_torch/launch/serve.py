@@ -6,6 +6,8 @@ Runs on the card unless ``--device cpu`` is given:
         --batch 2 --prompt-len 16 --gen 8
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x22b \\
         --smoke --device cpu --stats
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch deepseek-v2-236b --smoke --device cpu   # MLA, shared experts
 
 Observability, as in the reference: every ``generate`` call records the
 serve.requests / serve.tokens counters, the serve.generate_seconds

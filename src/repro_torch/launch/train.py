@@ -45,6 +45,8 @@ Runs on the card unless ``--device cpu`` is given:
         --tau-source measured --telemetry --log-jsonl run.jsonl
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 3 --seq 16 --algorithm fedlora
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-236b --smoke --device cpu --rounds 2 --seq 16
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 2 --seq 16 --ckpt-dir ckpt --ckpt-every 2   # then --rounds 4
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -54,7 +56,10 @@ Runs on the card unless ``--device cpu`` is given:
 
 The reference's ``--fleet-shard`` (``launch/fleet.py``: the sparse ring
 store sharded over a multi-device mesh) is not taken: the port runs on
-one card.
+one card. An MLA model (deepseek-v2-236b) trains with the zeroth-order
+algorithms only: FedAvg needs the flash backward at MLA's head dims, and
+FedLoRA's targets (wq, wv) are not in its attention; both raise
+NotImplementedError (ROADMAP.md, queue 1, item 6).
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Decoder LM, the split-point machinery and the serving paths
-(counterpart of ``repro.models.transformer`` for GQA ``attn`` decoders,
-dense or mixture-of-experts).
+(counterpart of ``repro.models.transformer`` for ``attn`` decoders with
+GQA or MLA attention, dense or mixture-of-experts).
 
 Parameters are a nested dict of tensors whose per-layer leaves are stacked
 along a leading ``n_units`` dim, as in the reference: the ZO noise is laid
@@ -10,18 +10,26 @@ The reference's ``lax.scan`` over units is a Python loop over that dim.
 Everything in the training half is differentiable with ``torch.autograd``
 (the first-order baselines take gradients of ``loss_fn``): attention and
 RMSNorm through their kernels' autograd Functions, the bf16 head product
-on the card through ``_LogitsF32``. An MoE block returns its load-balancing
-aux loss beside x; the client's sum rides the cut in ``h["aux"]`` and the
-server adds ``MOE_AUX_COEF`` times the whole sum to its loss.
+on the card through ``_LogitsF32``; MLA's attention excepted, whose flash
+backward is not written (it raises under autograd, so an MLA model trains
+with the zeroth-order algorithms only). An MoE block returns its
+load-balancing aux loss beside x; the client's sum rides the cut in
+``h["aux"]`` and the server adds ``MOE_AUX_COEF`` times the whole sum to
+its loss.
 
-Serving (``init_cache``, ``prefill``, ``decode_step``) keeps one
-(n_units, B, Hkv, Sc, dh) k and v cache a block position, Sc the sequence
-length or, with a sliding window shorter than it, the window (a ring:
-position t lives in slot t mod Sc). ``decode_step`` writes the new token's
-k and v into the cache in place. Prefill attends through the flash kernel
-(with the window where the prompt exceeds it; the reference's banded form
-``_banded_swa`` computes the same and is not ported), and keeps the k and v
-it computed for the cache.
+Serving (``init_cache``, ``prefill``, ``decode_step``) keeps one cache a
+block position, stacked over the units, as the reference does:
+- GQA: {"k", "v"} (n_units, B, Hkv, Sc, dh), Sc the sequence length or,
+  with a sliding window shorter than it, the window (a ring: position t
+  lives in slot t mod Sc);
+- MLA: the compressed {"c_kv" (n_units, B, S, kv_lora_rank), "k_rope"
+  (n_units, B, S, qk_rope_dim)}, no window; decode rebuilds the heads'
+  keys and values through the absorbed weights.
+``decode_step`` writes the new token's entries into the cache in place.
+Prefill attends through the flash kernel (GQA with the window where the
+prompt exceeds it; the reference's banded form ``_banded_swa`` computes
+the same and is not ported; MLA at its (192, 128) head dims), and keeps
+what it computed for the cache, right-padded to the cache's length.
 
 Batch: {"tokens": (B, S) int, "labels": (B, S) int}; decode: a (B, 1)
 token.
@@ -46,12 +54,12 @@ MOE_AUX_COEF = 0.01
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Admit the GQA ``("attn",)`` decoders, dense or MoE."""
-    if (cfg.block_pattern != ("attn",) or cfg.attn_impl != "gqa"
+    """Admit the GQA and MLA ``("attn",)`` decoders, dense or MoE."""
+    if (cfg.block_pattern != ("attn",) or cfg.attn_impl not in ("gqa", "mla")
             or cfg.is_encoder_decoder or cfg.n_image_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only the GQA attn decoders (dense or MoE) are "
-            f"ported; MLA, SSM, cross-attention and encoder-decoder models "
+            f"{cfg.name}: only the GQA and MLA attn decoders (dense or MoE) "
+            f"are ported; SSM, cross-attention and encoder-decoder models "
             f"follow (ROADMAP.md, queue 1, item 6)")
 
 
@@ -122,7 +130,8 @@ def _apply_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool):
     """One block, full sequence: (x, aux or None)."""
     h = apply_norm(cfg, p["norm1"], x)
-    x = x + attn.gqa_attention(cfg, p["core"], h, positions, causal=causal)
+    core = attn.mla_attention if cfg.attn_impl == "mla" else attn.gqa_attention
+    x = x + core(cfg, p["core"], h, positions, causal=causal)
     if "ffn" not in p:
         return x, None
     y, aux = _ffn(cfg, p, x)
@@ -334,26 +343,29 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
                device="cuda") -> Params:
-    """{"b0": {"k", "v"}}: zeros (n_units, B, Hkv, Sc, dh) in the model
-    type on ``device``; Sc = ``attention.gqa_cache_len``."""
+    """GQA: {"b0": {"k", "v"}}, zeros (n_units, B, Hkv, Sc, dh), Sc =
+    ``attention.gqa_cache_len``; MLA: {"b0": {"c_kv", "k_rope"}}, zeros
+    (n_units, B, seq_len, r) and (n_units, B, seq_len, rope). In the model
+    type on ``device``."""
     _require_ported(cfg)
-    return {"b0": attn.gqa_init_cache(cfg, batch, seq_len, (cfg.n_units,),
-                                      device)}
+    init = (attn.mla_init_cache if cfg.attn_impl == "mla"
+            else attn.gqa_init_cache)
+    return {"b0": init(cfg, batch, seq_len, (cfg.n_units,), device)}
 
 
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
                 cache: Params, pos: int):
     """One-token decode. token: (B, 1) int; pos: the token's absolute
-    position. Writes the token's k and v into ``cache`` (in place) and
-    returns (logits (B, 1, V) in the model type, cache)."""
+    position. Writes the token's cache entries (k and v, or MLA's c_kv and
+    k_rope) into ``cache`` (in place) and returns (logits (B, 1, V) in the
+    model type, cache)."""
     _require_ported(cfg)
+    decode = attn.mla_decode if cfg.attn_impl == "mla" else attn.gqa_decode
     x = params["embed"][token]
     for u, unit in enumerate(_unbind_units(params["units"])):
         p = unit["b0"]
-        y, _ = attn.gqa_decode(cfg, p["core"],
-                               apply_norm(cfg, p["norm1"], x),
-                               {k: c[u] for k, c in cache["b0"].items()},
-                               pos)
+        y, _ = decode(cfg, p["core"], apply_norm(cfg, p["norm1"], x),
+                      {k: c[u] for k, c in cache["b0"].items()}, pos)
         x = x + y
         if "ffn" in p:
             x = x + _ffn(cfg, p, x)[0]
@@ -370,29 +382,43 @@ def _right_pad(a: torch.Tensor, target: int, axis: int) -> torch.Tensor:
     return torch.cat([a, a.new_zeros(shape)], dim=axis)
 
 
+def _gqa_prompt_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
+                      seq_len: int):
+    """{"k", "v"} (B, Hkv, Sc, dh) of a prompt's k and v (B, Hkv, S, dh):
+    right-padded to Sc or, with Sc < S (a window shorter than the prompt),
+    the last Sc positions, each in its ring slot."""
+    B, _, S, _ = k.shape
+    Sc = attn.gqa_cache_len(cfg, max(seq_len, S))
+    if Sc >= S:
+        return {"k": _right_pad(k, Sc, 2), "v": _right_pad(v, Sc, 2)}
+    keep = torch.arange(S - Sc, S, device=k.device)
+    slots = keep % Sc
+    ck = k.new_zeros((B, cfg.n_kv_heads, Sc, cfg.d_head))
+    cv = torch.zeros_like(ck)
+    ck[:, :, slots] = k[:, :, keep]
+    cv[:, :, slots] = v[:, :, keep]
+    return {"k": ck, "v": cv}
+
+
 def _prefill_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
                    positions: torch.Tensor, seq_len: int):
     """One block over the prompt that also fills its decode cache: (x,
-    {"k", "v"} (B, Hkv, Sc, dh)). The cache holds the k and v the
-    attention used; with Sc < S (a window shorter than the prompt) the last
-    Sc positions, each in its ring slot."""
-    B, S, _ = x.shape
-    q, k, v = attn.qkv(cfg, p["core"], apply_norm(cfg, p["norm1"], x),
-                       positions)
-    x = x + attn.attend(cfg, p["core"], q, k, v, causal=True)
-    Sc = attn.gqa_cache_len(cfg, max(seq_len, S))
-    if Sc < S:
-        keep = torch.arange(S - Sc, S, device=x.device)
-        slots = keep % Sc
-        ck = k.new_zeros((B, cfg.n_kv_heads, Sc, cfg.d_head))
-        cv = torch.zeros_like(ck)
-        ck[:, :, slots] = k[:, :, keep]
-        cv[:, :, slots] = v[:, :, keep]
+    the block's cache). GQA: the k and v the attention used
+    (``_gqa_prompt_cache``); MLA: {"c_kv", "k_rope"} (B, seq_len, ·), the
+    latent and the rope key the attention rebuilt its keys and values
+    from, right-padded."""
+    h = apply_norm(cfg, p["norm1"], x)
+    if cfg.attn_impl == "mla":
+        q, k, v, cache = attn.mla_qkv(cfg, p["core"], h, positions)
+        x = x + attn.attend(cfg, p["core"], q, k, v, causal=True)
+        cache = {n: _right_pad(a, seq_len, 1) for n, a in cache.items()}
     else:
-        ck, cv = _right_pad(k, Sc, 2), _right_pad(v, Sc, 2)
+        q, k, v = attn.qkv(cfg, p["core"], h, positions)
+        x = x + attn.attend(cfg, p["core"], q, k, v, causal=True)
+        cache = _gqa_prompt_cache(cfg, k, v, seq_len)
     if "ffn" in p:
         x = x + _ffn(cfg, p, x)[0]
-    return x, {"k": ck, "v": cv}
+    return x, cache
 
 
 def prefill(cfg: ModelConfig, params: Params, batch, *, cache_len: int = 0):
@@ -404,11 +430,10 @@ def prefill(cfg: ModelConfig, params: Params, batch, *, cache_len: int = 0):
     seq_len = max(cache_len, S)
     x = params["embed"][tokens]
     pos = _positions(B, S, tokens.device)
-    ks, vs = [], []
+    caches = []
     for unit in _unbind_units(params["units"]):
         x, c = _prefill_block(cfg, unit["b0"], x, pos, seq_len)
-        ks.append(c["k"])
-        vs.append(c["v"])
+        caches.append(c)
     x = apply_norm(cfg, params["final_norm"], x[:, -1:].contiguous())
-    return x @ _head(params), {"b0": {"k": torch.stack(ks),
-                                      "v": torch.stack(vs)}}
+    return x @ _head(params), {"b0": {n: torch.stack([c[n] for c in caches])
+                                      for n in caches[0]}}

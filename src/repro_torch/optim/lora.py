@@ -47,6 +47,12 @@ def init_lora(cfg: ModelConfig, params, rank: int, key) -> Dict:
                         "B": torch.zeros(n_units, rank, d_out,
                                          dtype=w.dtype, device=w.device)}
         out_units[bkey] = {"core": entry}
+    if not out_units:
+        # the reference returns an empty tree here and FedLoRA then trains
+        # nothing: an MLA model with q_lora_rank > 0 has neither target
+        raise NotImplementedError(
+            f"{cfg.name}: no LoRA target {TARGETS} in the attention; FedLoRA "
+            f"on MLA is not ported (ROADMAP.md, queue 1, item 6)")
     return {"units": out_units}
 
 

@@ -24,7 +24,11 @@ tests/test_torch_flash_bwd.py emulates on the CPU); the forward's lse
 within 1e-5 relative. Two bf16 flash backward launches are bit-equal. Small f32 FedAvg (SGD, AdamW) and FedLoRA rounds,
 card against CPU, within 1e-4. The MoE block (mixtral-8x22b SMOKE, f32)
 card against CPU: routing equal, the output within 1e-5 of its largest
-magnitude; SMOKE serving in f32: tokens equal, logits within 1e-4.
+magnitude; SMOKE serving in f32 (deepseek-v2-236b's MLA at the flash
+kernel's (192, 128) pair among them): tokens equal, logits within 1e-4.
+MLA's flash pair (192, 128) f32 and bf16 against the plain version, v
+read in place as the model's strided view, and its refusal under
+autograd.
 """
 import numpy as np
 import pytest
@@ -136,12 +140,17 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
 
 @pytest.mark.parametrize("shape", [(1, 512, 5120), (1, 512, 40, 128),
                                    (1, 512, 8, 128), (3, 7, 128),
-                                   (1, 300, 5120), (333, 100), (77, 1030)])
+                                   (1, 300, 5120), (333, 100), (77, 1030),
+                                   (1, 512, 512), (1, 512, 1536),
+                                   (1, 1, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_matches_plain(cuda, shape, dtype):
     """The qwen3-14b path's block-norm and qk-norm shapes, a row count
-    that is no multiple of the 8 rows of a warp-per-row block (21), and
-    widths with no 16-byte loads (100, 1030)."""
+    that is no multiple of the 8 rows of a warp-per-row block (21), widths
+    with no 16-byte loads (100, 1030), and deepseek-v2-236b's kv_norm
+    (512: 32 lanes a row with 16-byte loads, in bf16 the only case of that
+    instance) and q_norm (1536: a block a row) over the round's rows and a
+    decode row."""
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     x = (torch.randn(shape, generator=gen, device=cuda) * 3.0).to(dtype)
     s = 1.0 + 0.5 * torch.randn(shape[-1], generator=gen, device=cuda)
@@ -222,6 +231,52 @@ def test_rmsnorm_pair_matches_plain(cuda, shapes, dtype):
     wq, wk = ref.rmsnorm_pair_ref(xq, sq, xk, sk)
     assert_close(yq, wq)
     assert_close(yk, wk)
+
+
+@pytest.mark.parametrize("case", [(1, 8, 512, True), (2, 4, 300, True),
+                                  (1, 4, 200, False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_mla_pair_matches_plain(cuda, case, dtype):
+    """MLA's head dims (d_qk, d_v) = (192, 128), H = Hkv, causal and not,
+    S a multiple of 64 and ragged (300, 200): against the plain version.
+    v is taken as the model takes it, a strided view at element offset 128
+    of each head's 256-wide row of a (B, S, H, 256) tensor (256 bytes in
+    bf16, strides multiples of 8): the kernel reads it in place, with the
+    contiguous call's result bit for bit, and o comes back as a (B, H, S,
+    128) view of a (B, S, H, 128) buffer."""
+    from repro_torch.kernels.flash_attention import _fits
+    B, H, S, causal = case
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn(B, H, S, 192, generator=gen, device=cuda).to(dtype)
+    k = torch.randn(B, H, S, 192, generator=gen, device=cuda).to(dtype)
+    kv = torch.randn(B, S, H, 256, generator=gen, device=cuda).to(dtype)
+    v = kv[..., 128:].transpose(1, 2)
+    assert _fits(v)
+    got = flash_attention(q, k, v.contiguous(), causal=causal)
+    before = dict(build.LAUNCHES)
+    strided = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    for key in ("flash_attention", "flash_attention (192, 128)"):
+        assert build.LAUNCHES[key] == before.get(key, 0) + 1
+    assert strided.shape == (B, H, S, 128)
+    assert strided.transpose(1, 2).is_contiguous()
+    assert torch.equal(strided, got)
+    assert_close(got, ref.flash_attention_ref(q, k, v, causal, 0))
+
+
+def test_flash_attention_mla_pair_refuses_autograd(cuda):
+    """Under autograd the (192, 128) pair raises NotImplementedError naming
+    the ROADMAP item before anything launches (the backward kernels take
+    d_v = d_qk only); without a gradient the same call launches."""
+    q = torch.randn(1, 4, 64, 192, device=cuda, requires_grad=True)
+    v = torch.randn(1, 4, 64, 128, device=cuda)
+    before = build.LAUNCHES["flash_attention"]
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        flash_attention(q, q, v)
+    assert build.LAUNCHES["flash_attention"] == before
+    with torch.no_grad():
+        assert flash_attention(q, q, v).shape == (1, 4, 64, 128)
+    assert build.LAUNCHES["flash_attention"] == before + 1
 
 
 def test_kernels_raise_on_what_they_do_not_take(cuda):
@@ -782,19 +837,21 @@ def test_apply_moe_card_matches_cpu(cuda):
     assert float((o1 - o0).abs().max()) <= 1e-5 * float(o0.abs().max())
 
 
-@pytest.mark.parametrize("arch,S", [("mixtral-8x22b", 40), ("qwen3-14b", 24)])
+@pytest.mark.parametrize("arch,S", [("mixtral-8x22b", 40), ("qwen3-14b", 24),
+                                    ("deepseek-v2-236b", 24)])
 def test_serving_card_matches_cpu(cuda, arch, S):
-    """SMOKE serving in f32, widened to d_head 64 (d_model 128, 2 query
-    heads, 1 kv head) for the flash kernel: ``serve.generate`` of 8 greedy
-    tokens (mixtral past its window of 32) on the card against the CPU,
-    tokens equal and the full forward over prompt and tokens within 1e-4
-    of max(|logits|, 1); the card's request launches flash and rmsnorm."""
-    from repro_torch.configs import get_config
+    """SMOKE serving in f32, widened by ``configs.card_smoke_config`` to
+    head dims the flash kernel takes (d_head 64 with 1 kv head; MLA's
+    (192, 128) pair), at SMOKE's capacity factor, as chip_smoke.py's small
+    serving runs it: ``serve.generate`` of 8 greedy tokens (mixtral past
+    its window of 32) on the card against the CPU, tokens equal and the
+    full forward over prompt and tokens within 1e-4 of max(|logits|, 1);
+    the card's request launches flash and rmsnorm."""
+    from repro_torch.configs import card_smoke_config
     from repro_torch.launch import serve
     from repro_torch.models import init_params, logits_fn
     from repro_torch.utils import tree
-    cfg = get_config(arch, smoke=True).replace(
-        d_model=128, n_heads=2, n_kv_heads=1, dtype="float32")
+    cfg = card_smoke_config(arch, 1)
     params = init_params(cfg, torch.Generator().manual_seed(0))
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, S)))

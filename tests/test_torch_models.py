@@ -87,10 +87,10 @@ def test_forward_halves_match_reference(arch, dtype, cut):
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "paper-opt-1.3b", "qwen3-14b",
                                   "internlm2-1.8b", "mistral-nemo-12b",
-                                  "mixtral-8x22b"])
+                                  "mixtral-8x22b", "deepseek-v2-236b"])
 def test_configs_match_reference(arch):
-    """Every field equal; the nested MoEConfig (mixtral) field by field,
-    since the two packages' classes differ."""
+    """Every field equal; the nested MoEConfig (mixtral, deepseek-v2) field
+    by field, since the two packages' classes differ."""
     for smoke in (False, True):
         j = dict(j_get_config(arch, smoke=smoke).__dict__)
         t = dict(t_get_config(arch, smoke=smoke).__dict__)
@@ -103,7 +103,7 @@ def test_configs_match_reference(arch):
 
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
-        t_get_config("deepseek-v2-236b")
+        t_get_config("jamba-1.5-large-398b")
 
 
 def test_converter_round_trip(arch):

@@ -341,29 +341,44 @@ def test_async_mu_splitfed_losses_carry_the_reference_aux():
     assert _maxdiff(got_p, want_p) <= 1e-4
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "jamba-1.5-large-398b",
-                                  "xlstm-350m", "llama-3.2-vision-90b",
-                                  "whisper-tiny"])
-def test_unported_families_raise_naming_the_queue(arch):
-    """The families not ported yet (MLA, the Mamba hybrid, xLSTM, the VLM's
-    cross-attention, the encoder-decoder), built field for field from the
-    reference's SMOKE configs, raise NotImplementedError naming ROADMAP
-    queue 1 item 6 at init_params, init_cache and the attention guard."""
+def _port_config(arch):
+    """The reference's SMOKE config of ``arch``, built field for field as
+    the port's ModelConfig."""
     from repro_torch.configs import ModelConfig, MoEConfig
-    from repro_torch.models import attention, init_cache
     j = j_get_config(arch, smoke=True)
     kw = dict(j.__dict__)
     if j.moe is not None:
         kw["moe"] = MoEConfig(**j.moe.__dict__)
-    cfg = ModelConfig(**kw)
+    return ModelConfig(**kw)
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "xlstm-350m",
+                                  "llama-3.2-vision-90b", "whisper-tiny"])
+def test_unported_families_raise_naming_the_queue(arch):
+    """The families not ported yet (the Mamba hybrid, xLSTM, the VLM's
+    cross-attention, the encoder-decoder), built field for field from the
+    reference's SMOKE configs, raise NotImplementedError naming ROADMAP
+    queue 1 item 6 at init_params and init_cache."""
+    from repro_torch.models import init_cache
+    cfg = _port_config(arch)
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
         init_cache(cfg, 1, 8, device="cpu")
-    if cfg.attn_impl == "mla":
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-            attention.gqa_attention(cfg, {}, torch.zeros(1, 4, 64),
-                                    torch.zeros(1, 4, dtype=torch.int64))
+
+
+def test_gqa_functions_refuse_an_mla_config():
+    """deepseek-v2-236b's MLA config has no GQA projections: the GQA
+    functions (gqa_attention, gqa_decode) still raise NotImplementedError
+    naming ROADMAP queue 1 item 6 on it."""
+    from repro_torch.models import attention
+    cfg = _port_config("deepseek-v2-236b")
+    assert cfg.attn_impl == "mla"
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        attention.gqa_attention(cfg, {}, torch.zeros(1, 4, 64),
+                                torch.zeros(1, 4, dtype=torch.int64))
+    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        attention.gqa_decode(cfg, {}, torch.zeros(1, 1, 64), {}, 0)
 
 
 def test_converter_round_trips_moe_and_cache_trees():

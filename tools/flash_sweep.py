@@ -38,7 +38,8 @@ LOOP_TOP = """    const int next = (t + 1) & 1;  // the stage of tile t + 1
     cp_async_wait<1>();  // K of tile t (V of tile t may still be in flight)
     __syncthreads();     // ... and every warp is done with tile t - 1's K
     if (t + 1 < n_tiles) {
-      tc_load<D, kTcBK>(Ks + next * kTcBK * LD, kp, L.k[2], k_lo + kTcBK, S);
+      tc_load<DQK, kTcBK>(Ks + next * kTcBK * LD, kp, L.k[2], k_lo + kTcBK,
+                          S);
       cp_async_commit();
     }
 """
@@ -49,7 +50,8 @@ V_WAIT = """    // V of tile t; then every warp is done with tile t - 1's V
       cp_async_wait<0>();
     __syncthreads();
     if (t + 1 < n_tiles) {
-      tc_load<D, kTcBK>(Vs + next * kTcBK * LD, vp, L.v[2], k_lo + kTcBK, S);
+      tc_load<DV, kTcBK>(Vs + next * kTcBK * LDV, vp, L.v[2], k_lo + kTcBK,
+                         S);
       cp_async_commit();
     }
 """
@@ -63,12 +65,12 @@ VARIANTS = {
         ("        mma_bf16(acc[2 * dp + 1], pl, vb[2], vb[3]);\n", "")],
     # K and V of a tile in one cp.async group, waited for together
     "K and V in one group": [
-        ("  cp_async_commit();\n  tc_load<D, kTcBK>(Vs, vp, L.v[2], k_begin, S);",
-         "  tc_load<D, kTcBK>(Vs, vp, L.v[2], k_begin, S);"),
+        ("  cp_async_commit();\n  tc_load<DV, kTcBK>(Vs, vp, L.v[2], k_begin, S);",
+         "  tc_load<DV, kTcBK>(Vs, vp, L.v[2], k_begin, S);"),
         (LOOP_TOP, """    const int next = (t + 1) & 1;
     if (t + 1 < n_tiles) {
-      tc_load<D, kTcBK>(Ks + next * kTcBK * LD, kp, L.k[2], k_lo + kTcBK, S);
-      tc_load<D, kTcBK>(Vs + next * kTcBK * LD, vp, L.v[2], k_lo + kTcBK, S);
+      tc_load<DQK, kTcBK>(Ks + next * kTcBK * LD, kp, L.k[2], k_lo + kTcBK, S);
+      tc_load<DV, kTcBK>(Vs + next * kTcBK * LDV, vp, L.v[2], k_lo + kTcBK, S);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -102,35 +104,15 @@ VARIANTS = {
         ("alpha[r] = exp2f(", "alpha[r] = ex2a("),
         ("const float p = exp2f(", "const float p = ex2a(")],
 }
-QF_IN_SMEM = [
-    ("  uint32_t qf[KD][4];\n", ""),
-    ("""    if (t == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        const int r = 16 * warp + (lane % 8) + ((lane / 8) % 2) * 8;
-        ldmatrix_x4(qf[kk], smem_addr(Qs + r * LD + kk * 16 +
-                                      (lane / 16) * 8));
-      }
-    }
-""", ""),
-    ("""    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {""", """    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qk[4];
-      ldmatrix_x4(qk, smem_addr(Qs + (16 * warp + (lane % 8) +
-                                      ((lane / 8) % 2) * 8) * LD +
-                                kk * 16 + (lane / 16) * 8));
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {"""),
-    ("mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);",
-     "mma_bf16(s[2 * np], qk, kb[0], kb[1]);"),
-    ("mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);",
-     "mma_bf16(s[2 * np + 1], qk, kb[2], kb[3]);")]
+# Q's fragments read from shared memory at every k-step (the kernel's
+# choice at d_qk = 192) at every head dim
+QF_IN_SMEM = [("constexpr bool kQRegs = DQK <= 128;",
+               "constexpr bool kQRegs = false;")]
 PV_LOOP = """#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vb[4];
         const int r = j * 16 + ((lane / 8) % 2) * 8 + (lane % 8);
-        ldmatrix_x4_trans(vb, smem_addr(Vt + r * LD + dp * 16 +
+        ldmatrix_x4_trans(vb, smem_addr(Vt + r * LDV + dp * 16 +
                                         (lane / 16) * 8));
         mma_bf16(acc[2 * dp], ph, vb[0], vb[1]);
         mma_bf16(acc[2 * dp], pl, vb[0], vb[1]);
@@ -141,17 +123,17 @@ VARIANTS.update({
     # Q's fragments read from shared memory at every tile, not held
     "Q fragments from smem": QF_IN_SMEM,
     # all the P_hi MMAs of a 16-column step, then all the P_lo ones
-    "hi pass, then lo pass": QF_IN_SMEM + [(PV_LOOP, """      uint32_t vb[D / 16][4];
+    "hi pass, then lo pass": QF_IN_SMEM + [(PV_LOOP, """      uint32_t vb[DV / 16][4];
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         const int r = j * 16 + ((lane / 8) % 2) * 8 + (lane % 8);
-        ldmatrix_x4_trans(vb[dp], smem_addr(Vt + r * LD + dp * 16 +
+        ldmatrix_x4_trans(vb[dp], smem_addr(Vt + r * LDV + dp * 16 +
                                             (lane / 16) * 8));
         mma_bf16(acc[2 * dp], ph, vb[dp][0], vb[dp][1]);
         mma_bf16(acc[2 * dp + 1], ph, vb[dp][2], vb[dp][3]);
       }
 #pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         mma_bf16(acc[2 * dp], pl, vb[dp][0], vb[dp][1]);
         mma_bf16(acc[2 * dp + 1], pl, vb[dp][2], vb[dp][3]);
       }""")],
@@ -166,10 +148,10 @@ VARIANTS.update({
         acc[2 * dp + 1][1] += __uint_as_float((pl[2] ^ vb[2]) & 0x3c00ffffu);""")],
     # diagnostic, output wrong: Q·K^T's MMAs replaced likewise
     "no Q·K^T MMAs (diagnostic)": [(
-        """        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);""",
-        """        s[2 * np][kk % 4] += __uint_as_float((qf[kk][0] ^ kb[0]) & 0x3c00ffffu);
-        s[2 * np + 1][kk % 4] += __uint_as_float((qf[kk][1] ^ kb[2]) & 0x3c00ffffu);""")],
+        """        mma_bf16(s[2 * np], qk, kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qk, kb[2], kb[3]);""",
+        """        s[2 * np][kk % 4] += __uint_as_float((qk[0] ^ kb[0]) & 0x3c00ffffu);
+        s[2 * np + 1][kk % 4] += __uint_as_float((qk[1] ^ kb[2]) & 0x3c00ffffu);""")],
     # diagnostic, output wrong: each warp reads a quarter of the K and V
     # fragments from shared memory (the first of every four, reused)
     "K, V fragments read 4x less (diagnostic)": [
@@ -182,11 +164,11 @@ VARIANTS.update({
       for (int np = 0; np < NS / 2; ++np) {
         const int n = np * 16 + (lane / 16) * 8 + (lane % 8);
         if (np == 0) ldmatrix_x4("""),
-        ("""      for (int dp = 0; dp < D / 16; ++dp) {
+        ("""      for (int dp = 0; dp < DV / 16; ++dp) {
         uint32_t vb[4];
         const int r = j * 16 + ((lane / 8) % 2) * 8 + (lane % 8);
         ldmatrix_x4_trans(""", """      uint32_t vb[4];
-      for (int dp = 0; dp < D / 16; ++dp) {
+      for (int dp = 0; dp < DV / 16; ++dp) {
         const int r = j * 16 + ((lane / 8) % 2) * 8 + (lane % 8);
         if (dp % 4 == 0) ldmatrix_x4_trans(""")],
 })
@@ -229,9 +211,9 @@ def main() -> int:
         for line in log.splitlines():
             m = chip_smoke.FLASH_KERNEL.search(line)
             if m:
-                kernel = f"{m.group(1)}<{m.group(2)}>"
+                kernel = chip_smoke.flash_name(m)
             used = re.search(r"Used (\d+) registers", line)
-            if used and kernel == "flash_fwd_bf16_kernel<128>":
+            if used and kernel == "flash_fwd_bf16_kernel<128, 128>":
                 regs[name] = int(used.group(1))
         fn = ctypes.CDLL(str(so)).flash_attention_launch
         fn.argtypes = build.SIGNATURES["flash_attention_launch"]
@@ -246,7 +228,8 @@ def main() -> int:
         B, H, S, d = q.shape
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), None,
                  *fa._strides(q), *fa._strides(k), *fa._strides(v),
-                 *fa._strides(o), B, H, k.shape[1], S, d, 1, d ** -0.5, 1, 0,
+                 *fa._strides(o), B, H, k.shape[1], S, d, d, 1, d ** -0.5, 1,
+                 0,
                  torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash sweep")
         return o
