@@ -11,7 +11,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      flash_attention.cu, flash_attention_bwd.cu, zo_update.cu and
      threefry.cu with -Xptxas -v: the kernels' registers, shared memory,
      stack frames and spills are printed (the bf16 flash kernels and every
-     flash backward kernel must not spill); the built library's
+     flash backward kernel, each (d_qk, d_v) pair's, must not spill); the
+     built library's
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
      cuobjdump), the zo kernels' SASS mix by opcode class is printed per
@@ -37,17 +38,20 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      pair norm against two plain norms at the qwen3-14b qk-norm shapes;
      the backward kernels (flash_attention_bwd, bf16 and f32, at path 5's
      shape and qwen3-14b's with GQA 40/8, causal and with a window, its
-     forward's lse beside it; rmsnorm_bwd at the qwen3-14b block and
-     qk-norm shapes) against their plain versions, f32 within 1e-5 and
-     bf16 within one bf16 ulp of each gradient's largest magnitude, with
-     the autograd backward of scaled_dot_product_attention and of
+     forward's lse beside it, and at MLA's (192, 128) pair at (1,128,512)
+     and (1,128,4096) with v and dO strided views; rmsnorm_bwd at the
+     qwen3-14b block and qk-norm shapes and at MLA's kv_norm and q_norm
+     widths 512 and 1536) against their plain versions, f32 within 1e-5
+     and bf16 within one bf16 ulp of each gradient's largest magnitude,
+     with the autograd backward of scaled_dot_product_attention and of
      F.rms_norm timed beside them;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
      olmo-1b, and MU-SplitFed and GAS on mixtral-8x22b SMOKE widened to
      d_head 64 and on deepseek-v2-236b SMOKE widened to MLA's (192, 128);
-     FedAvg with SGD and AdamW, FedLoRA) and small f32 serving
+     FedAvg with SGD and AdamW, FedLoRA, and FedAvg with SGD on
+     deepseek-v2-236b at (192, 128)) and small f32 serving
      (mixtral-8x22b past its window, qwen3-14b, deepseek-v2-236b), then
      the seven training paths through the
      training driver (``launch.train``:
@@ -123,11 +127,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      2 shared), a 4096-token prompt and 16 new tokens in bf16, then a
      512-token prompt and 8 tokens in f32 at capacity factor 160/6, each
      decode step held against logits_fn; (b) one MU-SplitFed round of
-     (a)'s model through the driver, as path 8 (c);
+     (a)'s model through the driver, as path 8 (c); (c) one FedAvg round
+     of (a)'s model with 32 of its 160 routed experts through the driver
+     (the flash backward at (192, 128), M·L launches, and the rmsnorm
+     backward, M·(4·L + 1)), its peak beside the reckoning;
   5. one JSON line with every kernel's numbers (launches summed over the
-     paths; the flash row carries its MLA instance's numbers under
-     "mla", with the launches the wrapper counted at the (192, 128)
-     pair), then the result line.
+     paths; the flash row and the flash backward's row carry their MLA
+     instance's numbers under "mla", with the launches the wrappers
+     counted at the (192, 128) pair, and the rmsnorm backward's row its
+     MLA widths'), then the result line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
 noise kernels at the path leaves, with the SM clock read by nvidia-smi
@@ -209,10 +217,15 @@ PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
                          r"threefry_update|threefry_sumsq)_kernel<[^>]*>|"
                          r"threefry_sumsq_kernel|rmsnorm_dscale_reduce_kernel|"
                          r"flash_bwd_dkdv_sum_kernel")
-# operations of the flash backward per unmasked (query, key) pair: S, dP,
-# dV, dK and dQ at 2·d each; of the RMSNorm backward per element
-FLASH_BWD_OPS_PER_D = 10
+# operations of the RMSNorm backward per element
 NORM_BWD_OPS = 10
+
+
+def flash_bwd_ops(d_qk: int, d_v: int) -> int:
+    """Operations of the flash backward per unmasked (query, key) pair: S,
+    dK and dQ at 2·d_qk each, dP and dV at 2·d_v each (10·d where the
+    dims are equal)."""
+    return 2 * (3 * d_qk + 2 * d_v)
 
 
 class SmokeFailure(RuntimeError):
@@ -443,20 +456,21 @@ def report_ptxas(out: str) -> None:
             f"(found {sorted(seen)})")
 
 
-# the backward's kernels: f32 and bf16 (``_bf16``) of each head dim, and
-# the bf16 dK/dV partials' sum
-BWD_KERNEL = re.compile(r"(flash_bwd_(?:delta|dkdv|dq)(?:_bf16)?_kernel)"
-                        r"ILi(\d+)E|(flash_bwd_dkdv_sum_kernel)")
-BWD_KERNELS = 13
+# the backward's kernels: f32 and bf16 (``_bf16``) of each (d_qk, d_v)
+# pair (Δ's of each d_v), and the bf16 dK/dV partials' sum of each pair
+BWD_KERNEL = re.compile(r"(flash_bwd_(?:delta|dkdv|dq|dkdv_sum)(?:_bf16)?"
+                        r"_kernel)ILi(\d+)E(?:Li(\d+)E)?")
+BWD_KERNELS = 19
 # the bf16 flash kernels that must run on the tensor cores (HMMA in SASS):
-# the forward's three (d_qk, d_v) pairs, the backward's two head dims
+# the forward's and the backward's dK/dV and dQ at the three pairs
 TC_KERNEL = re.compile(r"(flash_(?:fwd|bwd_dkdv|bwd_dq)_bf16_kernel)"
-                       r"ILi(\d+)E(?:Li(\d+)E)?")
-TC_KERNELS = 7
+                       r"ILi(\d+)ELi(\d+)E")
+TC_KERNELS = 9
 
 
 def bwd_name(m) -> str:
-    return m.group(3) or f"{m.group(1)}<{m.group(2)}>"
+    return m.group(1) + (f"<{m.group(2)}, {m.group(3)}>" if m.group(3)
+                         else f"<{m.group(2)}>")
 
 
 def report_ptxas_bwd(out: str) -> None:
@@ -497,9 +511,7 @@ def check_sass(lib: Path) -> None:
     for section in sass.split("Function : ")[1:]:
         m = TC_KERNEL.search(section.split("\n", 1)[0])
         if m:
-            name = (flash_name(m) if m.group(3)
-                    else f"{m.group(1)}<{m.group(2)}>")
-            counts[name] = section.count("HMMA")
+            counts[flash_name(m)] = section.count("HMMA")
     print(f"SASS ({tool.name} -sass): HMMA instructions {counts}")
     require(len(counts) == TC_KERNELS and min(counts.values()) > 0,
             f"no HMMA in the SASS of some bf16 flash kernel: {counts}")
@@ -1350,7 +1362,7 @@ def check_grad(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return d
 
 
-def bwd_grid(B: int, H: int, Hkv: int, S: int, d: int) -> str:
+def bwd_grid(B: int, H: int, Hkv: int, S: int, d: int, dv: int) -> str:
     """The bf16 flash backward's launch geometry at these shapes: one
     dK/dV block a (batch, query head, 64-row key tile), the kv group's
     H/Hkv partials summed by a fourth launch where there are more than one,
@@ -1359,9 +1371,9 @@ def bwd_grid(B: int, H: int, Hkv: int, S: int, d: int) -> str:
     from repro_torch.kernels import build
     lib = build.library()
     blocks, parts = B * H * -(-S // 64), H // Hkv
-    kv_smem, q_smem = (lib.flash_attention_bwd_smem_bytes(w, d)
+    kv_smem, q_smem = (lib.flash_attention_bwd_smem_bytes(w, d, dv)
                        for w in (0, 1))
-    kv_sm, q_sm = (lib.flash_attention_bwd_blocks_per_sm(w, d)
+    kv_sm, q_sm = (lib.flash_attention_bwd_blocks_per_sm(w, d, dv)
                    for w in (0, 1))
     return (f"dK/dV grid {blocks} blocks ({kv_sm} an SM, {kv_smem} bytes of "
             f"shared memory; {parts} partials a kv head"
@@ -1369,39 +1381,63 @@ def bwd_grid(B: int, H: int, Hkv: int, S: int, d: int) -> str:
             + f"), dQ grid {blocks} blocks ({q_sm} an SM, {q_smem} bytes)")
 
 
+# the flash backward's cases: (name, (B, H, Hkv, S, d_qk, d_v), causal,
+# window, dtypes); MLA's at path 9 (c)'s 128 heads (G = 1), at S = 512 (its
+# round) and 4096 (bf16 only: the plain version's f32 scores of that shape
+# take 8.6 GB each)
+BF16, F32 = "bfloat16", "float32"
+FLASH_BWD_CASES = (
+    ("path 5 (paper-opt-1.3b), d=64", (1, 32, 32, 512, 64, 64), True, 0,
+     (BF16, F32)),
+    ("qwen3-14b shape, GQA 40/8", (1, 40, 8, 512, 128, 128), True, 0,
+     (BF16, F32)),
+    ("qwen3-14b shape, window 128", (1, 40, 8, 512, 128, 128), True, 128,
+     (BF16, F32)),
+    ("MLA path 9 (c) round, (192, 128)", (1, 128, 128, 512, 192, 128), True,
+     0, (BF16, F32)),
+    ("MLA long, (192, 128)", (1, 128, 128, 4096, 192, 128), True, 0,
+     (BF16,)))
+
+
 def phase_flash_bwd(dev) -> dict:
     """The flash backward kernel against its plain version
-    (``ref.flash_attention_bwd_ref``, on the plain forward's o and lse) in
-    bf16 and f32 at path 5's shape (1,32,512,64) and at qwen3-14b's
-    (1,40,512,128) with 8 kv heads, causal and with a window of 128; v and
-    dO as strided views of (B, S, heads, d) buffers, as the model passes
-    them. The forward kernel's lse against the plain version's (relative
-    1e-5). Device time per call (device_ms) for bf16, beside the plain
-    version and the autograd backward of scaled_dot_product_attention on
-    the same inputs (causal cases; it takes no window), the port never
-    calling it. Bound: the larger of the bytes (q, k, v, o, dO and lse
-    read, dq, dk and dv written) over 3.35 TB/s and 10·d operations a
-    causal pair on the bf16 tensor cores."""
+    (``ref.flash_attention_bwd_ref``, on the plain forward's o and lse) at
+    FLASH_BWD_CASES: path 5's shape (1,32,512,64), qwen3-14b's
+    (1,40,512,128) with 8 kv heads, causal and with a window of 128, and
+    MLA's (d_qk, d_v) = (192, 128) at (1,128,512) and (1,128,4096); v and
+    dO as strided views of (B, S, heads, ·) buffers, as the model passes
+    them (MLA's v at offset 128 of each head's 256-wide row). bf16 within
+    2^-7·max|g| of each gradient, f32 within 1e-5 of it. The forward
+    kernel's lse against the plain version's (relative 1e-5). Device time
+    per call (device_ms) for bf16, beside the plain version and the
+    autograd backward of scaled_dot_product_attention on the same inputs
+    (causal cases; it takes no window; the backend named by its busiest
+    kernel), the port never calling it. Bound: the larger of the bytes
+    (q, k, v, o, dO and lse read, dq, dk and dv written) over 3.35 TB/s
+    and flash_bwd_ops(d_qk, d_v) operations a causal pair on the bf16
+    tensor cores. Returns path 5's numbers, qwen3's under "qwen3" and
+    MLA's under "mla" (its S = 4096 ones under "long")."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import (_launch_forward,
                                                      flash_attention_bwd)
     gen = torch.Generator(device=dev).manual_seed(4)
-    cases = [("path 5 (paper-opt-1.3b), d=64", (1, 32, 32, 512, 64), True,
-              0),
-             ("qwen3-14b shape, GQA 40/8", (1, 40, 8, 512, 128), True, 0),
-             ("qwen3-14b shape, window 128", (1, 40, 8, 512, 128), True,
-              128)]
     res = {"err": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for name, (B, H, Hkv, S, d), causal, window in cases:
-            what = f"flash bwd {name} {str(dtype)[6:]} ({B},{H},{S},{d})"
+        for name, (B, H, Hkv, S, d, dv), causal, window, dts in \
+                FLASH_BWD_CASES:
+            if str(dtype)[6:] not in dts:
+                continue
+            mla = d != dv
+            what = (f"flash bwd {name} {str(dtype)[6:]} ({B},{H},{S},{d}"
+                    + (f"/{dv})" if mla else ")"))
 
             def rnd(*shape):
                 return torch.randn(shape, generator=gen, device=dev).to(dtype)
             q, k = rnd(B, H, S, d), rnd(B, Hkv, S, d)
-            v = rnd(B, S, Hkv, d).transpose(1, 2)
-            do = rnd(B, S, H, d).transpose(1, 2)
+            v = (rnd(B, S, Hkv, 256)[..., 128:] if mla
+                 else rnd(B, S, Hkv, d)).transpose(1, 2)
+            do = rnd(B, S, H, dv).transpose(1, 2)
             o, lse = ref.flash_attention_ref(q, k, v, causal, window,
                                              return_lse=True)
             got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
@@ -1410,31 +1446,40 @@ def phase_flash_bwd(dev) -> dict:
                                                window)
             err = max(check_grad(f"{what} {g}", a, b)
                       for g, a, b in zip(("dq", "dk", "dv"), got, want))
+            del got, want
             res["err"] = max(res["err"], err)
-            ko, kl = torch.empty_like(q), torch.empty_like(lse)
+            ko = torch.empty(B, S, H, dv, dtype=dtype,
+                             device=dev).transpose(1, 2)
+            kl = torch.empty_like(lse)
             _launch_forward(q, k, v, ko, kl, causal, window)
             lse_err = float(((kl - lse).abs() / lse.abs().clamp(min=1)).max())
             require(lse_err <= 1e-5, f"{what}: forward lse {lse_err:.3e} "
                     f"off the plain version")
+            del ko, kl
             line = (f"{what}, Hkv {Hkv}, causal {causal}, window {window}: "
                     f"max|Δ| {err:.3e}, lse relative {lse_err:.3e}")
             if dtype == torch.float32:
                 print(line)
                 continue
-            n_qo = q.numel()
-            nbytes = 2 * (4 * n_qo + 4 * k.numel()) + 4 * lse.numel()
+            n_q, n_o = q.numel(), o.numel()
+            n_k, n_v = k.numel(), B * Hkv * S * dv
+            # q, k, v, o, dO and the lse read; dq, dk and dv written
+            nbytes = 2 * (2 * n_q + 2 * n_k + 2 * n_o + 2 * n_v) \
+                + 4 * lse.numel()
             sets = [(q, k, v, o, lse, do)] + [
                 tuple(t.clone() for t in (q, k, v, o, lse, do))
                 for _ in range(L2_BYTES // nbytes + 1)]
             per_kernel = {}
             ms = device_ms(lambda t: flash_attention_bwd(
-                *t, causal=causal, window=window), sets, 20,
-                by_kernel=per_kernel)
+                *t, causal=causal, window=window), sets, 20 if S <= 512
+                else 5, by_kernel=per_kernel)
+            torch.cuda.empty_cache()
             plain_ms = device_ms(lambda t: ref.flash_attention_bwd_ref(
-                *t, causal, window), sets, 5)
+                *t, causal, window), sets, 5 if S <= 512 else 2)
+            torch.cuda.empty_cache()
             require(min(ms, plain_ms) > 0,
                     f"{what}: the profiler recorded no device time")
-            lib_ms = None
+            lib_ms, backend = None, {}
             if window == 0:
                 graphs = []
                 for t in sets:
@@ -1444,33 +1489,42 @@ def phase_flash_bwd(dev) -> dict:
                         *qkv, is_causal=True, enable_gqa=H != Hkv)
                     graphs.append((out, qkv, t[5]))
                 lib_ms = device_ms(lambda g: torch.autograd.grad(
-                    g[0], g[1], g[2], retain_graph=True), graphs, 20)
+                    g[0], g[1], g[2], retain_graph=True), graphs,
+                    20 if S <= 512 else 5, by_kernel=backend)
                 require(lib_ms > 0, f"{what}: no device time for the "
                         f"library backward")
                 del graphs
-            b_ms, b_by = bound(nbytes, FLASH_BWD_OPS_PER_D * d * B * H
+            b_ms, b_by = bound(nbytes, flash_bwd_ops(d, dv) * B * H
                                * flash_pairs(S, causal, window),
                                "bf16_tensor")
             print(line + f"  kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
                   f"library (autograd backward of "
-                  f"scaled_dot_product_attention) "
-                  + ("n/a (no window)" if lib_ms is None
-                     else f"{lib_ms:.4f} ms")
+                  f"scaled_dot_product_attention"
+                  + ("" if lib_ms is None else f", {top_kernel(backend)}")
+                  + ") " + ("n/a (no window)" if lib_ms is None
+                            else f"{lib_ms:.4f} ms")
                   + f"  bound {b_ms:.4f} ms ({b_by})")
-            print(f"  {bwd_grid(B, H, Hkv, S, d)}; per launch: " + ", ".join(
-                f"{PORT_KERNEL.search(key).group(0)} {t * 1e3:.2f} us"
-                for key, t in sorted(per_kernel.items(),
-                                     key=lambda kt: -kt[1])
-                if PORT_KERNEL.search(key)))
+            print(f"  {bwd_grid(B, H, Hkv, S, d, dv)}; per launch: "
+                  + ", ".join(
+                      f"{PORT_KERNEL.search(key).group(0)} {t * 1e3:.2f} us"
+                      for key, t in sorted(per_kernel.items(),
+                                           key=lambda kt: -kt[1])
+                      if PORT_KERNEL.search(key)))
+            nums = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by,
+                        shape=f"({B},{H},{S},{d}" + (f"/{dv}" if mla else "")
+                        + f") bf16 causal, Hkv={Hkv}"
+                        + (", v and dO strided views" if mla else ""))
             if "path 5" in name:
-                res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by,
-                           shape=f"({B},{H},{S},{d}) bf16 causal, "
-                                 f"Hkv={Hkv}")
+                res.update(nums)
+            elif mla:
+                m = res.setdefault("mla", {"max_abs_err": 0.0})
+                m["max_abs_err"] = max(m["max_abs_err"], err)
+                m.update(nums if S <= 512 else {"long": nums})
             elif window == 0:
-                res["qwen3"] = dict(ms=ms, plain_ms=plain_ms,
-                                    library_ms=lib_ms, bound_ms=b_ms)
-            del sets
+                res["qwen3"] = nums
+            del sets, q, k, v, do, o, lse
+            torch.cuda.empty_cache()
     return res
 
 
@@ -1478,11 +1532,12 @@ def phase_rmsnorm_bwd(dev) -> dict:
     """The rmsnorm backward (dx, and dscale in f32 summed over the rows)
     against ``ref.rmsnorm_bwd_ref`` at the qwen3-14b path's shapes: the
     block norms' rows of 5120 and the qk-norm pair's q and k rows of 128
-    (the pair's backward is one launch each), bf16 and f32, with the
+    (the pair's backward is one launch each), and path 9 (c)'s MLA norms'
+    rows of 512 (kv_norm) and 1536 (q_norm), bf16 and f32, with the
     autograd backward of F.rms_norm timed beside it (the port never calls
     it). Times are device time per call (device_ms), cycling past L2.
     Bound: bytes (x and dy read, dx written, the scale read and dscale
-    written)."""
+    written). The MLA widths' numbers come back under "mla"."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd
@@ -1491,8 +1546,12 @@ def phase_rmsnorm_bwd(dev) -> dict:
     cases = [("block norm (qwen3-14b)", (1, 512, 5120), bf16),
              ("qk-norm q", (1, 512, 40, 128), bf16),
              ("qk-norm k", (1, 512, 8, 128), bf16),
+             ("MLA kv_norm", (1, 512, 512), bf16),
+             ("MLA q_norm", (1, 512, 1536), bf16),
              ("block norm", (1, 512, 5120), f32),
              ("qk-norm q", (1, 512, 40, 128), f32),
+             ("MLA kv_norm", (1, 512, 512), f32),
+             ("MLA q_norm", (1, 512, 1536), f32),
              ("ragged rows, D=1030", (77, 1030), f32)]
     res = {"err": 0.0, "pair_ms": 0.0}
     for name, shape, dtype in cases:
@@ -1533,6 +1592,10 @@ def phase_rmsnorm_bwd(dev) -> dict:
             res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by,
                        shape=f"{shape} bf16, f32 scale")
+        elif "MLA" in name:
+            res.setdefault("mla", {})[name[4:]] = dict(
+                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, shape=f"{shape} bf16, f32 scale")
         else:
             res["pair_ms"] += ms
         del sets, graphs
@@ -1627,12 +1690,17 @@ def small_rounds(dev, arch: str, n_kv_heads: int, cases):
                 f"small round ({what}): card and CPU disagree")
 
 
-# learning rates of the small first-order rounds: AdamW at the repo's
-# first-order default (TrainConfig.lr), where its first step's sign-like
-# direction g/(|g| + 1e-8) keeps rounding-level gradients from moving an
-# element by more than the check's 1e-4
-FO_SMALL = (("fedavg", "sgd", 1e-2), ("fedavg", "adamw", 1e-3),
-            ("fedlora", "sgd", 1e-2))
+# the small first-order rounds: (algorithm, optimizer, learning rate,
+# arch), AdamW at the repo's first-order default (TrainConfig.lr), where
+# its first step's sign-like direction g/(|g| + 1e-8) keeps rounding-level
+# gradients from moving an element by more than the check's 1e-4 on
+# olmo-1b (on deepseek-v2-236b's MLA it moved one by 2.7e-4, so MLA's
+# round runs SGD here; its AdamW round is held against the reference on
+# the CPU, tests/test_torch_mla_grad.py)
+FO_SMALL = (("fedavg", "sgd", 1e-2, "olmo-1b"),
+            ("fedavg", "adamw", 1e-3, "olmo-1b"),
+            ("fedlora", "sgd", 1e-2, "qwen3-14b"),
+            ("fedavg", "sgd", 1e-2, "deepseek-v2-236b"))
 
 
 def phase_small_fo(dev):
@@ -1640,24 +1708,25 @@ def phase_small_fo(dev):
     forward and backward kernels) against the same round on the CPU (their
     plain versions), within 1e-4: FedAvg with SGD and with AdamW on olmo-1b
     (d_head 64), FedLoRA on qwen3-14b with qk-norm and GQA (d_head 64, two
-    query heads a kv head)."""
+    query heads a kv head), FedAvg with SGD on deepseek-v2-236b's MLA at
+    (192, 128) (the flash backward at that pair, the rmsnorm backward of
+    its kv_norm and q_norm), each widened by ``card_smoke_config``."""
     import numpy as np
-    from repro_torch.configs import get_config
+    from repro_torch.configs import card_smoke_config
     from repro_torch.core import prng
     from repro_torch.core.baselines import fedavg_round, fedlora_round
     from repro_torch.kernels import build
     from repro_torch.models import init_params, untie_params
     from repro_torch.optim import init_lora
     from repro_torch.utils import tree
-    for algorithm, optimizer, lr in FO_SMALL:
-        arch = "olmo-1b" if algorithm == "fedavg" else "qwen3-14b"
-        cfg = get_config(arch, smoke=True).replace(
-            d_model=128, n_heads=2, n_kv_heads=2 if algorithm == "fedavg"
-            else 1, dtype="float32")
+    for algorithm, optimizer, lr, arch in FO_SMALL:
+        cfg = card_smoke_config(arch, 2 if arch == "olmo-1b" else 1)
         params = untie_params(cfg, init_params(
             cfg, torch.Generator().manual_seed(0)))
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                  (2, 2, 64))
+        keys = ("flash_attention_bwd", "rmsnorm_bwd",
+                "flash_attention_bwd (192, 128)")
         outs = {}
         for d in ("cpu", dev):
             p = tree.tree_map(lambda a: a.to(d), params)
@@ -1673,16 +1742,18 @@ def phase_small_fo(dev):
                                                       prng.PRNGKey(0)),
                                     b, mask, lr, eta_g=0.3)
             outs[str(d)] = (tree.leaves(out), {
-                k: build.LAUNCHES[k] - before.get(k, 0)
-                for k in ("flash_attention_bwd", "rmsnorm_bwd")})
+                k: build.LAUNCHES[k] - before.get(k, 0) for k in keys})
         (want, _), (got, n) = outs["cpu"], outs[str(dev)]
         err = max(max_err(a.cpu(), b) for a, b in zip(got, want))
-        what = f"{algorithm} ({optimizer}, lr {lr})"
+        what = f"{arch} {algorithm} ({optimizer}, lr {lr})"
         print(f"small f32 first-order round ({what}), card vs CPU: max|Δ| "
               f"{err:.3e}; backward launches on the card {n}")
         require(err <= 1e-4, f"small round ({what}): card and CPU disagree")
+        mla = cfg.attn_impl == "mla"
         require(n["flash_attention_bwd"] > 0 and (
-            algorithm == "fedavg" or n["rmsnorm_bwd"] > 0),
+            algorithm == "fedavg" or n["rmsnorm_bwd"] > 0) and (
+            not mla or min(n["rmsnorm_bwd"],
+                           n["flash_attention_bwd (192, 128)"]) > 0),
             f"small round ({what}): a backward kernel did not launch")
 
 
@@ -2753,6 +2824,57 @@ SERVE_DEEPSEEK_F32 = dict(batch=1, prompt_len=512, gen=8, steps=(1, 4, 8))
 DEEPSEEK_ARGV = ["--arch", "deepseek-v2-236b", "--clients", "2", "--tau",
                  "2", "--batch", "1", "--seq", "512", "--rounds", "1",
                  "--chunk-size", "1", "--aggregation", "seed_replay"]
+# path 9 (c): one FedAvg round of (a)'s model through the driver (SGD at
+# the driver's defaults), its routed experts also cut, to
+# DEEPSEEK_FO_EXPERTS of 160 (top-6 and the 2 shared kept): a FedAvg round
+# holds a client's copy, its gradients and an f32 running sum beside the
+# parameters; path 5's peaked at FO_ROUND_BYTES_PER_PARAM_BYTE = 6.6x its
+# parameter bytes (17.37 GiB for paper-opt-1.3b's 2.634), which at 160
+# experts (24.15 GiB) is 160 GiB. 32 experts: 3 x 951.5 M + 1,049 M =
+# 3.90 B parameters, 7.27 GiB, a reckoned 48 GiB
+DEEPSEEK_FO_EXPERTS = 32
+DEEPSEEK_FO_ARGV = ["--arch", "deepseek-v2-236b", "--clients", "2",
+                    "--batch", "1", "--seq", "512", "--rounds", "1",
+                    "--chunk-size", "1", "--algorithm", "fedavg"]
+FO_ROUND_BYTES_PER_PARAM_BYTE = 6.6
+
+
+def mla_fo_round(dev, ds) -> dict:
+    """Path 9 (c): one FedAvg round of ``ds`` with DEEPSEEK_FO_EXPERTS
+    routed experts through the driver (``DEEPSEEK_FO_ARGV``) with
+    ``drive``: the flash forward and backward at (192, 128) and the
+    rmsnorm forward and backward must launch, the backward exactly M·L
+    times at that pair (each client's one backward a layer) and the
+    rmsnorm backward M·(4·L + 1) (norm1, norm2, q_norm and kv_norm a
+    layer, and the final norm); the loss finite, the parameters moved;
+    the peak printed against FO_ROUND_BYTES_PER_PARAM_BYTE times the
+    parameter bytes. Returns the launches."""
+    from repro_torch.launch import train
+    from repro_torch.models import param_count
+    cfg = ds.replace(moe=dataclasses.replace(
+        ds.moe, n_experts=DEEPSEEK_FO_EXPERTS))
+    name = (f"FedAvg path (9c) deepseek-v2-236b ({DEEPSEEK_LAYERS} of 60 "
+            f"layers, {DEEPSEEK_FO_EXPERTS} of 160 routed experts)")
+    torch.cuda.empty_cache()
+    run = train.setup(DEEPSEEK_FO_ARGV, cfg=cfg)
+    gib = param_count(run.params) * 2 / 2 ** 30
+    _, _, n, chunks = drive(dev, name, run, run.sfl, (
+        "flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"))
+    M, L = run.sfl.n_clients, DEEPSEEK_LAYERS
+    require(n.get("flash_attention_bwd (192, 128)") == M * L
+            and n.get("flash_attention_bwd") == M * L
+            and n.get("rmsnorm_bwd") == M * (4 * L + 1),
+            f"{name}: launches {n}, not {M * L} flash backwards at "
+            f"(192, 128) and {M * (4 * L + 1)} rmsnorm backwards")
+    peak = max(c[2] for c in chunks)
+    print(f"{name}: a round {chunks[0][1]:.3f} s, peak {peak:.2f} GiB "
+          f"against the reckoning {FO_ROUND_BYTES_PER_PARAM_BYTE} x "
+          f"{gib:.2f} GiB of parameters = "
+          f"{FO_ROUND_BYTES_PER_PARAM_BYTE * gib:.1f} GiB; measured ratio "
+          f"{peak / gib:.3f}")
+    del run
+    torch.cuda.empty_cache()
+    return n
 
 
 def phase_mla(dev) -> dict:
@@ -2768,8 +2890,12 @@ def phase_mla(dev) -> dict:
          F32_DECODE_TOL of logits_fn on prompt and tokens;
       b. one MU-SplitFed round of (a)'s model through the driver
          (``DEEPSEEK_ARGV``: counter noise, seed replay, M=2, tau=2, batch
-         1, seq 512), ``moe_round``.
-    Prints each part's seconds; returns the launches summed over a-b."""
+         1, seq 512), ``moe_round``;
+      c. one FedAvg round of (a)'s model with 32 of its 160 routed
+         experts through the driver (``DEEPSEEK_FO_ARGV``), the flash
+         backward at (192, 128) and the rmsnorm backward at 5120, 1536
+         and 512 under autograd, ``mla_fo_round``.
+    Prints each part's seconds; returns the launches summed over a-c."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count
     t_path = time.perf_counter()
@@ -2816,6 +2942,9 @@ def phase_mla(dev) -> dict:
     add(moe_round(dev, f"MoE round path (9b) deepseek-v2-236b "
                   f"({DEEPSEEK_LAYERS} of 60 layers)", DEEPSEEK_ARGV, ds))
     print(f"MoE round path (9b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(mla_fo_round(dev, ds))
+    print(f"FedAvg path (9c): {time.perf_counter() - t0:.1f} s")
     print(f"MLA path: deepseek-v2-236b prefill {st['prefill_ms']:.1f} ms, "
           f"decode {st['decode_ms']:.2f} ms a step, {st['tok_s']:.1f} "
           f"tokens/s, peak {st['peak']:.2f} GiB; path 9 "
@@ -2973,6 +3102,14 @@ def main() -> int:
     flash["err"] = max(flash["err"], flash_mla["err"])
     flash["mla"] = {"launches": launches[mla_key],
                     "max_abs_err": flash_mla.pop("err"), **flash_mla}
+    # and the backward's row its (192, 128) instance's, launched on path 9
+    # (c) under autograd
+    mla_bwd = "flash_attention_bwd (192, 128)"
+    require(launches.get(mla_bwd, 0) > 0,
+            "the flash backward's (192, 128) pair was launched on no path")
+    flash_bwd["mla"] = {"launches": launches[mla_bwd],
+                        "replaces": "src/repro/models/attention.py:262",
+                        **flash_bwd["mla"]}
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": source, "replaces": rep,

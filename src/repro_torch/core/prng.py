@@ -23,22 +23,24 @@ ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = _U32(0x1BD11BDA)
 
 
-def _rotl(x: np.ndarray, r: int) -> np.ndarray:
-    return (x << _U32(r)) | (x >> _U32(32 - r))
-
-
 def threefry2x32(key, x0, x1):
-    """The Threefry-2x32 block cipher (20 rounds) over uint32 arrays."""
+    """The Threefry-2x32 block cipher (20 rounds) over uint32 arrays (in
+    place on two new arrays: the inputs are not written)."""
     k0, k1 = _U32(key[0]), _U32(key[1])
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = np.asarray(x0, _U32) + ks[0]
     x1 = np.asarray(x1, _U32) + ks[1]
+    t = np.empty_like(x1)
     for i in range(5):
         for r in ROTATIONS[i % 2]:
-            x0 = x0 + x1
-            x1 = _rotl(x1, r) ^ x0
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3] + _U32(i + 1)
+            x0 += x1
+            np.left_shift(x1, _U32(r), out=t)       # x1 = rotl(x1, r) ^ x0
+            x1 >>= _U32(32 - r)
+            x1 |= t
+            x1 ^= x0
+        x0 += ks[(i + 1) % 3]
+        x1 += ks[(i + 2) % 3]
+        x1 += _U32(i + 1)
     return x0, x1
 
 

@@ -15,8 +15,9 @@ no nvcc. Nothing is taken from outside the repository but the CUDA toolkit.
 Every C entry point returns ``cudaGetLastError()`` after its launch; the
 wrappers raise on a nonzero code. ``LAUNCHES`` counts the launches each
 wrapper made, so a run can show that its main path went through the
-kernels; the flash forward's are also counted by head-dim pair, under
-``"flash_attention (d_qk, d_v)"``.
+kernels; the flash forward's and backward's are also counted by head-dim
+pair, under ``"flash_attention (d_qk, d_v)"`` and
+``"flash_attention_bwd (d_qk, d_v)"``.
 """
 from __future__ import annotations
 
@@ -61,17 +62,17 @@ SIGNATURES = {
         ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_int,
                               _VOIDP),
     # q, k, v, o, dout, lse, dq, dk, dv, f32 scratch, then the (batch,
-    # head, row) strides of q, k, v, o and dout, B, H, Hkv, S, D, dtype,
-    # scale, causal, window, stream
+    # head, row) strides of q, k, v, o and dout, B, H, Hkv, S, D (q and k),
+    # Dv (v, o and dout), dtype, scale, causal, window, stream
     "flash_attention_bwd_launch": (_VOIDP,) * 10 + (ctypes.c_longlong,) * 15
-    + (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-       ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int, _VOIDP),
-    # B, H, Hkv, S, D, dtype: the floats of the backward's scratch
-    "flash_attention_bwd_scratch_floats": (ctypes.c_int,) * 6,
-    # kernel (0 dK/dV, 1 dQ), D: a bf16 backward launch's dynamic shared
-    # memory; blocks that fit an SM
-    "flash_attention_bwd_smem_bytes": (ctypes.c_int, ctypes.c_int),
-    "flash_attention_bwd_blocks_per_sm": (ctypes.c_int, ctypes.c_int),
+    + (ctypes.c_int,) * 7 + (ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             _VOIDP),
+    # B, H, Hkv, S, D, Dv, dtype: the floats of the backward's scratch
+    "flash_attention_bwd_scratch_floats": (ctypes.c_int,) * 7,
+    # kernel (0 dK/dV, 1 dQ), D, Dv: a bf16 backward launch's dynamic
+    # shared memory; blocks that fit an SM
+    "flash_attention_bwd_smem_bytes": (ctypes.c_int,) * 3,
+    "flash_attention_bwd_blocks_per_sm": (ctypes.c_int,) * 3,
     # D, Dv, dtype: a launch's dynamic shared memory; blocks that fit an SM
     "flash_attention_smem_bytes": (ctypes.c_int,) * 3,
     "flash_attention_blocks_per_sm": (ctypes.c_int,) * 3,

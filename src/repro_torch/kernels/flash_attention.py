@@ -5,9 +5,9 @@
 Causal and/or sliding-window attention with GQA. A CUDA tensor launches
 the kernel (or raises): bf16 runs the tensor-core forward and backward,
 f32 the scalar ones. A CPU tensor takes the plain versions in
-``kernels/ref.py``. The forward takes the head-dim pairs (d_qk, d_v) in
+``kernels/ref.py``. Both directions take the head-dim pairs (d_qk, d_v) in
 ``HEAD_DIMS``: q and k d_qk wide, v and o d_v wide, scaled by 1/√d_qk;
-(192, 128) is MLA's (deepseek-v2), which the backward does not take.
+(192, 128) is MLA's (deepseek-v2).
 
 Two routes, chosen by autograd's state and never by what the kernels take:
 - forward only (``torch.inference_mode()``, ``no_grad``, or no input that
@@ -17,11 +17,8 @@ Two routes, chosen by autograd's state and never by what the kernels take:
   ``_FlashAttention``, a ``torch.autograd.Function``. Its forward launches
   the same kernel with the row log-sum-exp as a second output and saves
   q, k, v, o and the lse; its backward launches
-  ``flash_attention_bwd``. What the kernels do not take (a head dim, a
-  dtype) raises on both routes, and so does a d_v other than d_qk, on
-  both devices and before anything runs: the backward kernels are built
-  for d_v = d_qk only (the MLA flash backward is queued in ROADMAP.md,
-  queue 1, item 6), and no plain version stands in for them.
+  ``flash_attention_bwd``. What the kernels do not take (a head-dim pair,
+  a dtype) raises on both routes; no plain version stands in for them.
 """
 from __future__ import annotations
 
@@ -32,7 +29,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 
-# (d_qk, d_v) pairs of the forward kernels; the backward takes the first two
+# (d_qk, d_v) pairs of the forward and backward kernels
 HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -66,17 +63,6 @@ def _check_shapes(q, k, v) -> None:
     if k.shape != (B, Hkv, S, d) or v.shape[:3] != k.shape[:3] or H % Hkv:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-
-
-def _require_square(what: str, q: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise NotImplementedError where v's head dim differs from q's: the
-    backward kernels take d_v = d_qk only."""
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(
-            f"{what}: no backward at head dims ({q.shape[-1]}, "
-            f"{v.shape[-1]}); the MLA flash backward is not written yet "
-            f"(ROADMAP.md, queue 1, item 6): run MLA attention without a "
-            f"gradient (torch.no_grad or torch.inference_mode)")
 
 
 def _check_cuda(what: str, *ts: torch.Tensor) -> None:
@@ -116,10 +102,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     kernels read as they lie (``_fits``) are read in place, others are
     copied first; the gradients come back contiguous, in the inputs' type.
     A CUDA tensor launches the backward kernel (or raises); a CPU tensor takes
-    ``ref.flash_attention_bwd_ref``. d_v must equal d_qk."""
-    _require_square("flash_attention_bwd", q, v)
+    ``ref.flash_attention_bwd_ref``. o and do are (B, H, S, d_v), v's
+    width; dv comes back d_v wide."""
     _check_shapes(q, k, v)
-    if o.shape != q.shape or do.shape != q.shape \
+    o_shape = q.shape[:3] + v.shape[-1:]
+    if o.shape != o_shape or do.shape != o_shape \
             or lse.shape != q.shape[:3]:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)}, lse {tuple(lse.shape)} for q "
@@ -139,17 +126,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     # Δ, and the bf16 dK/dV kernel's per-head partials where it has them
     scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(
-        B, H, Hkv, S, d, _DTYPES[q.dtype]), dtype=torch.float32,
-        device=q.device)
+        B, H, Hkv, S, d, v.shape[-1], _DTYPES[q.dtype]),
+        dtype=torch.float32, device=q.device)
     err = lib.flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         scratch.data_ptr(), *_strides(q), *_strides(k), *_strides(v),
-        *_strides(o), *_strides(do), B, H, Hkv, S, d, _DTYPES[q.dtype],
-        1.0 / math.sqrt(d), int(causal), int(window),
+        *_strides(o), *_strides(do), B, H, Hkv, S, d, v.shape[-1],
+        _DTYPES[q.dtype], 1.0 / math.sqrt(d), int(causal), int(window),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_attention_bwd")
     build.LAUNCHES["flash_attention_bwd"] += 1
+    build.LAUNCHES[f"flash_attention_bwd ({d}, {v.shape[-1]})"] += 1
     return dq, dk, dv
 
 
@@ -194,8 +182,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, H, S, d); k: (B, Hkv, S, d); v: (B, Hkv, S, d_v) -> (B, H,
     S, d_v) in q's type, on the card a view of a (B, S, H, d_v) buffer on
-    both routes. Under autograd d_v must equal d (NotImplementedError
-    otherwise, before anything runs).
+    both routes; (d, d_v) one of ``HEAD_DIMS`` on the card, under autograd
+    too.
 
     Views with a unit stride along d are read in place (the model passes v
     as a transpose of its projection, MLA as a slice of one); others are
@@ -203,7 +191,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_shapes(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        _require_square("flash_attention", q, v)
         return _FlashAttention.apply(q, k, v, causal, window)
     if q.device.type == "cpu":
         return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -188,16 +188,17 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     """The gradient of ``flash_attention_ref`` by its explicit formulas, in
     f32: P = exp(q·kᵀ/√d - lse) (0 where masked), dV = Pᵀ·dO, dP = dO·vᵀ,
     dS = P ∘ (dP - rowsum(dO ∘ o)), dQ = dS·k/√d, dK = dSᵀ·q/√d, with dK and
-    dV summed over each kv head's group of query heads. Returns (dq, dk,
-    dv) in the types of q, k and v."""
+    dV summed over each kv head's group of query heads. q and k are d
+    wide, v, o and do d_v wide (MLA: 192 and 128). Returns (dq, dk, dv) in
+    the types of q, k and v, dv d_v wide."""
     B, H, S, d = q.shape
-    Hkv = k.shape[1]
+    Hkv, dv_ = k.shape[1], v.shape[-1]
     G = H // Hkv
     scale = 1.0 / math.sqrt(d)
     f32 = torch.float32
     qg = q.reshape(B, Hkv, G, S, d).to(f32)
-    og = o.reshape(B, Hkv, G, S, d).to(f32)
-    dog = do.reshape(B, Hkv, G, S, d).to(f32)
+    og = o.reshape(B, Hkv, G, S, dv_).to(f32)
+    dog = do.reshape(B, Hkv, G, S, dv_).to(f32)
     kf, vf = k.to(f32), v.to(f32)
     s = torch.einsum("bkgsd,bktd->bkgst", qg, kf) * scale
     ok = _attention_mask(S, causal, window, q.device)
@@ -293,21 +294,33 @@ def threefry_bits_torch(key, n: int, offset: int = 0, device="cpu"
     return x0 ^ x1
 
 
+def _erfinv_poly(t: np.ndarray, coeffs) -> np.ndarray:
+    """p(t) by Horner's rule, each step p·t + c in float64 rounded to
+    float32 (XLA's float32 erfinv), for one branch's constants."""
+    f32, f64 = np.float32, np.float64
+    t64 = t.astype(f64)
+    p = np.full(t.shape, f64(f32(coeffs[0])))
+    for c in coeffs[1:]:
+        p *= t64
+        p += f64(f32(c))
+        p = p.astype(f32).astype(f64)
+    return p.astype(f32)
+
+
 def _normal_of_bits_cpu(bits: torch.Tensor) -> torch.Tensor:
     """normal_of_bits in numpy on the calling thread (see the note at the
-    top)."""
-    f32, f64 = np.float32, np.float64
+    top). The w >= 5 branch (|x| within about 3.4e-3 of 1) is evaluated
+    on its few elements only."""
+    f32 = np.float32
     b = bits.numpy().astype(np.uint32)
     with np.errstate(all="ignore"):
         f = ((b >> 9) | np.uint32(0x3F800000)).view(f32) - f32(1.0)
         x = np.maximum(f32(UNIFORM_LO), f * f32(2.0) + f32(UNIFORM_LO))
         w = -np.log1p(x * -x)
-        lt = w < f32(5.0)
-        t = np.where(lt, w + f32(-2.5), np.sqrt(w) + f32(-3.0))
-        p = np.where(lt, f32(ERFINV_LT5[0]), f32(ERFINV_GE5[0]))
-        for a, c in zip(ERFINV_LT5[1:], ERFINV_GE5[1:]):
-            cf = np.where(lt, f32(a), f32(c)).astype(f64)
-            p = (p.astype(f64) * t.astype(f64) + cf).astype(f32)
+        ge = np.flatnonzero(~(w < f32(5.0)))
+        p = _erfinv_poly(w + f32(-2.5), ERFINV_LT5)
+        if ge.size:
+            p[ge] = _erfinv_poly(np.sqrt(w[ge]) + f32(-3.0), ERFINV_GE5)
         r = np.where(np.abs(x) == f32(1.0), x * f32(np.inf), p * x)
         return torch.from_numpy(f32(SQRT2_F32) * r)
 

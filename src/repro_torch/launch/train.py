@@ -47,6 +47,9 @@ Runs on the card unless ``--device cpu`` is given:
         --rounds 3 --seq 16 --algorithm fedlora
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-236b --smoke --device cpu --rounds 2 --seq 16
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch deepseek-v2-236b --smoke --device cpu --rounds 2 --seq 16 \\
+        --algorithm fedavg
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 2 --seq 16 --ckpt-dir ckpt --ckpt-every 2   # then --rounds 4
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -57,9 +60,10 @@ Runs on the card unless ``--device cpu`` is given:
 The reference's ``--fleet-shard`` (``launch/fleet.py``: the sparse ring
 store sharded over a multi-device mesh) is not taken: the port runs on
 one card. An MLA model (deepseek-v2-236b) trains with the zeroth-order
-algorithms only: FedAvg needs the flash backward at MLA's head dims, and
-FedLoRA's targets (wq, wv) are not in its attention; both raise
-NotImplementedError (ROADMAP.md, queue 1, item 6).
+algorithms and with FedAvg (``--algorithm fedavg``: its gradient goes
+through the flash backward at MLA's head dims (192, 128)); FedLoRA raises
+NotImplementedError there, since its targets (wq, wv) are not in an MLA
+attention (ROADMAP.md, queue 1, item 6).
 """
 from __future__ import annotations
 

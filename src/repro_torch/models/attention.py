@@ -22,10 +22,11 @@ kv_lora_rank latent c_kv (RMSNormed) and one qk_rope_dim rope key shared
 by the heads; each head's nope key and value are rebuilt from c_kv by
 ``wkv_b``. Training and prefill attend through the flash kernel at
 (d_qk, d_v) = (nope + rope, v_head_dim), (192, 128) for deepseek-v2, with
-no window; its backward does not take that pair, so MLA runs without a
-gradient (the zeroth-order rounds and serving). Decode attends over the
-compressed cache with the absorbed weights, in plain PyTorch as the
-reference's einsums.
+no window; under autograd (FedAvg) its backward kernel at the same pair
+computes the attention's gradient, and the latent's and q's norms take
+the RMSNorm backward kernel at widths kv_lora_rank and q_lora_rank.
+Decode attends over the compressed cache with the absorbed weights, in
+plain PyTorch as the reference's einsums.
 """
 from __future__ import annotations
 

@@ -10,9 +10,8 @@ The reference's ``lax.scan`` over units is a Python loop over that dim.
 Everything in the training half is differentiable with ``torch.autograd``
 (the first-order baselines take gradients of ``loss_fn``): attention and
 RMSNorm through their kernels' autograd Functions, the bf16 head product
-on the card through ``_LogitsF32``; MLA's attention excepted, whose flash
-backward is not written (it raises under autograd, so an MLA model trains
-with the zeroth-order algorithms only). An MoE block returns its
+on the card through ``_LogitsF32``; MLA's attention through the flash
+backward at its head dims (192, 128). An MoE block returns its
 load-balancing aux loss beside x; the client's sum rides the cut in
 ``h["aux"]`` and the server adds ``MOE_AUX_COEF`` times the whole sum to
 its loss.

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.ckpt import Checkpointer as JCheckpointer
 from repro.ckpt import restore_params as j_restore
 from repro.ckpt import save_params as j_save

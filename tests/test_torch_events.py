@@ -18,6 +18,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import SFLConfig as JSFL
 from repro.core import events as jev
 from repro.core import faults as jfaults

@@ -27,8 +27,14 @@ card against CPU: routing equal, the output within 1e-5 of its largest
 magnitude; SMOKE serving in f32 (deepseek-v2-236b's MLA at the flash
 kernel's (192, 128) pair among them): tokens equal, logits within 1e-4.
 MLA's flash pair (192, 128) f32 and bf16 against the plain version, v
-read in place as the model's strided view, and its refusal under
-autograd.
+read in place as the model's strided view, forward and backward (G = 1
+and G = 2, v and dO strided views), and a small f32 FedAvg round of
+deepseek-v2-236b widened to that pair, card against CPU within 1e-4. The
+bf16 backward kernels against their CPU emulation
+(tests/flash_bwd_emulation.py) on the input that chose dQ's dS split
+(seed 3790) and on a (192, 128) case: each gradient's largest difference
+within 2^-7·max|g|, and the kernels' own margin to the plain version
+within the emulation's by 0.25 of that tolerance.
 """
 import numpy as np
 import pytest
@@ -264,21 +270,6 @@ def test_flash_attention_mla_pair_matches_plain(cuda, case, dtype):
     assert_close(got, ref.flash_attention_ref(q, k, v, causal, 0))
 
 
-def test_flash_attention_mla_pair_refuses_autograd(cuda):
-    """Under autograd the (192, 128) pair raises NotImplementedError naming
-    the ROADMAP item before anything launches (the backward kernels take
-    d_v = d_qk only); without a gradient the same call launches."""
-    q = torch.randn(1, 4, 64, 192, device=cuda, requires_grad=True)
-    v = torch.randn(1, 4, 64, 128, device=cuda)
-    before = build.LAUNCHES["flash_attention"]
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        flash_attention(q, q, v)
-    assert build.LAUNCHES["flash_attention"] == before
-    with torch.no_grad():
-        assert flash_attention(q, q, v).shape == (1, 4, 64, 128)
-    assert build.LAUNCHES["flash_attention"] == before + 1
-
-
 def test_kernels_raise_on_what_they_do_not_take(cuda):
     q = torch.randn(1, 2, 64, 32, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
@@ -402,13 +393,66 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
         assert_grad_close(g, w)
 
 
+# (B, H, Hkv, S), causal: MLA's (192, 128) pair at path 9 (c)'s 128
+# heads cut to 8 (G = 1), ragged and not causal, and G = 2 and 3, which
+# MLA itself never has (H = Hkv) but the kernels take
+MLA_BWD_CASES = [((1, 8, 8, 512), True), ((2, 4, 4, 300), False),
+                 ((1, 8, 4, 200), True), ((1, 6, 2, 130), False)]
+
+
+@pytest.mark.parametrize("case", MLA_BWD_CASES,
+                         ids=["G1", "G1-noncausal-ragged", "G2-ragged",
+                              "G3-noncausal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_mla_pair_matches_plain(cuda, case, dtype):
+    """The backward at MLA's head dims (d_qk, d_v) = (192, 128), on the
+    plain forward's o and lse, and the whole autograd Function, against
+    the plain version. v is the model's strided view (offset 128 of each
+    head's 256-wide row of a (B, S, Hkv, 256) tensor, read in place) and
+    dO a (B, H, S, 128) view of a (B, S, H, 128) buffer; the launch is
+    counted under the pair, and dv comes back 128 wide."""
+    (B, H, Hkv, S), causal = case
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    q, k, kv = rnd(B, H, S, 192), rnd(B, Hkv, S, 192), rnd(B, S, Hkv, 256)
+    v = kv[..., 128:].transpose(1, 2)
+    do = rnd(B, S, H, 128).transpose(1, 2)
+    o, lse = ref.flash_attention_ref(q, k, v, causal, 0, return_lse=True)
+    before = build.LAUNCHES["flash_attention_bwd (192, 128)"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["flash_attention_bwd (192, 128)"] == before + 1
+    assert got[2].shape == (B, Hkv, S, 128)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal, 0)
+    for g, w in zip(got, want):
+        assert_grad_close(g, w)
+    # the Function, with v the strided view of a leaf
+    grads = []
+    for fn in (flash_attention, lambda *a, causal: ref.flash_attention_ref(
+            *a, causal, 0)):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (q, k, kv)]
+        out = fn(leaves[0], leaves[1], leaves[2][..., 128:].transpose(1, 2),
+                 causal=causal)
+        grads.append(torch.autograd.grad(out, leaves, do))
+        if fn is flash_attention:
+            assert_close(out, o)
+    for g, w in zip(*grads):
+        assert_grad_close(g, w)
+
+
 def _bwd_inputs(device, B, H, Hkv, S, d, causal, window, seed=7):
+    """bf16 q, k, v, dO and the plain forward's o and lse; d, or (d_qk,
+    d_v)."""
+    d, dv = d if isinstance(d, tuple) else (d, d)
     gen = torch.Generator(device=device).manual_seed(seed)
     bf16 = torch.bfloat16
     q = torch.randn(B, H, S, d, generator=gen, device=device).to(bf16)
     k = torch.randn(B, Hkv, S, d, generator=gen, device=device).to(bf16)
-    v = torch.randn(B, Hkv, S, d, generator=gen, device=device).to(bf16)
-    do = torch.randn(B, H, S, d, generator=gen, device=device).to(bf16)
+    v = torch.randn(B, Hkv, S, dv, generator=gen, device=device).to(bf16)
+    do = torch.randn(B, H, S, dv, generator=gen, device=device).to(bf16)
     o, lse = ref.flash_attention_ref(q, k, v, causal, window,
                                      return_lse=True)
     return q, k, v, o, lse, do
@@ -416,8 +460,11 @@ def _bwd_inputs(device, B, H, Hkv, S, d, causal, window, seed=7):
 
 @pytest.mark.parametrize("case", [((1, 40, 8, 512, 128), True, 0),
                                   ((1, 32, 32, 512, 64), True, 0),
-                                  ((1, 10, 2, 300, 128), False, 100)],
-                         ids=["qwen3-gqa", "opt", "gqa5-noncausal-window"])
+                                  ((1, 10, 2, 300, 128), False, 100),
+                                  ((1, 8, 8, 512, (192, 128)), True, 0),
+                                  ((1, 8, 4, 200, (192, 128)), False, 0)],
+                         ids=["qwen3-gqa", "opt", "gqa5-noncausal-window",
+                              "mla", "mla-gqa2-noncausal"])
 def test_flash_attention_bwd_is_deterministic(cuda, case):
     """Two bf16 backward launches on the same inputs are bit-equal: no
     atomics, and the dK/dV partials of a kv group's heads are summed in a
@@ -429,6 +476,37 @@ def test_flash_attention_bwd_is_deterministic(cuda, case):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case,seed", [
+    ((1, 4, 2, 100, 64, True, 30), 3790),
+    ((1, 8, 4, 200, (192, 128), True, 0), 0)], ids=["seed3790", "mla"])
+def test_flash_bwd_kernels_meet_their_emulation(cuda, case, seed):
+    """The bf16 kernels on the card against their CPU emulation
+    (tests/flash_bwd_emulation.py, the kernels' rounding over their own
+    tiles and column steps) on the same inputs: the input of 12,000 random
+    cases where one cast of dQ's dS broke the tolerance (seed 3790, which
+    chose the split), and a (192, 128) case with G = 2. Each gradient of
+    the kernels within 2^-7·max|g| of the emulation's, and the kernels'
+    margin to the plain backward (max|Δ| over that tolerance) within 0.25
+    of the emulation's: the tensor cores sum 16 products at a time in
+    their own order, so the two meet up to one-ulp flips."""
+    from flash_bwd_emulation import (KERNEL_SPLIT,
+                                     emulate_bf16_flash_bwd_kernel, inputs,
+                                     worst)
+    causal, window = case[5], case[6]
+    cpu = inputs(case, seed)
+    emu = emulate_bf16_flash_bwd_kernel(*cpu, causal, window, **KERNEL_SPLIT)
+    got = flash_attention_bwd(*(t.to(cuda) for t in cpu), causal=causal,
+                              window=window)
+    plain = ref.flash_attention_bwd_ref(*cpu, causal, window)
+    for name, g, e, w in zip(("dq", "dk", "dv"), got, emu, plain):
+        g = g.cpu()
+        apart, mk, me = worst([g], [e]), worst([g], [w]), worst([e], [w])
+        print(f"{case} seed {seed} {name}: kernels vs emulation {apart:.3f}"
+              f", margins to the plain backward: kernels {mk:.3f}, "
+              f"emulation {me:.3f} (of 2^-7·max|g|)")
+        assert apart <= 1.0 and mk <= 1.0 and abs(mk - me) <= 0.25
 
 
 def test_flash_attention_bwd_copies_a_misaligned_do(cuda):
@@ -523,20 +601,19 @@ def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
 FO_LR = {"sgd": 1e-2, "adamw": 1e-3}
 
 
-def fo_small_round(algorithm, optimizer, device):
+def fo_small_round(algorithm, optimizer, device, arch=None):
     """One small f32 FedAvg or FedLoRA round (olmo-1b for FedAvg, qwen3-14b
-    with qk-norm for FedLoRA, both at d_head 64) on ``device``: the new
-    tree's leaves."""
-    from repro_torch.configs import get_config
+    with qk-norm for FedLoRA, both at d_head 64; or ``arch`` widened by
+    ``card_smoke_config``, deepseek-v2-236b's MLA to (192, 128)) on
+    ``device``: the new tree's leaves."""
+    from repro_torch.configs import card_smoke_config
     from repro_torch.core import prng
     from repro_torch.core.baselines import fedavg_round, fedlora_round
     from repro_torch.models import init_params, untie_params
     from repro_torch.optim import init_lora
     from repro_torch.utils import tree
-    arch = "olmo-1b" if algorithm == "fedavg" else "qwen3-14b"
-    cfg = get_config(arch, smoke=True).replace(
-        d_model=128, n_heads=2, n_kv_heads=2 if arch == "olmo-1b" else 1,
-        dtype="float32")
+    arch = arch or ("olmo-1b" if algorithm == "fedavg" else "qwen3-14b")
+    cfg = card_smoke_config(arch, 2 if arch == "olmo-1b" else 1)
     params = untie_params(cfg, init_params(
         cfg, torch.Generator().manual_seed(0)))
     params = tree.tree_map(lambda a: a.to(device), params)
@@ -554,18 +631,24 @@ def fo_small_round(algorithm, optimizer, device):
     return tree.leaves(out)
 
 
-@pytest.mark.parametrize("algorithm,optimizer", [
-    ("fedavg", "sgd"), ("fedavg", "adamw"), ("fedlora", "sgd")])
-def test_fo_round_card_matches_cpu(cuda, algorithm, optimizer):
+@pytest.mark.parametrize("algorithm,optimizer,arch", [
+    ("fedavg", "sgd", None), ("fedavg", "adamw", None),
+    ("fedlora", "sgd", None), ("fedavg", "sgd", "deepseek-v2-236b")])
+def test_fo_round_card_matches_cpu(cuda, algorithm, optimizer, arch):
     """One small f32 first-order round on the card (the forward and
-    backward kernels) against the same round on the CPU (their plain
-    versions): the new tree within 1e-4."""
+    backward kernels; on deepseek-v2-236b the flash backward at (192, 128)
+    and the rmsnorm backward of the MLA norms) against the same round on
+    the CPU (their plain versions): the new tree within 1e-4."""
     before = dict(build.LAUNCHES)
-    got = fo_small_round(algorithm, optimizer, cuda)
-    for k in ("flash_attention_bwd",) + (("rmsnorm_bwd",)
-                                         if algorithm == "fedlora" else ()):
+    got = fo_small_round(algorithm, optimizer, cuda, arch)
+    keys = ("flash_attention_bwd",)
+    if algorithm == "fedlora":
+        keys += ("rmsnorm_bwd",)
+    if arch is not None:
+        keys += ("rmsnorm_bwd", "flash_attention_bwd (192, 128)")
+    for k in keys:
         assert build.LAUNCHES[k] > before.get(k, 0)
-    want = fo_small_round(algorithm, optimizer, torch.device("cpu"))
+    want = fo_small_round(algorithm, optimizer, torch.device("cpu"), arch)
     for g, w in zip(got, want):
         assert g.is_cuda
         assert float((g.cpu() - w).abs().max()) <= 1e-4

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import get_config as j_get_config
 from repro.kernels import ref as jref
 from repro.models import attention as j_attention

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import SFLConfig as JSFL
 from repro.configs import get_config as j_get_config
 from repro.core.splitfed import mu_splitfed_round as j_round
@@ -51,8 +52,7 @@ from repro_torch.configs import SFLConfig as TSFL
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import prng
 from repro_torch.core.splitfed import mu_splitfed_round
-from repro_torch.kernels import build, ref
-from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ref
 from repro_torch.launch import serve
 from repro_torch.models import (attention, client_forward, decode_step,
                                 init_cache, init_params, logits_fn, loss_fn,
@@ -339,35 +339,6 @@ def test_converter_round_trips_mla_parameters_and_cache():
     assert jax.tree.structure(mine) == jax.tree.structure(jp)
     for a, b in zip(jax.tree.leaves(mine), jax.tree.leaves(jp)):
         assert a.shape == b.shape and a.dtype == b.dtype
-
-
-def test_autograd_refuses_the_mla_pair(monkeypatch):
-    """Under autograd an MLA model's attention raises NotImplementedError
-    naming the ROADMAP item (the flash backward takes d_v = d_qk only),
-    before anything runs: no launch, and the plain version is not called
-    in its place. Without a gradient the same loss runs."""
-    _, tcfg, _, tp = _model()
-    _, tb = _batches(n=1)
-    tb = {k: v[0] for k, v in tb.items()}
-    params = tree.tree_map(lambda a: a.clone().requires_grad_(), tp)
-
-    def no_plain(*a, **k):
-        raise AssertionError("the plain version ran in the kernel's place")
-
-    monkeypatch.setattr(fa._ref, "flash_attention_ref", no_plain)
-    before = dict(build.LAUNCHES)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        loss_fn(tcfg, params, tb)
-    q = torch.zeros(1, 4, 8, 24, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"\(24, 16\)"):
-        fa.flash_attention(q, q, torch.zeros(1, 4, 8, 16))
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        fa.flash_attention_bwd(q, q, q[..., :16], q[..., :16],
-                               torch.zeros(1, 4, 8), q[..., :16])
-    assert dict(build.LAUNCHES) == before
-    monkeypatch.undo()
-    with torch.no_grad():
-        assert torch.isfinite(loss_fn(tcfg, params, tb))
 
 
 def test_fedlora_refuses_an_mla_model():

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import SFLConfig as JSFL
 from repro.configs import get_config as j_get_config
 from repro.core import baselines as jbase

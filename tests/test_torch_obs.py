@@ -31,6 +31,7 @@ import jax
 import numpy as np
 import pytest
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 import repro.obs as jobs
 import repro_torch.obs as tobs
 from repro.configs import SFLConfig as JSFL

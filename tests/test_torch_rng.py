@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.kernels import ref as jref
 from repro_torch.core import prng
 from repro_torch.kernels import ref as tref

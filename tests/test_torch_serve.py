@@ -29,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import get_config as j_get_config
 from repro.launch import serve as j_serve
 from repro.models import init_cache as j_init_cache

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import SFLConfig as JSFL
 from repro.configs import get_config as j_get_config
 from repro.core import engine
@@ -203,6 +204,7 @@ def test_port_imports_neither_jax_nor_repro():
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
                                     "tools/flash_bwd_sweep.py",
+                                    "tools/flash_bwd_ab.py",
                                     "tools/zo_sweep.py",
                                     "tools/threefry_sweep.py"])
 def test_chip_scripts_import_neither_jax_nor_repro(script):

@@ -13,6 +13,7 @@ import tracemalloc
 
 import pytest
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import get_config as j_get_config
 from repro.core import theory as jtheory
 from repro.models import split_dims as j_split_dims

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from one_torch_thread import one_torch_thread  # noqa: F401
 from repro.configs import get_config as j_get_config
 from repro.core import zo as jzo
 from repro.models import init_params as j_init

@@ -105,11 +105,12 @@ VARIANTS = {
     "committed": [],
     # dK/dV: 16 query columns a step at d = 128 (fewer live scores, twice
     # the K and V fragment reads)
-    "dK/dV 16 columns a step": [("constexpr int QN = D == 128 ? 32 : 64;",
-                                 "constexpr int QN = D == 128 ? 16 : 64;")],
+    "dK/dV 16 columns a step": [("constexpr int QN = DQK == 64 ? 64 : 32;",
+                                 "constexpr int QN = DQK == 64 ? 64 : 16;")],
     # dQ: 64 keys a step at d = 128
-    "dQ 64 keys a step": [("constexpr int KN = D == 128 ? 32 : 64;",
-                           "constexpr int KN = D == 128 ? 64 : 64;")],
+    "dQ 64 keys a step": [
+        ("constexpr int KN = DQK == 64 ? 64 : DQK == DV ? 32 : 16;",
+         "constexpr int KN = DQK == 64 ? 64 : DQK == DV ? 64 : 16;")],
     # dK/dV: one block per (kv head, key tile) walking the group's heads in
     # turn, no partials and no sum launch (64 blocks at 8 kv heads)
     "no head split": [
@@ -133,10 +134,10 @@ VARIANTS = {
          "    const float* lse_t"),
         ("  if (G == 1) {\n    // dK·scale and dV in bf16",
          "  if (true) {\n    // dK·scale and dV in bf16"),
-        ("flash_bwd_dkdv_bf16_kernel<D><<<dim3(B * H, tiles)",
-         "flash_bwd_dkdv_bf16_kernel<D><<<dim3(B * Hkv, tiles)"),
-        ("  if (G > 1) {\n    const long long n4",
-         "  if (false) {\n    const long long n4")],
+        ("      dim3(B * H, tiles), kTcThreads * dkdv_roles<DQK, DV>()",
+         "      dim3(B * Hkv, tiles), kTcThreads * dkdv_roles<DQK, DV>()"),
+        ("  if (G > 1) {\n    const long long cells",
+         "  if (false) {\n    const long long cells")],
     # causal tiles heaviest first throughout, not paired (tile_rank)
     "heaviest first, unpaired": [(
         "  const int half = (T + 1) / 2;\n"
@@ -144,25 +145,19 @@ VARIANTS = {
         "  return y;")],
     "Δ four rows a group": [
         (DELTA_ONE_ROW, DELTA_FOUR_ROWS),
-        ("  constexpr int rpb = 256 / (D / 8);",
-         "  constexpr int rpb = 4 * 256 / (D / 8);")],
+        ("  constexpr int rpb = 256 / (DV / 8);",
+         "  constexpr int rpb = 4 * 256 / (DV / 8);")],
     # dQ's dS cast to bf16 once (one MMA a step)
     "dQ's dS one cast": [
         ("a_operand<true>(s[2 * j], s[2 * j + 1], dh, dlo);",
          "a_operand<false>(s[2 * j], s[2 * j + 1], dh, dlo);"),
         ("mma_a<true>(acc[", "mma_a<false>(acc[")],
     # P and both dS as bf16 hi + lo A operands (two MMAs a product)
-    "P, dS hi + lo": [
-        ("a_operand<false>(s[2 * j], s[2 * j + 1], ph, pl);",
-         "a_operand<true>(s[2 * j], s[2 * j + 1], ph, pl);"),
-        ("mma_a<false>(acc_dv[", "mma_a<true>(acc_dv["),
-        ("a_operand<false>(s[2 * j], s[2 * j + 1], dh, dlo);",
-         "a_operand<true>(s[2 * j], s[2 * j + 1], dh, dlo);"),
-        ("mma_a<false>(acc_dk[", "mma_a<true>(acc_dk[")],
+    "P, dS hi + lo": [("acc_chunks<false,", "acc_chunks<true,")],
 }
 SHAPES = [("path 5 (paper-opt-1.3b)", (1, 32, 32, 512, 64)),
           ("qwen3-14b, GQA 40/8", (1, 40, 8, 512, 128))]
-TC = re.compile(r"(flash_bwd_(?:dkdv|dq)_bf16_kernel)ILi128E")
+TC = re.compile(r"(flash_bwd_(?:dkdv|dq)_bf16_kernel)ILi128ELi128E")
 
 
 def variant_source(src: str, edits) -> str:
@@ -235,13 +230,13 @@ def main() -> int:
         dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device)
                       for t in (q, k, v))
         scratch = torch.empty(lib.flash_attention_bwd_scratch_floats(
-            B, H, Hkv, S, d, 1), dtype=torch.float32, device=q.device)
+            B, H, Hkv, S, d, d, 1), dtype=torch.float32, device=q.device)
         err = lib.flash_attention_bwd_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             do.data_ptr(), lse.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), scratch.data_ptr(), *fa._strides(q),
             *fa._strides(k), *fa._strides(v), *fa._strides(o),
-            *fa._strides(do), B, H, Hkv, S, d, 1, d ** -0.5, 1, 0,
+            *fa._strides(do), B, H, Hkv, S, d, d, 1, d ** -0.5, 1, 0,
             torch.cuda.current_stream().cuda_stream)
         build.check(err, "flash bwd sweep")
         return dq, dk, dv
