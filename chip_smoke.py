@@ -8,10 +8,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   1. the card's name and power limit, torch and CUDA versions;
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them,
-     flash_attention.cu, flash_attention_bwd.cu, zo_update.cu and
-     threefry.cu with -Xptxas -v: the kernels' registers, shared memory,
-     stack frames and spills are printed (the bf16 flash kernels and every
-     flash backward kernel, each (d_qk, d_v) pair's, must not spill); the
+     flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
+     threefry.cu and rmsnorm.cu with -Xptxas -v: the kernels' registers,
+     shared memory, stack frames and spills are printed (the bf16 flash
+     kernels, every flash backward kernel, each (d_qk, d_v) pair's, and
+     every rmsnorm backward kernel must not spill); the
      built library's
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
@@ -39,10 +40,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      the backward kernels (flash_attention_bwd, bf16 and f32, at path 5's
      shape and qwen3-14b's with GQA 40/8, causal and with a window, its
      forward's lse beside it, and at MLA's (192, 128) pair at (1,128,512)
-     and (1,128,4096) with v and dO strided views; rmsnorm_bwd at the
-     qwen3-14b block and qk-norm shapes and at MLA's kv_norm and q_norm
-     widths 512 and 1536) against their plain versions, f32 within 1e-5
-     and bf16 within one bf16 ulp of each gradient's largest magnitude,
+     and (1,128,4096) with v and dO strided views; rmsnorm_bwd, one
+     launch a call, at the qwen3-14b block shape and its qk-norm pair in
+     one launch, at MLA's kv_norm and q_norm widths 512 and 1536 and at
+     (1,4096,5120), two calls bit-equal) against their plain versions, f32
+     within 1e-5 and bf16 within one bf16 ulp of each gradient's largest
+     magnitude,
      with the autograd backward of scaled_dot_product_attention and of
      F.rms_norm timed beside them;
   4. small f32 rounds on the card against the same rounds on the CPU
@@ -89,7 +92,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
          schedule, through the flash forward and backward kernels (2·M·24
          forwards and M·24 backwards a round, checked); then one FedAvg
          round of qwen3-14b at full width, 4 of 40 layers, whose backward
-         runs the rmsnorm backward (4·layers + 1 launches a client);
+         runs the rmsnorm backward (3·layers + 1 launches a client: the
+         qk-norm pair's backward is one);
        - path 6, checkpoint and resume on path 4's model, flags and
          schedule: MU-SplitFed (adaptive tau on the simulated clock,
          params-only checkpoints), GAS (seed replay, counter noise; its
@@ -212,11 +216,10 @@ PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
                          r"flash_bwd_delta|flash_bwd_dkdv|flash_bwd_dq|"
                          r"flash_bwd_delta_bf16|flash_bwd_dkdv_bf16|"
                          r"flash_bwd_dq_bf16|"
-                         r"rmsnorm_block|rmsnorm_pair|rmsnorm_bwd_block|"
-                         r"rmsnorm_bwd_rows|rmsnorm_dscale_partial|"
+                         r"rmsnorm_block|rmsnorm_pair|rmsnorm_bwd|"
+                         r"rmsnorm_bwd_wide|"
                          r"threefry_update|threefry_sumsq)_kernel<[^>]*>|"
-                         r"threefry_sumsq_kernel|rmsnorm_dscale_reduce_kernel|"
-                         r"flash_bwd_dkdv_sum_kernel")
+                         r"threefry_sumsq_kernel|flash_bwd_dkdv_sum_kernel")
 # operations of the RMSNorm backward per element
 NORM_BWD_OPS = 10
 
@@ -384,9 +387,9 @@ def phase_card():
 
 def phase_build():
     """Build the package's kernel library and, at the same time, -Xptxas -v
-    builds of flash_attention.cu, zo_update.cu and threefry.cu. Returns the
-    zo kernels' SASS instructions per gaussian and the threefry kernels'
-    per element."""
+    builds of flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
+    threefry.cu and rmsnorm.cu. Returns the zo kernels' SASS instructions
+    per gaussian and the threefry kernels' per element."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     # registers, shared memory, stack frames and spills, from ptxas
@@ -397,7 +400,7 @@ def phase_build():
          str(build.BUILD_ROOT / "ptxas" / (Path(src).stem + ".o"))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("flash_attention.cu", "flash_attention_bwd.cu",
-                    "zo_update.cu", "threefry.cu")}
+                    "zo_update.cu", "threefry.cu", "rmsnorm.cu")}
     try:
         build.library()
     finally:
@@ -409,6 +412,7 @@ def phase_build():
           f"({build.compile_library().relative_to(ROOT)})")
     report_ptxas(ptxas_out["flash_attention.cu"])
     report_ptxas_bwd(ptxas_out["flash_attention_bwd.cu"])
+    report_ptxas_norm_bwd(ptxas_out["rmsnorm.cu"])
     lib = build.library()
     for d, dv in FLASH_PAIRS:
         print(f"flash_fwd_bf16_kernel<{d}, {dv}>: dynamic shared memory "
@@ -493,6 +497,53 @@ def report_ptxas_bwd(out: str) -> None:
                     f"{name} spills registers: {line.strip()}")
     require(len(seen) == BWD_KERNELS, f"ptxas -v reported spill lines for "
             f"{sorted(seen)}, not the {BWD_KERNELS} flash backward kernels")
+
+
+# the rmsnorm backward's kernels: the pass's instances (dtype, V elements a
+# pack, G lanes a row, PL packs a lane, the qk pair or one tensor), the
+# reread branch's of each dtype and pack, and the dscale sum
+NORM_BWD_KERNEL = re.compile(
+    r"(rmsnorm_bwd_kernel)I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)ELi(\d+)"
+    r"ELb([01])E|(rmsnorm_bwd_wide_kernel)I(13__nv_bfloat16|f)Li(\d+)EE|"
+    r"(rmsnorm_dscale_sum_kernel)")
+NORM_BWD_KERNELS = 40
+
+
+def norm_bwd_name(m) -> str:
+    if m.group(1):
+        dtype = "bf16" if m.group(2) != "f" else "f32"
+        return (f"rmsnorm_bwd_kernel<{dtype}, V{m.group(3)}, G{m.group(4)}, "
+                f"PL{m.group(5)}" + (", pair>" if m.group(6) == "1" else ">"))
+    if m.group(7):
+        dtype = "bf16" if m.group(8) != "f" else "f32"
+        return f"rmsnorm_bwd_wide_kernel<{dtype}, V{m.group(9)}>"
+    return m.group(10)
+
+
+def report_ptxas_norm_bwd(out: str) -> None:
+    """Print ptxas's registers, shared memory and spills for each kernel of
+    the rmsnorm backward; none may spill."""
+    name, seen, lines = None, set(), {}
+    for line in out.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = NORM_BWD_KERNEL.search(line)
+            name = norm_bwd_name(m) if m else None
+            continue
+        if name is None or not line.strip():
+            continue
+        if "Compile time" not in line:
+            lines.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills:
+            seen.add(name)
+            require(spills.groups() == ("0", "0"),
+                    f"{name} spills registers: {line.strip()}")
+    for name in sorted(lines):
+        print(f"ptxas {name}: " + "; ".join(lines[name]))
+    require(len(seen) == NORM_BWD_KERNELS, f"ptxas -v reported spill lines "
+            f"for {len(seen)} rmsnorm backward kernels, not "
+            f"{NORM_BWD_KERNELS}: {sorted(seen)}")
 
 
 def check_sass(lib: Path) -> None:
@@ -1528,79 +1579,120 @@ def phase_flash_bwd(dev) -> dict:
     return res
 
 
+# the rmsnorm backward's cases: (name, x's shape, k's shape for the qk
+# pair or None, dtype); bf16 ones at the paths' shapes are timed
+NORM_BWD_CASES = (
+    ("block norm (qwen3-14b)", (1, 512, 5120), None, torch.bfloat16),
+    ("qk-norm pair (qwen3-14b)", (1, 512, 40, 128), (1, 512, 8, 128),
+     torch.bfloat16),
+    ("MLA kv_norm", (1, 512, 512), None, torch.bfloat16),
+    ("MLA q_norm", (1, 512, 1536), None, torch.bfloat16),
+    ("block norm, 4096 tokens", (1, 4096, 5120), None, torch.bfloat16),
+    ("block norm", (1, 512, 5120), None, torch.float32),
+    ("qk-norm pair", (1, 512, 40, 128), (1, 512, 8, 128), torch.float32),
+    ("MLA kv_norm", (1, 512, 512), None, torch.float32),
+    ("MLA q_norm", (1, 512, 1536), None, torch.float32),
+    ("ragged rows, D=1030", (77, 1030), None, torch.float32),
+    ("ragged rows, D=1030", (77, 1030), None, torch.bfloat16))
+
+
 def phase_rmsnorm_bwd(dev) -> dict:
-    """The rmsnorm backward (dx, and dscale in f32 summed over the rows)
-    against ``ref.rmsnorm_bwd_ref`` at the qwen3-14b path's shapes: the
-    block norms' rows of 5120 and the qk-norm pair's q and k rows of 128
-    (the pair's backward is one launch each), and path 9 (c)'s MLA norms'
-    rows of 512 (kv_norm) and 1536 (q_norm), bf16 and f32, with the
-    autograd backward of F.rms_norm timed beside it (the port never calls
-    it). Times are device time per call (device_ms), cycling past L2.
+    """The rmsnorm backward (dx, and dscale in f32 summed over the rows;
+    one call a norm, the qk-norm pair's q and k in one grid: a pass over
+    the rows and a small launch summing its clusters' partials) against
+    ``ref.rmsnorm_bwd_ref`` at NORM_BWD_CASES: the qwen3-14b path's block
+    norm rows of 5120 and its qk-norm pair's q and k rows of 128, path 9
+    (c)'s MLA norms' rows of 512 (kv_norm) and 1536 (q_norm), 4096 rows of
+    5120, where bytes rather than the launch set the time, and ragged
+    rows; bf16 and f32. Each case also requires one counted launch a call
+    and two calls bit-equal. The bf16 path shapes are timed with the autograd
+    backward of F.rms_norm beside them (two of them for the pair; the port
+    never calls it): device time per call (device_ms), cycling past L2.
     Bound: bytes (x and dy read, dx written, the scale read and dscale
-    written). The MLA widths' numbers come back under "mla"."""
+    written). The block norm at 512 tokens is the row's own numbers; the
+    pair's, the MLA widths' and the 4096 tokens' come back under "pair",
+    "mla" and "tokens_4096"."""
     import torch.nn.functional as F
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.rmsnorm import (rmsnorm_bwd, rmsnorm_bwd_plan,
+                                            rmsnorm_pair_bwd)
     gen = torch.Generator(device=dev).manual_seed(8)
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("block norm (qwen3-14b)", (1, 512, 5120), bf16),
-             ("qk-norm q", (1, 512, 40, 128), bf16),
-             ("qk-norm k", (1, 512, 8, 128), bf16),
-             ("MLA kv_norm", (1, 512, 512), bf16),
-             ("MLA q_norm", (1, 512, 1536), bf16),
-             ("block norm", (1, 512, 5120), f32),
-             ("qk-norm q", (1, 512, 40, 128), f32),
-             ("MLA kv_norm", (1, 512, 512), f32),
-             ("MLA q_norm", (1, 512, 1536), f32),
-             ("ragged rows, D=1030", (77, 1030), f32)]
-    res = {"err": 0.0, "pair_ms": 0.0}
-    for name, shape, dtype in cases:
-        D = shape[-1]
-        x = (torch.randn(shape, generator=gen, device=dev) * 3.0).to(dtype)
-        dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
-        s = 1.0 + 0.5 * torch.randn(D, generator=gen, device=dev)
-        what = f"rmsnorm bwd {name} {str(dtype)[6:]} {shape}"
-        dx, ds = rmsnorm_bwd(x, s, dy)
-        wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
-        err = max(check_grad(f"{what} dx", dx, wx),
-                  check_grad(f"{what} dscale", ds, ws))
+    res = {"err": 0.0}
+    for name, shape, k_shape, dtype in NORM_BWD_CASES:
+        tensors = []
+        for sh in (shape, k_shape) if k_shape else (shape,):
+            D = sh[-1]
+            x = (torch.randn(sh, generator=gen, device=dev) * 3.0).to(dtype)
+            dy = torch.randn(sh, generator=gen, device=dev).to(dtype)
+            s = 1.0 + 0.5 * torch.randn(D, generator=gen, device=dev)
+            tensors.append((x, s, dy))
+        shapes = f"{shape}" + (f" + {k_shape}" if k_shape else "")
+        what = f"rmsnorm bwd {name} {str(dtype)[6:]} {shapes}"
+        if k_shape:
+            def call(t):
+                return rmsnorm_pair_bwd(*t[0], *t[1])
+        else:
+            def call(t):
+                return rmsnorm_bwd(*t[0])
+        plan = rmsnorm_bwd_plan(*tensors)
+        n0 = build.LAUNCHES["rmsnorm_bwd"]
+        got, again = call(tensors), call(tensors)
+        launches = (build.LAUNCHES["rmsnorm_bwd"] - n0) / 2
+        require(launches == 1, f"{what}: {launches} calls counted, not 1")
+        want = [w for x, s, dy in tensors
+                for w in ref.rmsnorm_bwd_ref(x, s, dy)]
+        err = max(check_grad(f"{what} {'dx' if i % 2 == 0 else 'dscale'}",
+                             g, w) for i, (g, w) in enumerate(zip(got, want)))
+        require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                f"{what}: two calls are not bit-equal")
         res["err"] = max(res["err"], err)
-        if dtype == f32:
-            print(f"{what}: max|Δ| {err:.3e}")
+        geometry = (f"one call: a pass of grid {plan['grid']}, "
+                    f"{plan['G']} lanes a row, then the sum of its "
+                    f"{plan['grid'] // 8} clusters' partials: 2 kernels")
+        if dtype == torch.float32 or "ragged" in name:
+            print(f"{what}: max|Δ| {err:.3e}, two calls bit-equal ({geometry})")
             continue
-        nbytes = 3 * x.numel() * x.element_size() + 2 * 4 * D
-        sets = [(x, dy)] + [(x.clone(), dy.clone())
+        nbytes = sum(3 * x.numel() * x.element_size() + 2 * 4 * x.shape[-1]
+                     for x, _, _ in tensors)
+        sets = [tensors] + [[(x.clone(), s, dy.clone()) for x, s, dy in
+                             tensors]
                             for _ in range(L2_BYTES // nbytes + 1)]
-        ms = device_ms(lambda t: rmsnorm_bwd(t[0], s, t[1]), sets, 100)
-        plain_ms = device_ms(lambda t: ref.rmsnorm_bwd_ref(t[0], s, t[1]),
+        ms = device_ms(call, sets, 100)
+        plain_ms = device_ms(lambda t: [ref.rmsnorm_bwd_ref(*a) for a in t],
                              sets, 20)
         graphs = []
         for t in sets:
-            xx = t[0].detach().requires_grad_(True)
-            ss = s.detach().clone().requires_grad_(True)
-            graphs.append((F.rms_norm(xx, (D,), ss, 1e-5), (xx, ss), t[1]))
+            leaves, outs, cots = [], [], []
+            for x, s, dy in t:
+                xx = x.detach().requires_grad_(True)
+                ss = s.detach().clone().requires_grad_(True)
+                outs.append(F.rms_norm(xx, (x.shape[-1],), ss, 1e-5))
+                leaves += [xx, ss]
+                cots.append(dy)
+            graphs.append((outs, leaves, cots))
         lib_ms = device_ms(lambda g: torch.autograd.grad(
             g[0], g[1], g[2], retain_graph=True), graphs, 100)
         require(min(ms, plain_ms, lib_ms) > 0,
                 f"{what}: the profiler recorded no device time")
-        b_ms, b_by = bound(nbytes, NORM_BWD_OPS * x.numel(), "f32_core")
-        print(f"{what}: max|Δ| {err:.3e}  kernel {ms:.4f} ms (three "
-              f"launches)  plain {plain_ms:.4f} ms  library (autograd "
-              f"backward of F.rms_norm) {lib_ms:.4f} ms  bound {b_ms:.4f} "
-              f"ms ({b_by})")
-        if "block" in name:
-            res.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        elements = sum(x.numel() for x, _, _ in tensors)
+        b_ms, b_by = bound(nbytes, NORM_BWD_OPS * elements, "f32_core")
+        print(f"{what}: max|Δ| {err:.3e}, two calls bit-equal  kernel "
+              f"{ms:.4f} ms ({geometry})  plain {plain_ms:.4f} ms  library "
+              f"(autograd backward of F.rms_norm"
+              f"{', two' if k_shape else ''}) {lib_ms:.4f} ms  bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        numbers = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=b_ms, bound_by=b_by,
-                       shape=f"{shape} bf16, f32 scale")
+                       shape=f"{shapes} bf16, f32 scale")
+        if k_shape:
+            res["pair"] = numbers
         elif "MLA" in name:
-            res.setdefault("mla", {})[name[4:]] = dict(
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, shape=f"{shape} bf16, f32 scale")
+            res.setdefault("mla", {})[name[4:]] = numbers
+        elif shape[1] == 4096:
+            res["tokens_4096"] = numbers
         else:
-            res["pair_ms"] += ms
+            res.update(numbers)
         del sets, graphs
-    print(f"rmsnorm bwd qk-norm pair (two launches, q then k) "
-          f"{res['pair_ms']:.4f} ms")
     return res
 
 
@@ -2152,9 +2244,9 @@ def phase_qwen_fo(dev) -> dict:
     """One FedAvg round (2 clients) of qwen3-14b at its full published
     width with its depth cut to QWEN_FO_LAYERS of 40 layers, through the
     driver: the RMSNorm backward runs inside a real backward (per client
-    two block norms and the qk-norm's q and k a layer, and the final norm:
-    4·layers + 1 launches), beside the flash backward at d_head 128 with
-    GQA 40/8. Returns the launch counts."""
+    two block norms and the qk-norm pair, q and k in one launch, a layer,
+    and the final norm: 3·layers + 1 launches), beside the flash backward
+    at d_head 128 with GQA 40/8. Returns the launch counts."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     name = f"qwen3-14b FedAvg ({QWEN_FO_LAYERS} of 40 layers)"
@@ -2165,9 +2257,9 @@ def phase_qwen_fo(dev) -> dict:
                                         "flash_attention_bwd", "rmsnorm",
                                         "rmsnorm_bwd"))[2]
     M, L = run.sfl.n_clients, QWEN_FO_LAYERS
-    require(n.get("rmsnorm_bwd") == M * (4 * L + 1)
+    require(n.get("rmsnorm_bwd") == M * (3 * L + 1)
             and n.get("flash_attention_bwd") == M * L,
-            f"{name}: launches {n}, not {M * (4 * L + 1)} rmsnorm and "
+            f"{name}: launches {n}, not {M * (3 * L + 1)} rmsnorm and "
             f"{M * L} flash backwards")
     return n
 
@@ -2846,7 +2938,9 @@ def mla_fo_round(dev, ds) -> dict:
     rmsnorm forward and backward must launch, the backward exactly M·L
     times at that pair (each client's one backward a layer) and the
     rmsnorm backward M·(4·L + 1) (norm1, norm2, q_norm and kv_norm a
-    layer, and the final norm); the loss finite, the parameters moved;
+    layer, and the final norm: q_norm's rows of 1536 and kv_norm's of 512
+    are no pair, so each is a launch of its own); the loss finite, the
+    parameters moved;
     the peak printed against FO_ROUND_BYTES_PER_PARAM_BYTE times the
     parameter bytes. Returns the launches."""
     from repro_torch.launch import train
@@ -2861,6 +2955,8 @@ def mla_fo_round(dev, ds) -> dict:
     _, _, n, chunks = drive(dev, name, run, run.sfl, (
         "flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd"))
     M, L = run.sfl.n_clients, DEEPSEEK_LAYERS
+    # 4·L + 1: MLA's q_norm and kv_norm have different widths, so they are
+    # not a pair (the qk-norm pair's one launch is qwen3's, 3·L + 1)
     require(n.get("flash_attention_bwd (192, 128)") == M * L
             and n.get("flash_attention_bwd") == M * L
             and n.get("rmsnorm_bwd") == M * (4 * L + 1),
@@ -3116,7 +3212,8 @@ def main() -> int:
          "launches": launches.get(name, 0), "max_abs_err": r["err"],
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "shape": r["shape"], **({"mla": r["mla"]} if "mla" in r else {})}
+         "shape": r["shape"],
+         **{k: r[k] for k in ("mla", "pair", "tokens_4096") if k in r}}
         for name, source, rep, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

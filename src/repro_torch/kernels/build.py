@@ -79,13 +79,18 @@ SIGNATURES = {
     # x, scale, y, rows, D, dtype, eps, stream
     "rmsnorm_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int,
                        ctypes.c_int, ctypes.c_float, _VOIDP),
-    # x, scale, dy, dx, dscale, rstd scratch, partial scratch, rows, D,
-    # dtype, eps, stream
-    "rmsnorm_bwd_launch": (_VOIDP,) * 7 + (ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_float,
-                                           _VOIDP),
-    # (): the rows a block of the backward's partial sums covers
-    "rmsnorm_bwd_chunk_rows": (),
+    # x, scale, dy, dx, dscale, scratch, scratch floats, rows, D, dtype,
+    # eps, stream, plan (int[5] or null: nothing launched)
+    "rmsnorm_bwd_launch": (_VOIDP,) * 6 + (ctypes.c_longlong,) * 2 + (
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, _VOIDP, _VOIDP),
+    # xq, sq, dyq, dxq, dsq, rows_q, then k's, scratch, scratch floats, D,
+    # dtype, eps, stream, plan
+    "rmsnorm_pair_bwd_launch": ((_VOIDP,) * 5 + (ctypes.c_longlong,)) * 2
+    + (_VOIDP, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+       _VOIDP, _VOIDP),
+    # rows, D, pair: the floats of a backward launch's scratch
+    "rmsnorm_bwd_scratch_floats": (ctypes.c_longlong, ctypes.c_int,
+                                   ctypes.c_int),
     # xq, sq, yq, rows_q, xk, sk, yk, rows_k, D, dtype, eps, stream
     "rmsnorm_pair_launch": (_VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong) * 2
     + (ctypes.c_int, ctypes.c_int, ctypes.c_float, _VOIDP),
@@ -105,7 +110,8 @@ SIGNATURES = {
     "threefry_normal_table_launch": (_VOIDP, _VOIDP),
 }
 # entry points that return other than a C int
-RESTYPES = {"flash_attention_bwd_scratch_floats": ctypes.c_longlong}
+RESTYPES = {"flash_attention_bwd_scratch_floats": ctypes.c_longlong,
+            "rmsnorm_bwd_scratch_floats": ctypes.c_longlong}
 
 
 def reset_launches() -> None:

@@ -27,25 +27,46 @@
 // the first pass left it: 10 KB for a bf16 row of 5120), at 3 flops an
 // element.
 //
-// Backward (rmsnorm_bwd_launch; the TPU reference has none: its gradient is
-// XLA's autodiff of the jnp norm). With r = rsqrt(mean(x^2) + eps),
-// x^ = x * r and g = dy * scale:
+// Backward (rmsnorm_bwd_launch, rmsnorm_pair_bwd_launch; the TPU reference
+// has none: its gradient is XLA's autodiff of the jnp norm). With
+// r = 1 / sqrt(mean(x^2) + eps), x^ = x * r and g = dy * scale:
 //     dx     = r * (g - x^ * mean(g * x^)) = r * g - x * (r^3 * sum(g*x) / D)
 //     dscale = sum over rows of dy * x^          (f32, (D,))
-// in three launches, deterministic (no atomics): (1) dx in the forward's
-// geometry (G lanes a row up to D = 1024, a block a row above), each row's
-// sum(x^2) and sum(g*x) in one pass and dx in a second, and the row's r into
-// an f32 scratch; (2) blocks of 32 columns by 8 row lanes sum dy * x * r
-// over chunks of kChunkRows rows into a (chunks, D) f32 scratch; (3) one
-// thread a column sums its chunks in order into dscale. Bound: bytes, x and
-// dy read and dx written once (launch 2 re-reads x and dy, from L2 at the
-// model's shapes), about 10 flops an element.
+// in one pass that reads x and dy from device memory once. A thread keeps
+// its 16-byte packs of a row (x and dy) in registers between the row's two
+// sums and its dx (and, holding at most two, loads its next row's
+// meanwhile), in the forward's geometry: G = 16 or 32 lanes a row for
+// narrow rows (256 / G rows a block), the 256 threads of a block a row
+// above, up to kRegMaxD = 8192; wider rows take a branch that
+// rereads the row from L2 for dx. Each thread also sums dy * x * r for the
+// columns it owns over its rows in f32 registers (the reread branch: in its
+// block's row of a global scratch). The grid is sized to the card (as many
+// clusters of 8 blocks as it holds at once, or fewer where that leaves each
+// block as many runs of rows) and blocks loop over runs of rows, so any row
+// count runs. dscale is summed deterministically, with no atomics: the row
+// groups of a block in a fixed tree through shared memory; the 8 blocks of
+// a thread-block cluster through distributed shared memory, block q summing
+// slice q of the columns over the cluster's ranks in order into one partial
+// a cluster; then a second, small launch sums the clusters' partials in a
+// fixed order into dscale. Partials: 4 * D bytes a cluster and tensor,
+// written once and read once (0.66 MB at 512 rows of 5120 on 32 clusters,
+// where the pass moves 15.7 MB). The qk-norm's q and k (one row
+// width, each its own scale and dscale) share one grid. Every float
+// operation is pinned (__fmul_rn, fmaf, ...) so that
+// tests/rmsnorm_bwd_emulation.py repeats it in numpy. Bound: bytes, x and
+// dy read and dx written once, about 10 flops an element.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cstring>
+
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kThreads = 256;
 constexpr int kWarpRowsMaxD = 1024;
@@ -241,7 +262,24 @@ cudaError_t dispatch(const void* x, const void* s, void* y, long long rows,
 // backward
 // ---------------------------------------------------------------------------
 
-constexpr int kChunkRows = 64;  // rows a block of launch 2 sums
+constexpr int kCluster = 8;          // blocks a cluster, and its slices
+constexpr int kLaneRowsMaxD = 512;   // G lanes a row for one tensor
+constexpr int kLaneRowsMaxD1 = 128;  // the same, one element a pack
+constexpr int kRegMaxD = 8192;       // widest row held in registers
+constexpr int kMaxBlocksPerSM = 2048 / kThreads;
+constexpr int kWideBlocksPerSM = 2;  // the reread branch's grid
+
+// One tensor of a backward launch: x, dy, dx (rows, D) and its scale and
+// dscale (D,).
+template <typename T>
+struct Bwd {
+  const T* x;
+  const float* s;
+  const T* dy;
+  T* dx;
+  float* ds;
+  long long rows;
+};
 
 // The V scale values of pack i.
 template <int V>
@@ -263,199 +301,537 @@ __device__ __forceinline__ void load_scale(const float* __restrict__ s, int i,
   }
 }
 
-// This thread's share of (sum(x^2), sum(dy*scale*x)) over one row.
+// This thread's share of (sum(x^2), sum(dy*scale*x)) over one pack.
 template <typename T, int V>
-__device__ __forceinline__ float2 row_sums_bwd(const T* __restrict__ xr,
-                                               const T* __restrict__ dyr,
-                                               const float* __restrict__ s,
-                                               int D, int tid, int n) {
-  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(xr);
-  const Pack<T, V>* gp = reinterpret_cast<const Pack<T, V>*>(dyr);
-  float ss = 0.0f, sg = 0.0f;
-  for (int i = tid; i < D / V; i += n) {
-    const Pack<T, V> p = xp[i];
-    const Pack<T, V> q = gp[i];
-    float sv[V];
-    load_scale<V>(s, i, sv);
+__device__ __forceinline__ void pack_sums(const Pack<T, V>& p,
+                                          const Pack<T, V>& q,
+                                          const float (&sv)[V], float2& t) {
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      const float f = to_f32(p.v[j]);
-      ss = fmaf(f, f, ss);
-      sg = fmaf(to_f32(q.v[j]) * sv[j], f, sg);
-    }
+  for (int j = 0; j < V; ++j) {
+    const float f = to_f32(p.v[j]);
+    t.x = fmaf(f, f, t.x);
+    t.y = fmaf(__fmul_rn(to_f32(q.v[j]), sv[j]), f, t.y);
   }
-  return make_float2(ss, sg);
 }
 
-// dx = r * (dy * scale) - x * c over one row, threads tid, tid + n, ...
+// dx = r * (dy * scale) - x * c over one pack, and acc += dy * (x * r).
 template <typename T, int V>
-__device__ __forceinline__ void row_dx(const T* __restrict__ xr,
-                                       const T* __restrict__ dyr,
-                                       const float* __restrict__ s,
-                                       T* __restrict__ dxr, int D, float r,
-                                       float c, int tid, int n) {
-  const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(xr);
-  const Pack<T, V>* gp = reinterpret_cast<const Pack<T, V>*>(dyr);
-  Pack<T, V>* dp = reinterpret_cast<Pack<T, V>*>(dxr);
-  for (int i = tid; i < D / V; i += n) {
-    const Pack<T, V> p = xp[i];
-    const Pack<T, V> q = gp[i];
-    float sv[V];
-    load_scale<V>(s, i, sv);
-    Pack<T, V> o;
+__device__ __forceinline__ Pack<T, V> pack_dx(const Pack<T, V>& p,
+                                              const Pack<T, V>& q,
+                                              const float (&sv)[V], float r,
+                                              float c, float (&acc)[V]) {
+  Pack<T, V> o;
 #pragma unroll
-    for (int j = 0; j < V; ++j) {
-      o.v[j] = from_f32<T>(r * (to_f32(q.v[j]) * sv[j]) -
-                           to_f32(p.v[j]) * c);
-    }
-    dp[i] = o;
+  for (int j = 0; j < V; ++j) {
+    const float xf = to_f32(p.v[j]), gf = to_f32(q.v[j]);
+    o.v[j] = from_f32<T>(fmaf(-xf, c, __fmul_rn(r, __fmul_rn(gf, sv[j]))));
+    acc[j] = fmaf(gf, __fmul_rn(xf, r), acc[j]);
   }
+  return o;
 }
 
 // (r, r^3 * sum(g*x) / D) of a row from its sums.
 __device__ __forceinline__ float2 bwd_factors(float2 sums, int D, float eps) {
-  const float r = rsqrtf(sums.x / static_cast<float>(D) + eps);
-  return make_float2(r, r * r * r * sums.y / static_cast<float>(D));
+  const float d = static_cast<float>(D);
+  const float r =
+      __fdiv_rn(1.0f, __fsqrt_rn(__fadd_rn(__fdiv_rn(sums.x, d), eps)));
+  return make_float2(
+      r, __fmul_rn(__fmul_rn(__fmul_rn(r, r), r), __fdiv_rn(sums.y, d)));
 }
 
-// Launch 1 for wide rows: one block a row.
-template <typename T, int V>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_block_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                         const float* __restrict__ s, T* __restrict__ dx,
-                         float* __restrict__ rstd, int D, float eps) {
-  __shared__ float2 warp_sums[kThreads / 32];
-  const long long row = blockIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const T* xr = x + row * D;
-  const T* gr = dy + row * D;
-  float2 t = row_sums_bwd<T, V>(xr, gr, s, D, threadIdx.x, kThreads);
-  t.x = warp_sum(t.x);
-  t.y = warp_sum(t.y);
-  if (lane == 0) warp_sums[warp] = t;
-  __syncthreads();
-  if (warp == 0) {
-    const float2 w = lane < kThreads / 32 ? warp_sums[lane]
-                                          : make_float2(0.0f, 0.0f);
-    const float a = warp_sum(w.x), b = warp_sum(w.y);
-    if (lane == 0) warp_sums[0] = make_float2(a, b);
-  }
-  __syncthreads();
-  const float2 f = bwd_factors(warp_sums[0], D, eps);
-  if (threadIdx.x == 0) rstd[row] = f.x;
-  row_dx<T, V>(xr, gr, s, dx + row * D, D, f.x, f.y, threadIdx.x, kThreads);
-}
-
-// Launch 1 for rows of D <= 1024: G lanes a row, kThreads / G rows a block.
-template <typename T, int V, int G>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                        const float* __restrict__ s, T* __restrict__ dx,
-                        float* __restrict__ rstd, long long rows, int D,
-                        float eps) {
-  const int lane = threadIdx.x % G;
-  const long long row =
-      static_cast<long long>(blockIdx.x) * (kThreads / G) + threadIdx.x / G;
-  const bool live = row < rows;
-  const T* xr = x + (live ? row : 0) * D;
-  const T* gr = dy + (live ? row : 0) * D;
-  float2 t = live ? row_sums_bwd<T, V>(xr, gr, s, D, lane, G)
-                  : make_float2(0.0f, 0.0f);
+// A butterfly over the G lanes of a row (G <= 32): every lane ends with the
+// same sums.
+template <int G>
+__device__ __forceinline__ float2 lane_sums(float2 t) {
 #pragma unroll
   for (int o = G / 2; o > 0; o >>= 1) {
-    t.x += __shfl_xor_sync(0xffffffffu, t.x, o);
-    t.y += __shfl_xor_sync(0xffffffffu, t.y, o);
+    t.x = __fadd_rn(t.x, __shfl_xor_sync(0xffffffffu, t.x, o));
+    t.y = __fadd_rn(t.y, __shfl_xor_sync(0xffffffffu, t.y, o));
   }
-  if (!live) return;
-  const float2 f = bwd_factors(t, D, eps);
-  if (lane == 0) rstd[row] = f.x;
-  row_dx<T, V>(xr, gr, s, dx + row * D, D, f.x, f.y, lane, G);
+  return t;
 }
 
-// Launch 2: partial[chunk][c] = sum over the chunk's rows of dy*x*r, for
-// the 32 columns of this block; 8 row lanes, summed through shared memory.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-rmsnorm_dscale_partial_kernel(const T* __restrict__ x,
-                              const T* __restrict__ dy,
-                              const float* __restrict__ rstd,
-                              float* __restrict__ partial, long long rows,
-                              int D) {
-  __shared__ float acc_s[kThreads / 32][33];
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const int col = blockIdx.x * 32 + tx;
-  const long long r0 = static_cast<long long>(blockIdx.y) * kChunkRows;
-  const long long r1 = min(rows, r0 + kChunkRows);
-  float acc = 0.0f;
-  if (col < D) {
-    for (long long row = r0 + ty; row < r1; row += kThreads / 32) {
-      const long long e = row * D + col;
-      acc = fmaf(to_f32(dy[e]) * to_f32(x[e]), rstd[row], acc);
+// A row's sums over the 256 threads of a block: a butterfly in each warp,
+// then the 8 warps' sums in order. wsum alternates between two buffers
+// from one row to the next, so one barrier a row suffices.
+__device__ __forceinline__ float2 block_sums(float2 t,
+                                             float2 (*wsum)[kThreads / 32],
+                                             int& parity) {
+  t = lane_sums<32>(t);
+  if (threadIdx.x % 32 == 0) wsum[parity][threadIdx.x / 32] = t;
+  __syncthreads();
+  float2 w = wsum[parity][0];
+#pragma unroll
+  for (int i = 1; i < kThreads / 32; ++i) {
+    w.x = __fadd_rn(w.x, wsum[parity][i].x);
+    w.y = __fadd_rn(w.y, wsum[parity][i].y);
+  }
+  parity ^= 1;
+  return w;
+}
+
+// Makes a 16-byte bf16 pack opaque to the compiler, so that it keeps the
+// pack's 16 bytes of registers across a row's reduction and converts it to
+// f32 again for dx, rather than keeping 32 bytes of f32 alive.
+template <typename T, int V>
+__device__ __forceinline__ void keep_packed(Pack<T, V>& p) {
+  if constexpr (sizeof(T) == 2 && V == 8) {
+    uint4 w;
+    memcpy(&w, &p, sizeof(w));
+    asm volatile("" : "+r"(w.x), "+r"(w.y), "+r"(w.z), "+r"(w.w));
+    memcpy(&p, &w, sizeof(w));
+  }
+}
+
+// Columns of slice q of the cluster's sum: [q * W, min(D, (q + 1) * W)).
+__device__ __forceinline__ int2 slice(int D) {
+  const int W = (D + kCluster - 1) / kCluster;
+  const int q = blockIdx.x % kCluster;
+  return make_int2(min(D, q * W), min(D, (q + 1) * W));
+}
+
+// Block q of a cluster sums slice q of the cluster's NT block partials
+// (rank r's tensor t at src[r] + t * tstride; in device memory, read past
+// L1, with GLOBAL) over the ranks in order, into the cluster's partial
+// cpart[(cluster * NT + t) * Dp + c].
+template <int NT, bool GLOBAL>
+__device__ __forceinline__ void cluster_sum(const float* const (&src)[kCluster],
+                                            int tstride, int D, int Dp,
+                                            float* __restrict__ cpart) {
+  const int2 cols = slice(D);
+  const long long cid = blockIdx.x / kCluster;
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    for (int c = cols.x + threadIdx.x; c < cols.y; c += kThreads) {
+      float v = 0.0f;
+#pragma unroll
+      for (int r = 0; r < kCluster; ++r) {
+        const float* p = src[r] + t * tstride + c;
+        const float w = GLOBAL ? __ldcg(p) : *p;
+        v = r == 0 ? w : __fadd_rn(v, w);
+      }
+      cpart[(cid * NT + t) * Dp + c] = v;
     }
   }
-  acc_s[ty][tx] = acc;
-  __syncthreads();
-  if (ty == 0 && col < D) {
-    float t = 0.0f;
+}
+
+// Where a row group's row of run u lies: which tensor, whether the row
+// exists, and its element offset.
+struct RowAt {
+  bool first, live;
+  long long off;
+};
+
+template <typename T, bool PAIR>
+__device__ __forceinline__ RowAt row_at(const Bwd<T>& a, const Bwd<T>& b,
+                                        long long u, int ng, int group,
+                                        int D) {
+  long long row = u * ng + group;
+  RowAt w;
+  w.first = !PAIR || row < a.rows;
+  if (!w.first) row -= a.rows;
+  w.live = row < (w.first ? a.rows : b.rows);
+  w.off = (w.live ? row : 0) * D;
+  return w;
+}
+
+// This lane's packs of the row at w: lane, lane + G, ... (at most PL).
+template <typename T, int V, int G, int PL, bool PAIR>
+__device__ __forceinline__ void load_row(const Bwd<T>& a, const Bwd<T>& b,
+                                         const RowAt& w, int lane, int np,
+                                         Pack<T, V> (&px)[PL],
+                                         Pack<T, V> (&pg)[PL]) {
+  const Pack<T, V>* xp =
+      reinterpret_cast<const Pack<T, V>*>((w.first ? a.x : b.x) + w.off);
+  const Pack<T, V>* gp =
+      reinterpret_cast<const Pack<T, V>*>((w.first ? a.dy : b.dy) + w.off);
 #pragma unroll
-    for (int j = 0; j < kThreads / 32; ++j) t += acc_s[j][tx];
-    partial[static_cast<long long>(blockIdx.y) * D + col] = t;
+  for (int k = 0; k < PL; ++k) {
+    const int p = lane + k * G;
+    if (w.live && p < np) {
+      px[k] = xp[p];
+      pg[k] = gp[p];
+    }
   }
 }
 
-// Launch 3: dscale[c] = sum of partial[0..chunks)[c], in chunk order.
+// Rows held in registers: G lanes a row (G = 16 or 32 up to kWarpRowsMaxD,
+// or G = 256, a block a row, up to kRegMaxD), NG = 256 / G rows a block,
+// each lane holding packs lane, lane + G, ... (at most PL) of its row. Run
+// u is rows u * NG ... u * NG + NG - 1; block b takes runs b, b + grid, ...
+// With PAIR, the rows of a (a.rows) then b share the grid, each tensor
+// with its own column sums, which live in the lane's registers. The
+// block's column sums (its row groups' in a tree through shared memory)
+// then stay in shared memory (buf) for the cluster's sum.
+template <typename T, int V, int G, int PL, bool PAIR>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+rmsnorm_bwd_kernel(Bwd<T> a, Bwd<T> b, int D, float eps,
+                   float* __restrict__ cpart, int Dp) {
+  constexpr int NG = kThreads / G;  // row groups a block
+  constexpr int NT = PAIR ? 2 : 1;
+  constexpr int DMAX = G * PL * V;  // widest row of this instance
+  __shared__ __align__(16) float buf[(NG > 1 ? NG / 2 : 1) * NT * DMAX];
+  __shared__ float2 wsum[2][kThreads / 32];
+  const int lane = threadIdx.x % G, group = threadIdx.x / G;
+  const int np = D / V;
+  const long long runs = (a.rows + (PAIR ? b.rows : 0) + NG - 1) / NG;
+  float acc[NT][PL][V];
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int k = 0; k < PL; ++k)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[t][k][j] = 0.0f;
+  int parity = 0;
+  for (long long u = blockIdx.x; u < runs; u += gridDim.x) {
+    const RowAt w = row_at<T, PAIR>(a, b, u, NG, group, D);
+    Pack<T, V> px[PL], pg[PL];
+    load_row<T, V, G, PL, PAIR>(a, b, w, lane, np, px, pg);
+    const float* sp = w.first ? a.s : b.s;
+    float2 sums = make_float2(0.0f, 0.0f);
+#pragma unroll
+    for (int k = 0; k < PL; ++k) {
+      const int p = lane + k * G;
+      if (w.live && p < np) {
+        float sv[V];
+        load_scale<V>(sp, p, sv);
+        pack_sums<T, V>(px[k], pg[k], sv, sums);
+        keep_packed<T, V>(px[k]);
+        keep_packed<T, V>(pg[k]);
+      }
+    }
+    if constexpr (G <= 32) {
+      sums = lane_sums<G>(sums);
+    } else {
+      sums = block_sums(sums, wsum, parity);
+    }
+    const float2 f = bwd_factors(sums, D, eps);
+    Pack<T, V>* dp =
+        reinterpret_cast<Pack<T, V>*>((w.first ? a.dx : b.dx) + w.off);
+#pragma unroll
+    for (int k = 0; k < PL; ++k) {
+      const int p = lane + k * G;
+      if (w.live && p < np) {
+        float sv[V];
+        load_scale<V>(sp, p, sv);
+        dp[p] = w.first
+                    ? pack_dx<T, V>(px[k], pg[k], sv, f.x, f.y, acc[0][k])
+                    : pack_dx<T, V>(px[k], pg[k], sv, f.x, f.y, acc[NT - 1][k]);
+      }
+    }
+  }
+  // the row groups' sums: groups h .. 2h - 1 hand theirs to groups 0 .. h - 1
+  if constexpr (NG > 1) {
+#pragma unroll
+    for (int h = NG / 2; h > 0; h >>= 1) {
+      if (group >= h && group < 2 * h) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int k = 0; k < PL; ++k) {
+            const int p = lane + k * G;
+            if (p < np) {
+#pragma unroll
+              for (int j = 0; j < V; ++j)
+                buf[((group - h) * NT + t) * DMAX + p * V + j] = acc[t][k][j];
+            }
+          }
+      }
+      __syncthreads();
+      if (group < h) {
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int k = 0; k < PL; ++k) {
+            const int p = lane + k * G;
+            if (p < np) {
+#pragma unroll
+              for (int j = 0; j < V; ++j)
+                acc[t][k][j] = __fadd_rn(
+                    acc[t][k][j], buf[(group * NT + t) * DMAX + p * V + j]);
+            }
+          }
+      }
+      __syncthreads();
+    }
+  }
+  if (group == 0) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int k = 0; k < PL; ++k) {
+        const int p = lane + k * G;
+        if (p < np) {
+#pragma unroll
+          for (int j = 0; j < V; ++j) buf[t * DMAX + p * V + j] = acc[t][k][j];
+        }
+      }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const float* src[kCluster];
+#pragma unroll
+  for (int r = 0; r < kCluster; ++r) src[r] = cluster.map_shared_rank(buf, r);
+  cluster_sum<NT, false>(src, DMAX, D, Dp, cpart);
+  cluster.sync();  // no block leaves while another reads its shared memory
+}
+
+// Rows wider than kRegMaxD: a block a row, the row read from device memory
+// for its sums and reread (from L2, where the first pass left it: 64 KB at
+// 16384 bf16 columns) for dx; each thread's column sums go to the block's
+// row of bpart (Dp floats), which the cluster then sums from there.
+template <typename T, int V>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
+rmsnorm_bwd_wide_kernel(Bwd<T> a, int D, float eps, float* __restrict__ bpart,
+                        float* __restrict__ cpart, int Dp) {
+  __shared__ float2 wsum[2][kThreads / 32];
+  const int np = D / V;
+  float* bp = bpart + static_cast<long long>(blockIdx.x) * Dp;
+  int parity = 0;
+  bool started = false;
+  for (long long row = blockIdx.x; row < a.rows; row += gridDim.x) {
+    const Pack<T, V>* xp = reinterpret_cast<const Pack<T, V>*>(a.x + row * D);
+    const Pack<T, V>* gp = reinterpret_cast<const Pack<T, V>*>(a.dy + row * D);
+    Pack<T, V>* dp = reinterpret_cast<Pack<T, V>*>(a.dx + row * D);
+    float2 sums = make_float2(0.0f, 0.0f);
+    for (int p = threadIdx.x; p < np; p += kThreads) {
+      float sv[V];
+      load_scale<V>(a.s, p, sv);
+      pack_sums<T, V>(xp[p], gp[p], sv, sums);
+    }
+    const float2 f = bwd_factors(block_sums(sums, wsum, parity), D, eps);
+    for (int p = threadIdx.x; p < np; p += kThreads) {
+      float sv[V], acc[V];
+      load_scale<V>(a.s, p, sv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc[j] = started ? bp[p * V + j] : 0.0f;
+      dp[p] = pack_dx<T, V>(xp[p], gp[p], sv, f.x, f.y, acc);
+#pragma unroll
+      for (int j = 0; j < V; ++j) bp[p * V + j] = acc[j];
+    }
+    started = true;
+  }
+  if (!started) {
+    for (int c = threadIdx.x; c < D; c += kThreads) bp[c] = 0.0f;
+  }
+  __threadfence();
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const long long base = blockIdx.x / kCluster * kCluster;
+  const float* src[kCluster];
+#pragma unroll
+  for (int r = 0; r < kCluster; ++r) src[r] = bpart + (base + r) * Dp;
+  cluster_sum<1, true>(src, 0, D, Dp, cpart);
+}
+
+// The second launch: dscale of tensor blockIdx.y (ds0 or ds1) over columns
+// blockIdx.x * 128 ..., from the clusters' partials. Warp ty sums partials
+// ty, ty + 8, ... of 4 columns a lane in order; the 8 warps' sums are then
+// added in warp order.
 __global__ void __launch_bounds__(kThreads)
-rmsnorm_dscale_reduce_kernel(const float* __restrict__ partial,
-                             float* __restrict__ dscale, int chunks, int D) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  if (col >= D) return;
-  float t = 0.0f;
-  for (int j = 0; j < chunks; ++j)
-    t += partial[static_cast<long long>(j) * D + col];
-  dscale[col] = t;
+rmsnorm_dscale_sum_kernel(const float* __restrict__ cpart, int nclusters,
+                          int nt, int D, int Dp, float* __restrict__ ds0,
+                          float* __restrict__ ds1) {
+  __shared__ float4 red[kThreads / 32][32];
+  const int t = blockIdx.y, tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  const int col = blockIdx.x * 128 + 4 * tx;
+  float4 s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (col < D) {
+#pragma unroll 4
+    for (int j = ty; j < nclusters; j += kThreads / 32) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(
+          cpart + (static_cast<long long>(j) * nt + t) * Dp + col));
+      s.x = __fadd_rn(s.x, v.x);
+      s.y = __fadd_rn(s.y, v.y);
+      s.z = __fadd_rn(s.z, v.z);
+      s.w = __fadd_rn(s.w, v.w);
+    }
+  }
+  red[ty][tx] = s;
+  __syncthreads();
+  if (ty == 0 && col < D) {
+    float4 v = red[0][tx];
+#pragma unroll
+    for (int k = 1; k < kThreads / 32; ++k) {
+      const float4 w = red[k][tx];
+      v.x = __fadd_rn(v.x, w.x);
+      v.y = __fadd_rn(v.y, w.y);
+      v.z = __fadd_rn(v.z, w.z);
+      v.w = __fadd_rn(v.w, w.w);
+    }
+    const float o[4] = {v.x, v.y, v.z, v.w};
+    float* ds = t == 0 ? ds0 : ds1;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (col + e < D) ds[col + e] = o[e];
+    }
+  }
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// The clusters of a kernel that the card holds at once.
+template <typename K>
+int active_clusters(K kernel) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  cudaOccupancyMaxActiveClusters(&n, kernel, &cfg);
+  return n;
+}
+
+// The grid for `units` runs of rows at most `clusters` clusters hold: as
+// few whole clusters as give each block the fewest runs.
+long long bwd_grid(long long units, long long clusters) {
+  const long long cap = kCluster * std::max(1LL, clusters);
+  const long long runs = (units + cap - 1) / cap;  // runs a block
+  const long long blocks = (units + runs - 1) / runs;
+  return (blocks + kCluster - 1) / kCluster * kCluster;
+}
+
+int padded(int D) { return (D + 3) / 4 * 4; }
+
+// With plan non-null, write {V, G, PL, grid, reread} there and launch
+// nothing.
+cudaError_t planned(int* plan, int V, int G, int PL, long long grid,
+                    int reread) {
+  const int v[5] = {V, G, PL, static_cast<int>(grid), reread};
+  memcpy(plan, v, sizeof(v));
+  return cudaSuccess;
+}
+
+// The second launch, after the first's error check.
+cudaError_t launch_dscale_sum(cudaError_t err, const float* cpart,
+                              long long grid, int nt, int D, float* ds0,
+                              float* ds1, cudaStream_t st) {
+  if (err != cudaSuccess) return err;
+  rmsnorm_dscale_sum_kernel<<<dim3((D + 127) / 128, nt), kThreads, 0, st>>>(
+      cpart, static_cast<int>(grid / kCluster), nt, D, padded(D), ds0, ds1);
+  return cudaGetLastError();
+}
+
+template <typename T, int V, int G, int PL, bool PAIR>
+cudaError_t launch_bwd_rows(const Bwd<T>& a, const Bwd<T>& b, int D,
+                            float eps, float* scratch, long long floats,
+                            cudaStream_t st, int* plan) {
+  const auto kernel = rmsnorm_bwd_kernel<T, V, G, PL, PAIR>;
+  static const int clusters = active_clusters(kernel);
+  constexpr int NG = kThreads / G;
+  const long long grid = bwd_grid((a.rows + b.rows + NG - 1) / NG, clusters);
+  if (plan) return planned(plan, V, G, PL, grid, 0);
+  if (grid / kCluster * (PAIR ? 2 : 1) * padded(D) > floats) {
+    return cudaErrorInvalidValue;
+  }
+  kernel<<<static_cast<unsigned>(grid), kThreads, 0, st>>>(a, b, D, eps,
+                                                            scratch, padded(D));
+  return launch_dscale_sum(cudaGetLastError(), scratch, grid, PAIR ? 2 : 1, D,
+                           a.ds, b.ds, st);
+}
+
+template <typename T, int V>
+cudaError_t launch_bwd_wide(const Bwd<T>& a, int D, float eps,
+                            float* scratch, long long floats, cudaStream_t st,
+                            int* plan) {
+  const long long grid =
+      bwd_grid(a.rows, 1LL * sm_count() * kWideBlocksPerSM / kCluster);
+  if (plan) return planned(plan, V, kThreads, 0, grid, 1);
+  const long long cp = grid / kCluster * padded(D);
+  if (cp + grid * padded(D) > floats) return cudaErrorInvalidValue;
+  rmsnorm_bwd_wide_kernel<T, V><<<static_cast<unsigned>(grid), kThreads, 0,
+                                  st>>>(a, D, eps, scratch + cp, scratch,
+                                        padded(D));
+  return launch_dscale_sum(cudaGetLastError(), scratch, grid, 1, D, a.ds,
+                           nullptr, st);
+}
+
+// G = 16 lanes a row when a row is at most 16 packs, else 32, with PL
+// packs a lane; one element a "pack" unless vec. The pair takes rows up to
+// kWarpRowsMaxD; a single tensor up to kLaneRowsMaxD (16-byte packs) or
+// kLaneRowsMaxD1 (one element a pack), above which a block a row keeps
+// more of the card busy.
+template <typename T, bool PAIR>
+cudaError_t dispatch_bwd_rows(const Bwd<T>& a, const Bwd<T>& b, bool vec,
+                              int D, float eps, float* scratch,
+                              long long floats, cudaStream_t st, int* plan) {
+  constexpr int V = 16 / sizeof(T);
+#define RMSNORM_BWD_ROWS(VV, GG, PP)                                       \
+  return launch_bwd_rows<T, VV, GG, PP, PAIR>(a, b, D, eps, scratch, floats, \
+                                              st, plan)
+  if (vec) {
+    const int np = D / V;
+    if (np <= 16) RMSNORM_BWD_ROWS(V, 16, 1);
+    if (np <= 32) RMSNORM_BWD_ROWS(V, 32, 1);
+    if (np <= 64) RMSNORM_BWD_ROWS(V, 32, 2);
+    if constexpr (PAIR || sizeof(T) == 4) {
+      if (np <= 128) RMSNORM_BWD_ROWS(V, 32, 4);
+    }
+    if constexpr (PAIR && sizeof(T) == 4) RMSNORM_BWD_ROWS(V, 32, 8);
+    return cudaErrorInvalidValue;
+  }
+  if (D <= 128) RMSNORM_BWD_ROWS(1, 32, 4);
+  if constexpr (PAIR) RMSNORM_BWD_ROWS(1, 32, 32);
+  return cudaErrorInvalidValue;
+#undef RMSNORM_BWD_ROWS
+}
+
+// One tensor: rows of D <= kLaneRowsMaxD as above, a block a row up to
+// kRegMaxD (PL packs a thread), the reread branch above.
+template <typename T>
+cudaError_t dispatch_bwd(const Bwd<T>& a, int D, float eps, float* scratch,
+                         long long floats, cudaStream_t st, int* plan) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = aligned16(a.x, a.s, a.dy, a.dx) && D % V == 0;
+  const Bwd<T> none{};
+  if (D <= (vec ? kLaneRowsMaxD : kLaneRowsMaxD1)) {
+    return dispatch_bwd_rows<T, false>(a, none, vec, D, eps, scratch, floats,
+                                       st, plan);
+  }
+#define RMSNORM_BWD_BLOCK(VV, PP)                                          \
+  return launch_bwd_rows<T, VV, kThreads, PP, false>(                      \
+      a, none, D, eps, scratch, floats, st, plan)
+  if (D <= kRegMaxD) {
+    if (vec) {
+      const int np = (D / V + kThreads - 1) / kThreads;  // packs a thread
+      if constexpr (sizeof(T) == 2) {
+        if (np <= 1) RMSNORM_BWD_BLOCK(V, 1);
+        if (np <= 2) RMSNORM_BWD_BLOCK(V, 2);
+        if (np <= 3) RMSNORM_BWD_BLOCK(V, 3);
+        RMSNORM_BWD_BLOCK(V, 4);
+      } else {
+        if (np <= 2) RMSNORM_BWD_BLOCK(V, 2);
+        if (np <= 3) RMSNORM_BWD_BLOCK(V, 3);
+        if (np <= 4) RMSNORM_BWD_BLOCK(V, 4);
+        if (np <= 6) RMSNORM_BWD_BLOCK(V, 6);
+        RMSNORM_BWD_BLOCK(V, 8);
+      }
+    }
+    if (D <= 8 * kThreads) RMSNORM_BWD_BLOCK(1, 8);
+    RMSNORM_BWD_BLOCK(1, 32);
+  }
+#undef RMSNORM_BWD_BLOCK
+  if (vec) return launch_bwd_wide<T, V>(a, D, eps, scratch, floats, st, plan);
+  return launch_bwd_wide<T, 1>(a, D, eps, scratch, floats, st, plan);
 }
 
 template <typename T>
-cudaError_t dispatch_bwd(const void* x, const void* s, const void* dy,
-                         void* dx, float* dscale, float* rstd,
-                         float* partial, long long rows, int D, float eps,
-                         cudaStream_t st) {
-  const T* xp = static_cast<const T*>(x);
-  const T* gp = static_cast<const T*>(dy);
-  const float* sp = static_cast<const float*>(s);
-  T* dp = static_cast<T*>(dx);
-  constexpr int V = 16 / sizeof(T);
-  const bool vec = aligned16(x, s, dy, dx) && D % V == 0;
-  if (D <= kWarpRowsMaxD) {
-    const int G = vec && D / V <= 16 ? 16 : 32;
-    const long long blocks = (rows + kThreads / G - 1) / (kThreads / G);
-    const unsigned nb = static_cast<unsigned>(blocks);
-    if (vec && G == 16)
-      rmsnorm_bwd_rows_kernel<T, V, 16><<<nb, kThreads, 0, st>>>(
-          xp, gp, sp, dp, rstd, rows, D, eps);
-    else if (vec)
-      rmsnorm_bwd_rows_kernel<T, V, 32><<<nb, kThreads, 0, st>>>(
-          xp, gp, sp, dp, rstd, rows, D, eps);
-    else
-      rmsnorm_bwd_rows_kernel<T, 1, 32><<<nb, kThreads, 0, st>>>(
-          xp, gp, sp, dp, rstd, rows, D, eps);
-  } else if (vec) {
-    rmsnorm_bwd_block_kernel<T, V><<<static_cast<unsigned>(rows), kThreads,
-                                     0, st>>>(xp, gp, sp, dp, rstd, D, eps);
-  } else {
-    rmsnorm_bwd_block_kernel<T, 1><<<static_cast<unsigned>(rows), kThreads,
-                                     0, st>>>(xp, gp, sp, dp, rstd, D, eps);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int chunks = static_cast<int>((rows + kChunkRows - 1) / kChunkRows);
-  rmsnorm_dscale_partial_kernel<T><<<dim3((D + 31) / 32, chunks), kThreads, 0,
-                                     st>>>(xp, gp, rstd, partial, rows, D);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  rmsnorm_dscale_reduce_kernel<<<(D + kThreads - 1) / kThreads, kThreads, 0,
-                                 st>>>(partial, dscale, chunks, D);
-  return cudaGetLastError();
+Bwd<T> bwd_tensor(const void* x, const void* s, const void* dy, void* dx,
+                  void* ds, long long rows) {
+  return Bwd<T>{static_cast<const T*>(x), static_cast<const float*>(s),
+                static_cast<const T*>(dy), static_cast<T*>(dx),
+                static_cast<float*>(ds), rows};
 }
 
 }  // namespace
@@ -504,33 +880,98 @@ extern "C" int rmsnorm_pair_launch(const void* xq, const void* sq, void* yq,
   return static_cast<int>(err);
 }
 
-// The rows a block of the backward's second launch sums: the scratch of
-// rmsnorm_bwd_launch holds ceil(rows / this) rows of D floats.
-extern "C" int rmsnorm_bwd_chunk_rows() { return kChunkRows; }
+// The f32 scratch (floats) of a backward launch over `rows` rows of width D
+// (pair: the qk-norm's q and k rows together): the clusters' partials,
+// and for rows wider than kRegMaxD the blocks' too. An upper bound over the
+// kernels the launch may choose (at most kMaxBlocksPerSM blocks an SM).
+extern "C" long long rmsnorm_bwd_scratch_floats(long long rows, int D,
+                                                int pair) {
+  if (rows <= 0 || D <= 0) return 0;
+  if (D > kRegMaxD) {
+    const long long grid =
+        bwd_grid(rows, 1LL * sm_count() * kWideBlocksPerSM / kCluster);
+    return (grid / kCluster + grid) * padded(D);
+  }
+  const int rows_a_block =
+      D <= (pair ? kWarpRowsMaxD : kLaneRowsMaxD1) ? kThreads / 32 : 1;
+  return bwd_grid((rows + rows_a_block - 1) / rows_a_block,
+                  1LL * sm_count() * kMaxBlocksPerSM / kCluster) /
+         kCluster * (pair ? 2 : 1) * padded(D);
+}
 
 // The backward of rmsnorm_launch: x, dy, dx (rows, D) contiguous in one
-// dtype (0 = float32, 1 = bfloat16); scale (D,) f32; dscale (D,) f32
-// output; rstd a (rows,) f32 scratch, partial a (ceil(rows /
-// rmsnorm_bwd_chunk_rows()), D) f32 scratch. Three launches; returns
-// cudaGetLastError() after them.
+// dtype (0 = float32, 1 = bfloat16); scale (D,) f32; dscale (D,) f32,
+// written whole; scratch an f32 buffer of `floats` >=
+// rmsnorm_bwd_scratch_floats(rows, D, 0) floats, 16-byte aligned. Two
+// launches: the pass over the rows, and the sum of its clusters'
+// partials into dscale. With `plan` non-null nothing is launched and
+// plan receives the first launch's {V (elements a pack), G (lanes a
+// row), PL (packs a lane at most), grid, 1 if the row is reread for dx
+// else 0}. Returns cudaGetLastError() after the launches.
 extern "C" int rmsnorm_bwd_launch(const void* x, const void* scale,
                                   const void* dy, void* dx, void* dscale,
-                                  void* rstd, void* partial, long long rows,
-                                  int D, int dtype, float eps, void* stream) {
-  if (rows <= 0 || D <= 0 || rows > 0x7FFFFFFFLL ||
-      (rows + kChunkRows - 1) / kChunkRows > 65535) {
+                                  void* scratch, long long floats,
+                                  long long rows, int D, int dtype, float eps,
+                                  void* stream, int* plan) {
+  if (rows <= 0 || D <= 0 || reinterpret_cast<uintptr_t>(scratch) % 16 ||
+      floats < rmsnorm_bwd_scratch_floats(rows, D, 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* ds = static_cast<float*>(dscale);
-  float* rs = static_cast<float*>(rstd);
-  float* pt = static_cast<float*>(partial);
+  float* sc = static_cast<float*>(scratch);
   cudaError_t err;
   if (dtype == 0) {
-    err = dispatch_bwd<float>(x, scale, dy, dx, ds, rs, pt, rows, D, eps, st);
+    err = dispatch_bwd<float>(
+        bwd_tensor<float>(x, scale, dy, dx, dscale, rows), D, eps, sc,
+        floats, st, plan);
   } else if (dtype == 1) {
-    err = dispatch_bwd<__nv_bfloat16>(x, scale, dy, dx, ds, rs, pt, rows, D,
-                                      eps, st);
+    err = dispatch_bwd<__nv_bfloat16>(
+        bwd_tensor<__nv_bfloat16>(x, scale, dy, dx, dscale, rows), D, eps,
+        sc, floats, st, plan);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+template <typename T>
+cudaError_t bwd_pair(const void* xq, const void* sq, const void* dyq,
+                     void* dxq, void* dsq, long long rows_q, const void* xk,
+                     const void* sk, const void* dyk, void* dxk, void* dsk,
+                     long long rows_k, void* scratch, long long floats, int D,
+                     float eps, cudaStream_t st, int* plan) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = aligned16(xq, sq, dyq, dxq, xk, sk, dyk, dxk) && D % V == 0;
+  return dispatch_bwd_rows<T, true>(
+      bwd_tensor<T>(xq, sq, dyq, dxq, dsq, rows_q),
+      bwd_tensor<T>(xk, sk, dyk, dxk, dsk, rows_k), vec, D, eps,
+      static_cast<float*>(scratch), floats, st, plan);
+}
+
+// The backward of rmsnorm_pair_launch: q's rows (xq, dyq, dxq: (rows_q,
+// D), scale sq, dscale dsq) and k's (rows_k) share one grid, D <= 1024;
+// scratch >= rmsnorm_bwd_scratch_floats(rows_q + rows_k, D, 1) floats;
+// plan as for rmsnorm_bwd_launch. Returns cudaGetLastError() after the
+// launches.
+extern "C" int rmsnorm_pair_bwd_launch(
+    const void* xq, const void* sq, const void* dyq, void* dxq, void* dsq,
+    long long rows_q, const void* xk, const void* sk, const void* dyk,
+    void* dxk, void* dsk, long long rows_k, void* scratch, long long floats,
+    int D, int dtype, float eps, void* stream, int* plan) {
+  if (rows_q < 0 || rows_k < 0 || rows_q + rows_k <= 0 || D <= 0 ||
+      D > kWarpRowsMaxD || reinterpret_cast<uintptr_t>(scratch) % 16 ||
+      floats < rmsnorm_bwd_scratch_floats(rows_q + rows_k, D, 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = bwd_pair<float>(xq, sq, dyq, dxq, dsq, rows_q, xk, sk, dyk, dxk,
+                          dsk, rows_k, scratch, floats, D, eps, st, plan);
+  } else if (dtype == 1) {
+    err = bwd_pair<__nv_bfloat16>(xq, sq, dyq, dxq, dsq, rows_q, xk, sk, dyk,
+                                  dxk, dsk, rows_k, scratch, floats, D, eps,
+                                  st, plan);
   } else {
     err = cudaErrorInvalidValue;
   }

@@ -11,11 +11,15 @@ raises); a CPU tensor takes the plain version in ``kernels/ref.py``.
 
 Under autograd, when x or the scale requires a gradient, the norms run as
 ``torch.autograd.Function``s whose forward is the same launch (the pair
-still one) and whose backward is ``rmsnorm_bwd`` (``rmsnorm_bwd_launch``:
-dx, and dscale summed over the rows in f32; the pair's backward is two of
-them). Under ``inference_mode``/``no_grad`` nothing changes.
+still one) and whose backward is one call too: ``rmsnorm_bwd``
+(``rmsnorm_bwd_launch``: dx, and dscale summed over the rows in f32, in one
+pass over x and dy and a small sum of its partials), and for the pair
+``rmsnorm_pair_bwd`` (``rmsnorm_pair_bwd_launch``: q's and k's rows in one
+grid). Under ``inference_mode``/``no_grad`` nothing changes.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -116,32 +120,92 @@ def rmsnorm_bwd(x: torch.Tensor, scale: torch.Tensor, dy: torch.Tensor, *,
                 eps: float = 1e-5):
     """(dx, dscale) of ``rmsnorm`` at x with incoming gradient dy (copied
     first unless contiguous): dx in x's type, dscale (D,) f32. A CUDA
-    tensor launches the backward kernels (or raises); a CPU tensor takes
-    ``ref.rmsnorm_bwd_ref``."""
-    if dy.shape != x.shape or dy.dtype != x.dtype:
-        raise ValueError(f"rmsnorm_bwd: dy {tuple(dy.shape)} {dy.dtype} for "
-                         f"x {tuple(x.shape)} {x.dtype}")
+    tensor makes one call of the backward kernel (or raises): one pass over
+    the rows, and a small launch that sums its clusters' partials into
+    dscale. A CPU tensor takes ``ref.rmsnorm_bwd_ref``."""
+    _check_dy(x, dy, "rmsnorm_bwd")
     if x.device.type == "cpu":
         return _ref.rmsnorm_bwd_ref(x, scale, dy, eps)
-    D = _checked(x, scale, "rmsnorm_bwd")
-    dy = dy.contiguous()
-    rows = x.numel() // D if D else 0
-    dx = torch.empty_like(x)
-    dscale = torch.zeros(D, dtype=torch.float32, device=x.device)
-    if rows == 0:
-        return dx, dscale
+    return _bwd_launch("rmsnorm_bwd", [(x, scale, dy)], eps)
+
+
+def rmsnorm_pair_bwd(xq: torch.Tensor, sq: torch.Tensor, dyq: torch.Tensor,
+                     xk: torch.Tensor, sk: torch.Tensor, dyk: torch.Tensor, *,
+                     eps: float = 1e-5):
+    """(dxq, dsq, dxk, dsk): the backward of ``rmsnorm_pair`` in one call,
+    q's and k's rows in one grid (the forward pair's dtype, device and row
+    width D <= 1024). A CPU tensor takes two ``ref.rmsnorm_bwd_ref``."""
+    _check_dy(xq, dyq, "rmsnorm_pair_bwd")
+    _check_dy(xk, dyk, "rmsnorm_pair_bwd")
+    if xq.device.type == "cpu":
+        return (*_ref.rmsnorm_bwd_ref(xq, sq, dyq, eps),
+                *_ref.rmsnorm_bwd_ref(xk, sk, dyk, eps))
+    return _bwd_launch("rmsnorm_pair_bwd", [(xq, sq, dyq), (xk, sk, dyk)],
+                       eps)
+
+
+def rmsnorm_bwd_plan(*tensors) -> dict:
+    """The geometry the backward's pass takes on the card for (x, scale, dy)
+    CUDA tensors (one triple, or the qk pair's two), launching nothing: V
+    (elements a pack: 16 bytes, or 1 where rows are unaligned or ragged),
+    G (lanes a row), PL (packs a lane at most), grid (blocks, in clusters
+    of 8), reread (rows wider than the registers hold)."""
+    out = (ctypes.c_int * 5)()
+    _bwd_launch("rmsnorm_bwd_plan", list(tensors), 1e-5, out)
+    return dict(zip(("V", "G", "PL", "grid", "reread"), out))
+
+
+def _check_dy(x, dy, what: str) -> None:
+    if dy.shape != x.shape or dy.dtype != x.dtype:
+        raise ValueError(f"{what}: dy {tuple(dy.shape)} {dy.dtype} for x "
+                         f"{tuple(x.shape)} {x.dtype}")
+
+
+def _bwd_launch(what: str, tensors, eps: float, plan=None):
+    """The backward call for one (x, scale, dy) or the pair's two, in one
+    dtype, device and row width: (dx, dscale) for each. With ``plan`` (an
+    int[5]) nothing is launched and the pass's geometry is written there."""
+    D = _checked(tensors[0][0], tensors[0][1], what)
+    x0 = tensors[0][0]
+    for x, s, _ in tensors[1:]:
+        if _checked(x, s, what) != D or x.dtype != x0.dtype \
+                or x.device != x0.device:
+            raise ValueError(f"{what}: q {tuple(x0.shape)} {x0.dtype} on "
+                             f"{x0.device} and k {tuple(x.shape)} {x.dtype} "
+                             f"on {x.device} must share a dtype, a device "
+                             f"and the row width")
+    pair = len(tensors) == 2
+    if pair and not 0 < D <= _PAIR_MAX_D:
+        raise ValueError(f"{what}: row width {D} outside (0, "
+                         f"{_PAIR_MAX_D}]")
+    dys = [dy.contiguous() for _, _, dy in tensors]
+    rows = [x.numel() // D if D else 0 for x, _, _ in tensors]
+    outs = [(torch.empty_like(x), torch.empty(D, dtype=torch.float32,
+                                               device=x.device))
+            for x, _, _ in tensors]
+    if sum(rows) == 0:
+        return tuple(t for dx, ds in outs for t in (dx, ds.zero_()))
     lib = build.library()
-    chunks = -(-rows // lib.rmsnorm_bwd_chunk_rows())
-    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
-    partial = torch.empty(chunks, D, dtype=torch.float32, device=x.device)
-    err = lib.rmsnorm_bwd_launch(
-        x.data_ptr(), scale.data_ptr(), dy.data_ptr(), dx.data_ptr(),
-        dscale.data_ptr(), rstd.data_ptr(), partial.data_ptr(), rows, D,
-        _DTYPES[x.dtype], float(eps),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "rmsnorm_bwd")
+    floats = lib.rmsnorm_bwd_scratch_floats(sum(rows), D, int(pair))
+    scratch = torch.empty(max(floats, 1), dtype=torch.float32,
+                          device=x0.device)
+    ptrs = [[x.data_ptr(), s.data_ptr(), dy.data_ptr(), dx.data_ptr(),
+             ds.data_ptr()]
+            for (x, s, _), dy, (dx, ds) in zip(tensors, dys, outs)]
+    stream = torch.cuda.current_stream(x0.device).cuda_stream
+    if pair:
+        err = lib.rmsnorm_pair_bwd_launch(
+            *ptrs[0], rows[0], *ptrs[1], rows[1], scratch.data_ptr(), floats,
+            D, _DTYPES[x0.dtype], float(eps), stream, plan)
+    else:
+        err = lib.rmsnorm_bwd_launch(
+            *ptrs[0], scratch.data_ptr(), floats, rows[0], D,
+            _DTYPES[x0.dtype], float(eps), stream, plan)
+    build.check(err, what)
+    if plan is not None:
+        return None
     build.LAUNCHES["rmsnorm_bwd"] += 1
-    return dx, dscale
+    return tuple(t for dx_ds in outs for t in dx_ds)
 
 
 class _RMSNorm(torch.autograd.Function):
@@ -159,7 +223,7 @@ class _RMSNorm(torch.autograd.Function):
 
 
 class _RMSNormPair(torch.autograd.Function):
-    """The pair norm: one forward launch, a backward of two."""
+    """The pair norm: one forward launch, one backward launch."""
 
     @staticmethod
     def forward(ctx, xq, sq, xk, sk, eps: float):
@@ -170,6 +234,5 @@ class _RMSNormPair(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dyq, dyk):
         xq, sq, xk, sk = ctx.saved_tensors
-        dxq, dsq = rmsnorm_bwd(xq, sq, dyq, eps=ctx.eps)
-        dxk, dsk = rmsnorm_bwd(xk, sk, dyk, eps=ctx.eps)
-        return dxq, dsq, dxk, dsk, None
+        return (*rmsnorm_pair_bwd(xq, sq, dyq, xk, sk, dyk, eps=ctx.eps),
+                None)

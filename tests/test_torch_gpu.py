@@ -34,7 +34,13 @@ bf16 backward kernels against their CPU emulation
 (tests/flash_bwd_emulation.py) on the input that chose dQ's dS split
 (seed 3790) and on a (192, 128) case: each gradient's largest difference
 within 2^-7·max|g|, and the kernels' own margin to the plain version
-within the emulation's by 0.25 of that tolerance.
+within the emulation's by 0.25 of that tolerance. The rmsnorm backward
+(one launch, the qk pair's q and k in one grid) at widths up to 16384
+(past 8192 the branch that rereads rows), two calls bit-equal at every
+shape, single and pair; past the old 4.19 M-row limit (rows of 128,
+bf16); and against its CPU emulation (tests/rmsnorm_bwd_emulation.py) at
+the geometry the launch reports: dscale within 2^-20·max|dscale|, dx
+within 2^-8·max|dx|.
 """
 import numpy as np
 import pytest
@@ -43,7 +49,9 @@ import torch
 from repro_torch.kernels import build, ops, ref, threefry, zo_update
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
-from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd, rmsnorm_pair
+from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
+                                        rmsnorm_bwd_plan, rmsnorm_pair,
+                                        rmsnorm_pair_bwd)
 
 pytestmark = pytest.mark.gpu
 
@@ -545,16 +553,30 @@ def test_flash_attention_lse_matches_plain(cuda):
         assert float(((lse - wl).abs() / wl.abs().clamp(min=1)).max()) <= 1e-5
 
 
-@pytest.mark.parametrize("shape", [(1, 512, 5120), (1, 512, 40, 128),
-                                   (1, 512, 8, 128), (3, 7, 128),
-                                   (1, 300, 5120), (333, 100), (77, 1030)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_rmsnorm_bwd_matches_plain(cuda, shape, dtype):
-    gen = torch.Generator(device=cuda).manual_seed(7)
+# the rmsnorm backward's shapes: the qwen3-14b block and qk-norm rows, MLA's
+# 512 and 1536, small and ragged rows, mixtral's 6144, the widest d_model
+# of the configs (8192) and the branch that rereads rows wider than that
+NORM_BWD_SHAPES = [(1, 512, 5120), (1, 512, 40, 128), (1, 512, 8, 128),
+                   (1, 512, 512), (1, 512, 1536), (3, 7, 128), (1, 300, 5120),
+                   (333, 100), (77, 1030), (1, 512, 6144), (96, 8192),
+                   (17, 16384), (5, 16400)]
+
+
+def _norm_bwd_inputs(cuda, shape, dtype, seed=7):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     D = shape[-1]
     x = (torch.randn(shape, generator=gen, device=cuda) * 3.0).to(dtype)
     dy = torch.randn(shape, generator=gen, device=cuda).to(dtype)
     s = 1.0 + 0.5 * torch.randn(D, generator=gen, device=cuda)
+    return x, s, dy
+
+
+@pytest.mark.parametrize("shape", NORM_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_matches_plain(cuda, shape, dtype):
+    x, s, dy = _norm_bwd_inputs(cuda, shape, dtype)
+    D = shape[-1]
+    assert rmsnorm_bwd_plan((x, s, dy))["reread"] == (D > 8192)
     before = build.LAUNCHES["rmsnorm_bwd"]
     dx, ds = rmsnorm_bwd(x, s, dy)
     torch.cuda.synchronize()
@@ -562,7 +584,7 @@ def test_rmsnorm_bwd_matches_plain(cuda, shape, dtype):
     wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
     assert_grad_close(dx, wx)
     assert_grad_close(ds, ws)
-    # through autograd: the pair (two backward launches) and the single
+    # through autograd: the single, and the pair (one backward launch)
     xa, sa = x.clone().requires_grad_(True), s.clone().requires_grad_(True)
     got = torch.autograd.grad(rmsnorm(xa, sa), (xa, sa), dy)
     assert_grad_close(got[0], wx)
@@ -571,9 +593,100 @@ def test_rmsnorm_bwd_matches_plain(cuda, shape, dtype):
         n0 = build.LAUNCHES["rmsnorm_bwd"]
         yq, yk = rmsnorm_pair(xa, sa, xa, sa)
         gq = torch.autograd.grad((yq, yk), (xa, sa), (dy, dy))
-        assert build.LAUNCHES["rmsnorm_bwd"] == n0 + 2
+        assert build.LAUNCHES["rmsnorm_bwd"] == n0 + 1
         assert_grad_close(gq[0], (wx.float() * 2).to(dtype))
         assert_grad_close(gq[1], ws * 2)
+
+
+@pytest.mark.parametrize("shape", NORM_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_two_calls_are_bit_equal(cuda, shape, dtype):
+    """dx and dscale of two calls are bit-equal (no float atomics: dscale's
+    blocks and clusters are summed in a fixed order), for one tensor and,
+    at widths up to 1024, for the pair with k's own rows and scale."""
+    x, s, dy = _norm_bwd_inputs(cuda, shape, dtype)
+    first, second = rmsnorm_bwd(x, s, dy), rmsnorm_bwd(x, s, dy)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    if shape[-1] <= 1024:
+        xk, sk, dyk = _norm_bwd_inputs(cuda, (41, shape[-1]), dtype, seed=8)
+        first = rmsnorm_pair_bwd(x, s, dy, xk, sk, dyk)
+        second = rmsnorm_pair_bwd(x, s, dy, xk, sk, dyk)
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+        want = (*ref.rmsnorm_bwd_ref(x, s, dy), *ref.rmsnorm_bwd_ref(
+            xk, sk, dyk))
+        for g, w in zip(first, want):
+            assert_grad_close(g, w)
+
+
+def test_rmsnorm_bwd_above_the_old_row_limit(cuda):
+    """Rows of 128 in bf16 beyond the three-launch backward's 65535 chunks
+    of 64 rows (4,194,240): 4,198,400 rows, 3.2 GB of x, dy and dx; the
+    grid stays the card's, its blocks looping over the rows."""
+    rows = 65535 * 64 + 4160
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = (torch.randn(rows, 128, generator=gen, device=cuda) * 3.0).to(
+        torch.bfloat16)
+    dy = torch.randn(rows, 128, generator=gen, device=cuda).to(
+        torch.bfloat16)
+    s = 1.0 + 0.5 * torch.randn(128, generator=gen, device=cuda)
+    assert rmsnorm_bwd_plan((x, s, dy))["grid"] <= 8 * (
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
+    dx, ds = rmsnorm_bwd(x, s, dy)
+    torch.cuda.synchronize()
+    wx, ws = ref.rmsnorm_bwd_ref(x, s, dy)
+    assert_grad_close(dx, wx)
+    assert_grad_close(ds, ws)
+
+
+# (x's shape, k's shape for the pair or None, dtype, a view at an odd
+# element offset: one element a pack, as at a width of no whole 16 bytes)
+NORM_BWD_EMULATION_CASES = [
+    ((512, 5120), None, torch.bfloat16, False),
+    ((20480, 128), (4096, 128), torch.bfloat16, False),
+    ((512, 512), None, torch.bfloat16, False),
+    ((512, 1536), None, torch.bfloat16, False),
+    ((512, 5120), None, torch.float32, False),
+    ((77, 1030), None, torch.float32, False),
+    ((333, 100), (41, 100), torch.bfloat16, True),
+    ((17, 16384), None, torch.bfloat16, False),
+]
+
+
+@pytest.mark.parametrize("case", NORM_BWD_EMULATION_CASES)
+def test_rmsnorm_bwd_kernel_meets_its_emulation(cuda, case):
+    """The card's backward against its CPU emulation
+    (tests/rmsnorm_bwd_emulation.py: the kernel's f32 operations in its
+    order, at the geometry the launch reports) on the same inputs: dscale
+    within 2^-20·max|dscale| (the emulation's fused multiply-adds round
+    twice where the card's round once), dx within 2^-8·max|dx| (half the
+    tolerance to the plain version). Prints the distances."""
+    import rmsnorm_bwd_emulation as emu
+    q_shape, k_shape, dtype, odd = case
+    tensors = []
+    for i, shape in enumerate((q_shape, k_shape) if k_shape else (q_shape,)):
+        x, s, dy = _norm_bwd_inputs(cuda, shape, dtype, seed=10 + i)
+        if odd:
+            buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+            x = buf[1:].view(x.shape).copy_(x)
+        tensors.append((x, s, dy))
+    plan = {k: v for k, v in rmsnorm_bwd_plan(*tensors).items()
+            if k in ("V", "G", "grid")}
+    got = (rmsnorm_pair_bwd(*tensors[0], *tensors[1]) if k_shape
+           else rmsnorm_bwd(*tensors[0]))
+    V = 16 // tensors[0][0].element_size()
+    assert plan["V"] == (1 if odd or q_shape[-1] % V else V)
+    emulated = emu.emulate([tuple(t.float().cpu().numpy() for t in ts)
+                            for ts in tensors], **plan)
+    for i, (dx, ds) in enumerate(emulated):
+        gx, gs = got[2 * i].float().cpu().numpy(), got[2 * i + 1].cpu().numpy()
+        ex = emu.to_bf16(dx) if dtype == torch.bfloat16 else dx
+        dx_apart = float(np.abs(gx - ex).max() / np.abs(ex).max())
+        ds_apart = float(np.abs(gs - ds).max() / np.abs(ds).max())
+        same = float((gx == ex).mean())
+        print(f"{case} {plan} tensor {i}: dx apart {dx_apart:.2e} of "
+              f"max|dx| ({same:.6f} of elements equal), dscale apart "
+              f"{ds_apart:.2e} of max|dscale|")
+        assert dx_apart <= 2.0 ** -8 and ds_apart <= 2.0 ** -20
 
 
 def test_backward_kernels_raise_on_what_they_do_not_take(cuda):
