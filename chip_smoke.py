@@ -9,10 +9,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them,
      flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-     threefry.cu and rmsnorm.cu with -Xptxas -v: the kernels' registers,
-     shared memory, stack frames and spills are printed (the bf16 flash
-     kernels, every flash backward kernel, each (d_qk, d_v) pair's, and
-     every rmsnorm backward kernel must not spill); the
+     threefry.cu, rmsnorm.cu and selective_scan.cu with -Xptxas -v: the
+     kernels' registers, shared memory, stack frames and spills are
+     printed (the bf16 flash kernels, every flash backward kernel, each
+     (d_qk, d_v) pair's, every rmsnorm backward kernel and the four
+     selective-scan kernels must not spill); the
      built library's
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
@@ -47,15 +48,21 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      within 1e-5 and bf16 within one bf16 ulp of each gradient's largest
      magnitude,
      with the autograd backward of scaled_dot_product_attention and of
-     F.rms_norm timed beside them;
+     F.rms_norm timed beside them; the selective scan (Mamba) against its
+     plain version at path 10's round, prefill and decode shapes
+     (d_inner 16384, d_state 16) and at the card SMOKE's d_state 4, f32
+     within 1e-5 and bf16 within two ulps, from a nonzero h0, two
+     launches bit-equal and h_out = h0 equal to a new h_last;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
      olmo-1b, and MU-SplitFed and GAS on mixtral-8x22b SMOKE widened to
      d_head 64 and on deepseek-v2-236b SMOKE widened to MLA's (192, 128);
      FedAvg with SGD and AdamW, FedLoRA, and FedAvg with SGD on
-     deepseek-v2-236b at (192, 128)) and small f32 serving
-     (mixtral-8x22b past its window, qwen3-14b, deepseek-v2-236b), then
+     deepseek-v2-236b at (192, 128); MU-SplitFed and GAS on
+     jamba-1.5-large-398b SMOKE widened to d_head 64) and small f32
+     serving (mixtral-8x22b past its window, qwen3-14b, deepseek-v2-236b,
+     jamba-1.5-large-398b), then
      the seven training paths through the
      training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
@@ -135,11 +142,20 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      of (a)'s model with 32 of its 160 routed experts through the driver
      (the flash backward at (192, 128), M·L launches, and the rmsnorm
      backward, M·(4·L + 1)), its peak beside the reckoning;
+     and path 10, the Mamba hybrid jamba-1.5-large-398b (``phase_jamba``)
+     at full width on one unit, 8 of 72 layers: (a) serving in bf16 with
+     8 of its 16 experts (25.9 B parameters), a 4096-token prompt and 16
+     new tokens (the selective scan at S = 4096 and 1), then the f32
+     decode-vs-full check with 2 experts at capacity factor 1.0 on a
+     512-token prompt; (b) one MU-SplitFed round of the 2-expert model
+     (11.4 B) through the driver, its peak beside the reckoning;
   5. one JSON line with every kernel's numbers (launches summed over the
      paths; the flash row and the flash backward's row carry their MLA
      instance's numbers under "mla", with the launches the wrappers
-     counted at the (192, 128) pair, and the rmsnorm backward's row its
-     MLA widths'), then the result line.
+     counted at the (192, 128) pair, the rmsnorm backward's row its
+     MLA widths', and the selective scan's row, at path 10's round shape,
+     its prefill's under "tokens_4096" and its decode's under "decode"),
+     then the result line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
 noise kernels at the path leaves, with the SM clock read by nvidia-smi
@@ -153,8 +169,10 @@ device memory; the event-timed loop is printed beside them, labelled as
 host-paced. Bounds: the larger of
 bytes / 3.35 TB/s and operations / the card's peak for their type (989
 TFLOP/s bf16 tensor cores for attention on bf16 inputs, 67 TFLOP/s on the
-f32 CUDA cores for the noise kernels and the norm); published H100 SXM
-numbers at a 700 W limit.
+f32 CUDA cores for the noise kernels and the norm, and for the selective
+scan its exponentials, logarithms and reciprocals on the SFU at 16 a
+clock an SM, 132 SMs at 1980 MHz); published H100 SXM numbers at a 700 W
+limit.
 """
 from __future__ import annotations
 
@@ -174,7 +192,10 @@ sys.path.insert(0, str(ROOT / "src"))
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_core": 67e12}
+# the SFU (MUFU: exp2, log2, reciprocal) issues 16 operations a clock an SM
+# (Hopper's throughput table), on 132 SMs at the 1980 MHz boost clock
+PEAK_OPS_PER_S = {"bf16_tensor": 989e12, "f32_core": 67e12,
+                  "mufu": 16 * 132 * 1980e6}
 # operations per counter gaussian and record, counted from the formula:
 # two murmur3 finalizers (10 integer ops each), the row mix and salt (3),
 # two int->float conversions and the (h+1)·2^-32 scaling (4), then log,
@@ -222,6 +243,21 @@ PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
                          r"threefry_sumsq_kernel|flash_bwd_dkdv_sum_kernel")
 # operations of the RMSNorm backward per element
 NORM_BWD_OPS = 10
+
+
+def scan_mufu_ops(N: int) -> int:
+    """MUFU operations of the selective scan per (token, channel): N
+    exponentials for exp(δ·A), 2 for softplus (exp, log1p) and 2 for
+    silu(z) (exp, the reciprocal of its division)."""
+    return N + 4
+
+
+def scan_bytes(B: int, S: int, d_in: int, N: int, elem: int) -> int:
+    """Bytes the selective scan must move: x, z and y in the model type
+    and dt in f32 per (token, channel); B and C per token; h0 and h_last;
+    A_log, D and dt_bias once."""
+    return (B * S * d_in * (3 * elem + 4) + 2 * B * S * N * 4
+            + 2 * B * d_in * N * 4 + d_in * N * 4 + 2 * d_in * 4)
 
 
 def flash_bwd_ops(d_qk: int, d_v: int) -> int:
@@ -388,8 +424,9 @@ def phase_card():
 def phase_build():
     """Build the package's kernel library and, at the same time, -Xptxas -v
     builds of flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-    threefry.cu and rmsnorm.cu. Returns the zo kernels' SASS instructions
-    per gaussian and the threefry kernels' per element."""
+    threefry.cu, rmsnorm.cu and selective_scan.cu. Returns the zo
+    kernels' SASS instructions per gaussian and the threefry kernels' per
+    element."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     # registers, shared memory, stack frames and spills, from ptxas
@@ -400,7 +437,8 @@ def phase_build():
          str(build.BUILD_ROOT / "ptxas" / (Path(src).stem + ".o"))],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("flash_attention.cu", "flash_attention_bwd.cu",
-                    "zo_update.cu", "threefry.cu", "rmsnorm.cu")}
+                    "zo_update.cu", "threefry.cu", "rmsnorm.cu",
+                    "selective_scan.cu")}
     try:
         build.library()
     finally:
@@ -413,6 +451,7 @@ def phase_build():
     report_ptxas(ptxas_out["flash_attention.cu"])
     report_ptxas_bwd(ptxas_out["flash_attention_bwd.cu"])
     report_ptxas_norm_bwd(ptxas_out["rmsnorm.cu"])
+    report_ptxas_scan(ptxas_out["selective_scan.cu"])
     lib = build.library()
     for d, dv in FLASH_PAIRS:
         print(f"flash_fwd_bf16_kernel<{d}, {dv}>: dynamic shared memory "
@@ -544,6 +583,35 @@ def report_ptxas_norm_bwd(out: str) -> None:
     require(len(seen) == NORM_BWD_KERNELS, f"ptxas -v reported spill lines "
             f"for {len(seen)} rmsnorm backward kernels, not "
             f"{NORM_BWD_KERNELS}: {sorted(seen)}")
+
+
+# the selective scan's instances: f32 and bf16 at d_state 4 and 16
+SCAN_KERNEL = re.compile(r"(selective_scan_kernel)I(13__nv_bfloat16|f)"
+                         r"Li(\d+)EE")
+SCAN_KERNELS = 4
+
+
+def report_ptxas_scan(out: str) -> None:
+    """Print ptxas's registers, shared memory and spills for each
+    selective-scan kernel; none may spill."""
+    name, seen = None, set()
+    for line in out.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = SCAN_KERNEL.search(line)
+            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
+                    f", {m.group(3)}>" if m else None)
+            continue
+        if name is None or not line.strip() or "Compile time" in line:
+            continue
+        print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills:
+            seen.add(name)
+            require(spills.groups() == ("0", "0"),
+                    f"{name} spills registers: {line.strip()}")
+    require(len(seen) == SCAN_KERNELS, f"ptxas -v reported spill lines for "
+            f"{sorted(seen)}, not the {SCAN_KERNELS} selective-scan kernels")
 
 
 def check_sass(lib: Path) -> None:
@@ -1170,6 +1238,12 @@ def phase_rmsnorm(dev) -> dict:
              ("mixtral-8x22b prefill block norm (path 8)", (1, 4160, 6144),
               bf16),
              ("qwen3-14b decode block norm (path 8)", (4, 1, 5120), bf16)]
+    # path 10's jamba-1.5-large-398b block norms (d_model 8192): the
+    # round's and the f32 check's 512 rows, prefill's 4096
+    for rows in (512, 4096):
+        for dtype in (bf16, f32):
+            cases.append(("jamba-1.5-large-398b block norm (path 10)",
+                          (1, rows, 8192), dtype))
     # path 9's MLA norms: kv_norm on the 512-wide latent (32 lanes a row,
     # in bf16 the only case of that instance), q_norm on the 1536-wide q
     # latent (a block a row), over prefill's and the round's rows and a
@@ -1242,6 +1316,114 @@ def phase_rmsnorm(dev) -> dict:
     res["pair"] = dict(ms=pair_ms, q_ms=q_ms, k_ms=k_ms, plain_ms=plain_ms,
                        library_ms=lib_ms, bound_ms=b_ms)
     return res
+
+
+# the selective scan's cases: (label, (B, S, d_in, N)); path 10's round
+# (512 tokens), prefill (4096) and decode (1) at jamba's published d_inner
+# and d_state, and the card-sized SMOKE's N = 4 (d_inner 256)
+SCAN_CASES = (("round (path 10)", (1, 512, 16384, 16)),
+              ("prefill (path 10)", (1, 4096, 16384, 16)),
+              ("decode (path 10)", (1, 1, 16384, 16)),
+              ("card SMOKE", (2, 40, 256, 4)))
+
+
+def scan_inputs(B, S, d_in, N, dtype, dev, seed=5):
+    """The scan's inputs as a Mamba block gives them: x the silu of a
+    normal and z a normal in the model type; dt (the dt_proj product
+    before the bias), B and C normal f32; A_log, D and dt_bias near the
+    reference's init; h0 a nonzero state."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x = torch.nn.functional.silu(randn(B, S, d_in) * 2.0).to(dtype)
+    z = randn(B, S, d_in).to(dtype)
+    A_log = torch.log(torch.arange(1, N + 1.0, device=dev)).expand(
+        d_in, N).contiguous()
+    bias = math.log(math.expm1(0.01)) + randn(d_in)
+    return (x, randn(B, S, d_in), z, randn(B, S, N), randn(B, S, N), A_log,
+            1.0 + 0.1 * randn(d_in), bias, randn(B, d_in, N) * 0.5)
+
+
+def check_scan(what: str, got, want) -> float:
+    """y: f32 within 1e-5 of max|y|; bf16 within two bf16 ulps of each
+    element plus 1e-5 of max|y| (y is rounded before and after the silu(z)
+    gate, so an f32 difference that moves the first rounding moves the
+    product by up to two ulps); h_last (f32) within 1e-5 of max|h|.
+    Returns the largest |Δ| of y and h."""
+    (y, h), (wy, wh) = got, want
+    require(y.shape == wy.shape and y.dtype == wy.dtype
+            and h.dtype == torch.float32, f"{what}: {y.shape} {y.dtype}, "
+            f"h {h.dtype} vs {wy.shape} {wy.dtype}")
+    require(bool(torch.isfinite(y.float()).all())
+            and bool(torch.isfinite(h).all()), f"{what}: non-finite")
+    scale = float(wy.float().abs().max())
+    d = (y.float() - wy.float()).abs()
+    if y.dtype == torch.bfloat16:
+        ok = bool((d <= 2.0 ** -6 * wy.float().abs() + 1e-5 * scale).all())
+    else:
+        ok = float(d.max()) <= 1e-5 * scale
+    dh = float((h - wh).abs().max())
+    require(ok and dh <= 1e-5 * float(wh.abs().max()),
+            f"{what}: y max |Δ| {float(d.max()):.3e} of {scale:.3e}, h max "
+            f"|Δ| {dh:.3e} outside tolerance")
+    return max(float(d.max()), dh)
+
+
+def phase_selective_scan(dev) -> dict:
+    """The selective-scan kernel against its plain version
+    (``ref.selective_scan_ref``, one token at a time in PyTorch ops) at
+    SCAN_CASES, f32 and bf16, each from a nonzero h0 (``check_scan``); two
+    launches bit-equal, and h_out = h0 (decode's in-place state) equal to
+    a launch into a new h_last. Times: the kernel's device time per call
+    (device_ms, cycling through copies of the inputs that together
+    exceed L2), the plain version's by CUDA events; the bound from ``scan_bytes`` and
+    ``scan_mufu_ops``. No PyTorch call computes this function, so the
+    library column is null. Returns the round case's numbers (bf16), with
+    prefill's under "tokens_4096" and decode's under "decode"."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.selective_scan import selective_scan
+    res = {"err": 0.0, "library_ms": None}
+    for label, (B, S, d_in, N) in SCAN_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(B, S, d_in, N, dtype, dev)
+            what = (f"selective_scan {label} {str(dtype)[6:]} "
+                    f"(B, S, d_in, N) = {(B, S, d_in, N)}")
+            got = selective_scan(*args)
+            err = check_scan(what, got, ref.selective_scan_ref(*args))
+            again = selective_scan(*args)
+            state = args[-1].clone()
+            inplace = selective_scan(*args[:-1], state, h_out=state)
+            require(torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1]),
+                    f"{what}: two launches differ")
+            require(torch.equal(inplace[0], got[0])
+                    and torch.equal(state, got[1]),
+                    f"{what}: h_out = h0 differs from a new h_last")
+            res["err"] = max(res["err"], err)
+            nbytes = scan_bytes(B, S, d_in, N, dtype.itemsize)
+            sets = [args] + [tuple(t.clone() for t in args)
+                             for _ in range(L2_BYTES // nbytes + 1)]
+            ms = device_ms(lambda t: selective_scan(*t), sets, 10)
+            plain_ms = time_ms(lambda: ref.selective_scan_ref(*args), 1)
+            require(ms > 0, f"{what}: the profiler recorded no device time")
+            b_ms, b_by = bound(nbytes, scan_mufu_ops(N) * B * S * d_in,
+                               "mufu")
+            print(f"{what}: max|Δ| {err:.3e}  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  library none  bound {b_ms:.4f} ms "
+                  f"({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)"
+                  f"  two launches bit-equal, h_out = h0 equal")
+            if dtype != torch.bfloat16 or label == "card SMOKE":
+                continue
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       shape=f"(B, S, d_in, N) = {(B, S, d_in, N)} bf16")
+            if label.startswith("round"):
+                res.update(row)
+            else:
+                res["tokens_4096" if S == 4096 else "decode"] = row
+    return res
+
 
 
 def flash_pairs(S: int, causal: bool, window: int) -> int:
@@ -1733,12 +1915,15 @@ def phase_small_round(dev):
     and aggregation in SMALL_ROUNDS (GAS with a stale client: its buffer,
     the MoE aux with it, too, an MoE buffer within 1e-4 of its largest
     magnitude): olmo-1b SMOKE, and for MOE_SMALL_ROUNDS mixtral-8x22b
-    SMOKE (4 experts top-2, window 32 under 64 tokens) and deepseek-v2-236b
-    SMOKE (MLA, 8 experts top-2 and 1 shared), each as
-    ``configs.card_smoke_config`` widens it."""
+    SMOKE (4 experts top-2, window 32 under 64 tokens), deepseek-v2-236b
+    SMOKE (MLA, 8 experts top-2 and 1 shared) and jamba-1.5-large-398b
+    SMOKE (Mamba through the selective scan at d_state 4, 4 experts top-2
+    at every other block), each as ``configs.card_smoke_config`` widens
+    it."""
     for arch, kv, cases in (("olmo-1b", 2, SMALL_ROUNDS),
                             ("mixtral-8x22b", 1, MOE_SMALL_ROUNDS),
-                            ("deepseek-v2-236b", 2, MOE_SMALL_ROUNDS)):
+                            ("deepseek-v2-236b", 2, MOE_SMALL_ROUNDS),
+                            ("jamba-1.5-large-398b", 1, MOE_SMALL_ROUNDS)):
         small_rounds(dev, arch, kv, cases)
 
 
@@ -2862,12 +3047,16 @@ def phase_serve(dev) -> dict:
     return launches
 
 
-def moe_round(dev, name: str, argv, cfg) -> dict:
+MOE_ROUND_KERNELS = ("zo_update", "zo_replay", "flash_attention", "rmsnorm")
+
+
+def moe_round(dev, name: str, argv, cfg, kernels=MOE_ROUND_KERNELS) -> dict:
     """One MU-SplitFed round of an MoE model through the driver
     (``train.setup(argv, cfg=cfg)``, counter noise set after it) with
-    ``drive``: zo_update, zo_replay, flash_attention and rmsnorm must
-    launch; its peak memory printed against the reckoning of
-    MOE_ROUND_BYTES_PER_PARAM_BYTE times the parameter bytes, with the
+    ``drive``: ``kernels`` (zo_update, zo_replay, flash_attention and
+    rmsnorm; path 10 adds selective_scan) must launch; its peak memory
+    printed against the reckoning of MOE_ROUND_BYTES_PER_PARAM_BYTE times
+    the parameter bytes, with the
     round's own ratio beside it; the client's MoE aux loss after the round
     finite and positive. The profiled round runs after the initial
     parameters are dropped (deepseek-v2's round, at 70.5 GiB, leaves no
@@ -2876,9 +3065,8 @@ def moe_round(dev, name: str, argv, cfg) -> dict:
     from repro_torch.models import client_forward, param_count, split_params
     run = train.setup(argv, cfg=cfg)
     sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
-    res, _, launches, chunks = drive(
-        dev, name, run, sfl, ("zo_update", "zo_replay", "flash_attention",
-                              "rmsnorm"), profile=False)
+    res, _, launches, chunks = drive(dev, name, run, sfl, kernels,
+                                     profile=False)
     gib = param_count(run.params) * 2 / 2 ** 30
     peak = max(c[2] for c in chunks)
     with torch.inference_mode():
@@ -3048,10 +3236,143 @@ def phase_mla(dev) -> dict:
     return launches
 
 
+# path 10: the Mamba hybrid jamba-1.5-large-398b at its full published
+# width (d_model 8192, d_inner 16384, d_state 16, d_conv 4, dt_rank 512, 64
+# query and 8 kv heads of 128, d_ff 24576, vocab 65536, top-2 routing) on
+# one unit: JAMBA_LAYERS of its 72 layers (the pattern's length, the
+# least the config takes), with its 16 experts cut. One unit without its
+# MoE layers is 6.58 B parameters and each expert kept adds 2.42 B: all 16
+# (45.2 B, 84 GiB in bf16) would not fit even serving. (a) serving at
+# JAMBA_SERVE_EXPERTS (25.9 B, 48.3 GiB): one 4096-token prompt, 16
+# greedy tokens; then the decode-vs-full check in f32 at
+# JAMBA_ROUND_EXPERTS and capacity factor n_experts / top_k = 1.0, where
+# every token reaches both experts and none drops (11.4 B, 42.5 GiB): a
+# 512-token prompt and 8 tokens; (b) one MU-SplitFed round at
+# JAMBA_ROUND_EXPERTS, reckoned at MOE_ROUND_BYTES_PER_PARAM_BYTE x its
+# parameter bytes (62.8 GiB; 3 experts would need about 75 of the card's
+# 79.2)
+JAMBA_LAYERS = 8
+JAMBA_SERVE_EXPERTS = 8
+JAMBA_ROUND_EXPERTS = 2
+SERVE_JAMBA = dict(batch=1, prompt_len=4096, gen=16)
+SERVE_JAMBA_F32 = dict(batch=1, prompt_len=512, gen=8, steps=(1, 4, 8))
+JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--clients", "2", "--tau",
+              "2", "--batch", "1", "--seq", "512", "--rounds", "1",
+              "--chunk-size", "1", "--aggregation", "seed_replay"]
+JAMBA_KERNELS = ("flash_attention", "rmsnorm", "selective_scan")
+
+
+def phase_jamba(dev) -> dict:
+    """Path 10: jamba-1.5-large-398b on the card's own ``logits_fn`` as
+    the reference:
+      a. ``serve.generate`` in bf16 with JAMBA_SERVE_EXPERTS of 16 experts
+         at the config's capacity factor: one 4096-token prompt (each Mamba
+         layer's prefill one selective-scan launch over the 4096 tokens,
+         the attention layer through the flash kernel at (128, 128)), 16
+         new tokens (the scan at S = 1 on the in-place state), prefill's
+         logits within PREFILL_TOL; then in f32 with JAMBA_ROUND_EXPERTS at
+         capacity factor 1.0 a 512-token prompt and 8 tokens, decode steps
+         1, 4 and 8 within F32_DECODE_TOL of logits_fn on prompt and
+         tokens;
+      b. one MU-SplitFed round of the JAMBA_ROUND_EXPERTS model through the
+         driver (``JAMBA_ARGV``: counter noise, seed replay, M=2, tau=2,
+         batch 1, seq 512, the config's cut after the one unit, so the
+         server holds final_norm and the head only), ``moe_round``: the
+         noise kernels, flash, rmsnorm and selective_scan must launch.
+    Prints what it cut, each part's seconds and the parameter counts and
+    reckoned peak; returns the launches summed over a-b."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, param_count, split_dims
+    from repro_torch.models.ssm import mamba_dims
+    t_path = time.perf_counter()
+    launches = {}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def experts(cfg, n, **kw):
+        return cfg.replace(moe=dataclasses.replace(cfg.moe, n_experts=n,
+                                                   **kw))
+
+    full = get_config("jamba-1.5-large-398b")
+    base = full.replace(n_layers=JAMBA_LAYERS)
+    d_in, N, d_conv, dt_rank, _ = mamba_dims(base)
+    print(f"jamba path (10): {JAMBA_LAYERS} of {full.n_layers} layers (one "
+          f"unit of {base.block_pattern}), MoE at pattern positions "
+          f"{[j for j in range(JAMBA_LAYERS) if base.layer_uses_moe(j)]}, "
+          f"experts cut from {full.moe.n_experts} to {JAMBA_SERVE_EXPERTS} "
+          f"(serving, bf16) and {JAMBA_ROUND_EXPERTS} (the f32 check and the "
+          f"round), top {full.moe.top_k}; width as published: d_model "
+          f"{base.d_model}, d_inner {d_in}, d_state {N}, d_conv {d_conv}, "
+          f"dt_rank {dt_rank}, {base.n_heads} query and {base.n_kv_heads} "
+          f"kv heads of {base.d_head}, d_ff {base.d_ff}, vocab "
+          f"{base.vocab_size}")
+    t0 = time.perf_counter()
+    cfg = experts(base, JAMBA_SERVE_EXPERTS)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    print(f"serve path (10a) jamba-1.5-large-398b: {param_count(params):,} "
+          f"parameters ({param_count(params) * 2 / 2 ** 30:.2f} GiB bf16)")
+    a = SERVE_JAMBA
+    g = torch.Generator(device=dev).manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (a["batch"], a["prompt_len"]),
+                           generator=g, device=dev)
+    n, st = serve_request(dev, f"serve path (10a) jamba-1.5-large-398b bf16, "
+                          f"{JAMBA_SERVE_EXPERTS} of 16 experts, capacity "
+                          f"factor {cfg.moe.capacity_factor}", cfg, params,
+                          prompt, a["gen"], (), JAMBA_KERNELS)
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    f = SERVE_JAMBA_F32
+    lifted = experts(base, JAMBA_ROUND_EXPERTS,
+                     capacity_factor=JAMBA_ROUND_EXPERTS / base.moe.top_k
+                     ).replace(dtype="float32")
+    params = init_params(lifted, torch.Generator(device=dev).manual_seed(0))
+    print(f"serve path (10a) f32 check: {param_count(params):,} parameters "
+          f"({param_count(params) * 4 / 2 ** 30:.2f} GiB f32)")
+    n, _ = serve_request(dev, f"serve path (10a) jamba-1.5-large-398b f32, "
+                         f"{JAMBA_ROUND_EXPERTS} of 16 experts, capacity "
+                         f"factor 1.0", lifted, params,
+                         prompt[:, :f["prompt_len"]], f["gen"], f["steps"],
+                         JAMBA_KERNELS, decode_tol=F32_DECODE_TOL,
+                         profile=False)
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve path (10a): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    rcfg = experts(base, JAMBA_ROUND_EXPERTS)
+    d_c, d_s = split_dims(rcfg, rcfg.default_cut_units)
+    n_params = d_c + d_s
+    per_unit = d_c - rcfg.vocab_size * rcfg.d_model
+    gib = n_params * 2 / 2 ** 30
+    card = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    print(f"MoE round path (10b): {n_params:,} parameters ({gib:.2f} GiB "
+          f"bf16), reckoned peak {MOE_ROUND_BYTES_PER_PARAM_BYTE} x "
+          f"{gib:.2f} = {MOE_ROUND_BYTES_PER_PARAM_BYTE * gib:.1f} GiB of the "
+          f"card's {card:.1f}; cut {rcfg.default_cut_units}: the client holds "
+          f"the embedding and the unit, the server final_norm and the head "
+          f"only (a second unit would add {per_unit / 1e9:.1f} B "
+          f"parameters)")
+    add(moe_round(dev, f"MoE round path (10b) jamba-1.5-large-398b "
+                  f"({JAMBA_LAYERS} of 72 layers, {JAMBA_ROUND_EXPERTS} of 16 "
+                  f"experts)", JAMBA_ARGV, rcfg,
+                  kernels=MOE_ROUND_KERNELS + ("selective_scan",)))
+    print(f"MoE round path (10b): {time.perf_counter() - t0:.1f} s")
+    print(f"jamba path: prefill {st['prefill_ms']:.1f} ms (4096 tokens), "
+          f"decode {st['decode_ms']:.2f} ms a step, {st['tok_s']:.1f} "
+          f"tokens/s, peak {st['peak']:.2f} GiB; path 10 "
+          f"{time.perf_counter() - t_path:.1f} s in all")
+    return launches
+
+
 def phase_small_serve(dev):
     """Serving on the card against the CPU in f32 (the plain versions
-    there): mixtral-8x22b SMOKE past its window, qwen3-14b SMOKE (qk-norm)
-    and deepseek-v2-236b SMOKE (MLA, the compressed-cache decode), widened
+    there): mixtral-8x22b SMOKE past its window, qwen3-14b SMOKE (qk-norm),
+    deepseek-v2-236b SMOKE (MLA, the compressed-cache decode) and
+    jamba-1.5-large-398b SMOKE (the Mamba state's in-place decode), widened
     by ``configs.card_smoke_config`` (1 kv head for the GQA models), at
     SMOKE's capacity factor: tokens equal, and
     the prefill and every decode step's logits within 1e-4 of
@@ -3061,7 +3382,8 @@ def phase_small_serve(dev):
     from repro_torch.models import decode_step, init_params, prefill
     from repro_torch.utils import tree
     for arch, S, gen in (("mixtral-8x22b", 40, 8), ("qwen3-14b", 24, 8),
-                         ("deepseek-v2-236b", 24, 8)):
+                         ("deepseek-v2-236b", 24, 8),
+                         ("jamba-1.5-large-398b", 24, 8)):
         cfg = card_smoke_config(arch, 1)
         params = init_params(cfg, torch.Generator().manual_seed(0))
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S))
@@ -3134,6 +3456,7 @@ def main() -> int:
     tf = phase_threefry(dev, tf_sass)
     flash_bwd = phase_flash_bwd(dev)
     norm_bwd = phase_rmsnorm_bwd(dev)
+    scan = phase_selective_scan(dev)
     t_small = time.perf_counter()
     phase_small_round(dev)
     phase_small_fo(dev)
@@ -3155,7 +3478,8 @@ def main() -> int:
         ("path 6", lambda: phase_resume(dev)),
         ("path 7", lambda: phase_async(dev)),
         ("path 8", lambda: phase_serve(dev)),
-        ("path 9", lambda: phase_mla(dev))]
+        ("path 9", lambda: phase_mla(dev)),
+        ("path 10", lambda: phase_jamba(dev))]
     launches, seconds, zo_summary = {}, {}, None
     for label, fn in paths:
         t0 = time.perf_counter()
@@ -3186,7 +3510,11 @@ def main() -> int:
             ("flash_attention_bwd", src + "flash_attention_bwd.cu",
              "src/repro/models/attention.py:91", flash_bwd),
             ("rmsnorm_bwd", src + "rmsnorm.cu",
-             "src/repro/models/layers.py:47", norm_bwd)]
+             "src/repro/models/layers.py:47", norm_bwd),
+            # no Pallas kernel: the counterpart of the reference's jnp
+            # chunked associative scan and its gate (XLA)
+            ("selective_scan", src + "selective_scan.cu",
+             "src/repro/models/ssm.py:70", scan)]
     for name, *_ in rows:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was launched on no path")
@@ -3213,7 +3541,8 @@ def main() -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "shape": r["shape"],
-         **{k: r[k] for k in ("mla", "pair", "tokens_4096") if k in r}}
+         **{k: r[k] for k in ("mla", "pair", "tokens_4096", "decode")
+            if k in r}}
         for name, source, rep, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

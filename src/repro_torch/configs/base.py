@@ -2,9 +2,9 @@
 
 Frozen dataclasses with the reference's fields and defaults, so a config
 built here compares field for field with its JAX counterpart.
-``MoEConfig`` is copied too (mixtral-8x22b); the sub-configs of the
-families not ported yet (Mamba, xLSTM) keep their fields, typed loosely,
-and are None for the archs this package knows.
+``MoEConfig`` (mixtral-8x22b, deepseek-v2-236b) and ``MambaConfig``
+(jamba-1.5-large-398b) are copied too; the sub-config of the family not
+ported yet (xLSTM) keeps its field, typed loosely.
 """
 from __future__ import annotations
 
@@ -22,6 +22,16 @@ class MoEConfig:
     d_expert: int = 0           # expert FFN hidden size (0 -> use model d_ff)
     capacity_factor: float = 1.25
     group_size: int = 0         # dispatch group size in tokens (0 -> auto)
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0            # 0 -> ceil(d_model / 16)
+    chunk: int = 64             # the reference's scan block; the port's
+                                # selective-scan kernel runs whole sequences
 
 
 @dataclass(frozen=True)
@@ -58,7 +68,7 @@ class ModelConfig:
 
     # --- block pattern ---
     block_pattern: Tuple[str, ...] = ("attn",)
-    mamba: Optional[Any] = None
+    mamba: Optional[MambaConfig] = None
     xlstm: Optional[Any] = None
 
     # --- encoder/decoder ---

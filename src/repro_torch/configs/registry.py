@@ -1,8 +1,8 @@
 """Architecture registry for the port: ``--arch <id>`` lookup. The dense
 attention decoders (LayerNorm and RMSNorm), the GQA mixture of experts
-(mixtral-8x22b) and the MLA mixture of experts with shared experts
-(deepseek-v2-236b) are ported; the other families are queued in
-ROADMAP.md."""
+(mixtral-8x22b), the MLA mixture of experts with shared experts
+(deepseek-v2-236b) and the Mamba hybrid (jamba-1.5-large-398b) are
+ported; the other families are queued in ROADMAP.md."""
 from __future__ import annotations
 
 import importlib
@@ -18,6 +18,7 @@ _MODULES: Dict[str, str] = {
     "mistral-nemo-12b": "repro_torch.configs.mistral_nemo_12b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
 }
 
 
@@ -36,8 +37,9 @@ def card_smoke_config(name: str, n_kv_heads: int = 1) -> ModelConfig:
     kernel takes (the SMOKE configs' are narrower): d_model 128, 2 query
     heads of 64 and ``n_kv_heads`` kv heads; an MLA config to the kernel's
     (192, 128) pair instead (nope 128, rope 64, v 128, 2 heads), its
-    latent ranks and MoE (capacity factor included) as in SMOKE. The small
-    card-vs-CPU checks run on it."""
+    latent ranks and MoE (capacity factor included) as in SMOKE; a Mamba
+    config's d_inner follows d_model (256 at expand 2) and its d_state
+    stays SMOKE's. The small card-vs-CPU checks run on it."""
     cfg = get_config(name, smoke=True).replace(
         d_model=128, n_heads=2, n_kv_heads=n_kv_heads, dtype="float32")
     if cfg.attn_impl == "mla":

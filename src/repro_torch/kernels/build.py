@@ -32,7 +32,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("zo_update.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "rmsnorm.cu", "threefry.cu")
+           "rmsnorm.cu", "threefry.cu", "selective_scan.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -108,6 +108,10 @@ SIGNATURES = {
                               ctypes.c_uint, ctypes.c_ulonglong, _VOIDP),
     # z* (2^23 floats), stream: the gaussian of every bits >> 9
     "threefry_normal_table_launch": (_VOIDP, _VOIDP),
+    # x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, y, h_last, B, S, d_in, N,
+    # dtype, stream
+    "selective_scan_launch": (_VOIDP,) * 11 + (ctypes.c_int,) * 5 + (
+        _VOIDP,),
 }
 # entry points that return other than a C int
 RESTYPES = {"flash_attention_bwd_scratch_floats": ctypes.c_longlong,

@@ -22,6 +22,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_pair
+from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.kernels.threefry import threefry_sumsq, threefry_update
 from repro_torch.kernels.zo_update import zo_replay_flat, zo_update_flat
 from repro_torch.utils import tree
@@ -85,3 +86,9 @@ def rmsnorm_op(x, scale, *, eps: float = 1e-5):
 
 def rmsnorm_pair_op(xq, sq, xk, sk, *, eps: float = 1e-5):
     return rmsnorm_pair(xq, sq, xk, sk, eps=eps)
+
+
+def selective_scan_op(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, *,
+                      h_out=None):
+    return selective_scan(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0,
+                          h_out=h_out)

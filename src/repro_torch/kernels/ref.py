@@ -245,6 +245,44 @@ def rmsnorm_pair_ref(xq: torch.Tensor, sq: torch.Tensor, xk: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the Mamba selective scan
+# ---------------------------------------------------------------------------
+
+def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
+                       Bc: torch.Tensor, Cc: torch.Tensor,
+                       A_log: torch.Tensor, D: torch.Tensor,
+                       dt_bias: torch.Tensor, h0: torch.Tensor):
+    """The Mamba recurrence from the post-conv activation to the gated
+    output, one token at a time in f32 (``repro.models.ssm``'s
+    ``_mamba_ssm_params``, ``_ssm_scan_chunk``, the C contraction and the
+    D and silu(z) gate):
+
+        δ_t = softplus(dt_t + dt_bias),  A = -exp(A_log)
+        h_t = exp(δ_t·A)·h_{t-1} + (δ_t·x_t)·B_t,   y_t = Σ_n h_t·C_t
+        y = ((y + x·D) in x's type) · silu(z)
+
+    x, z: (B, S, d_in) in the model type; dt (the dt_proj product before
+    the bias): (B, S, d_in) f32; Bc, Cc: (B, S, N) f32; A_log: (d_in, N)
+    f32; D, dt_bias: (d_in,) f32; h0: (B, d_in, N) f32. Returns (y in x's
+    type, h_last (B, d_in, N) f32)."""
+    f32 = torch.float32
+    v = dt + dt_bias
+    # softplus in jax.nn.softplus's form, logaddexp(v, 0)
+    delta = v.clamp(min=0.0) + torch.log1p(torch.exp(-v.abs()))
+    A = -torch.exp(A_log)                                   # (d_in, N)
+    xf = x.to(f32)
+    dx = delta * xf
+    h = h0.to(f32)
+    ys = torch.empty_like(dx)
+    for t in range(x.shape[1]):
+        h = (torch.exp(delta[:, t, :, None] * A) * h
+             + dx[:, t, :, None] * Bc[:, t, None, :])
+        ys[:, t] = (h * Cc[:, t, None, :]).sum(-1)
+    y = (ys + xf * D).to(x.dtype)
+    return y * torch.nn.functional.silu(z), h
+
+
+# ---------------------------------------------------------------------------
 # threefry gaussian noise (jax.random.normal at one leaf)
 # ---------------------------------------------------------------------------
 

@@ -1,0 +1,96 @@
+"""Mamba's selective scan: the wrapper of the CUDA kernel in
+``csrc/selective_scan.cu`` (no Pallas counterpart: the reference's scan
+is jnp, ``repro.models.ssm``'s ``_mamba_ssm_params``, ``_ssm_scan_chunk``
+and the gate of ``mamba_forward``).
+
+    y, h_last = selective_scan(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0)
+
+with δ = softplus(dt + dt_bias), h_t = exp(δ·A)·h_{t-1} + (δ·x)·B_t
+(A = -exp(A_log)), y = ((Σ_n h·C + x·D) in x's type)·silu(z), over the
+whole sequence in one launch. x and z are (B, S, d_in) in the model type
+(f32 or bf16); dt (the dt_proj product before its bias) (B, S, d_in) f32;
+Bc and Cc (B, S, N) f32; A_log (d_in, N), D and dt_bias (d_in,), h0 (B,
+d_in, N), all f32. ``h_out``, if given, receives h_last (it may be h0
+itself: decode's state is updated in place). A CUDA tensor launches the
+kernel (N 4 or 16) or raises; a CPU tensor takes the plain version in
+``kernels/ref.py``. There is no backward: a CUDA input that requires a
+gradient is refused (the first-order algorithms refuse a Mamba model,
+``core/baselines.py``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels import ref as _ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+STATES = (4, 16)           # the kernel's template instances of N
+
+
+def _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out) -> None:
+    """Raise unless every tensor is contiguous on x's CUDA device with the
+    shape and dtype the kernel takes."""
+    what = "selective_scan"
+    if not x.is_cuda:
+        raise ValueError(f"{what}: expected a CPU or CUDA tensor, got "
+                         f"{x.device}")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {x.dtype} is not float32/bfloat16")
+    if x.dim() != 3:
+        raise ValueError(f"{what}: x must be (B, S, d_in), got "
+                         f"{tuple(x.shape)}")
+    B, S, d_in = x.shape
+    N = A_log.shape[-1] if A_log.dim() == 2 else -1
+    if N not in STATES:
+        raise ValueError(f"{what}: d_state {N} is not one of the kernel's "
+                         f"{STATES}")
+    want = {"x": (x, (B, S, d_in), x.dtype), "dt": (dt, (B, S, d_in), None),
+            "z": (z, (B, S, d_in), x.dtype), "Bc": (Bc, (B, S, N), None),
+            "Cc": (Cc, (B, S, N), None), "A_log": (A_log, (d_in, N), None),
+            "D": (D, (d_in,), None), "dt_bias": (dt_bias, (d_in,), None),
+            "h0": (h0, (B, d_in, N), None)}
+    if h_out is not None:
+        want["h_out"] = (h_out, (B, d_in, N), None)
+    for name, (t, shape, dtype) in want.items():
+        dtype = dtype or torch.float32
+        if (t.device != x.device or t.dtype != dtype
+                or tuple(t.shape) != shape):
+            raise ValueError(f"{what}: {name} must be {shape} {dtype} on "
+                             f"{x.device}, got {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+        if t.requires_grad and torch.is_grad_enabled():
+            raise NotImplementedError(
+                f"{what}: {name} requires a gradient; the scan has no "
+                f"backward kernel (ROADMAP.md, queue 1, item 6.3)")
+
+
+def selective_scan(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
+                   Bc: torch.Tensor, Cc: torch.Tensor, A_log: torch.Tensor,
+                   D: torch.Tensor, dt_bias: torch.Tensor, h0: torch.Tensor,
+                   *, h_out: Optional[torch.Tensor] = None):
+    """(y (B, S, d_in) in x's type, h_last (B, d_in, N) f32); h_last is
+    ``h_out`` when given."""
+    if x.device.type == "cpu":
+        y, h = _ref.selective_scan_ref(x, dt, z, Bc, Cc, A_log, D, dt_bias,
+                                       h0)
+        if h_out is None:
+            return y, h
+        return y, h_out.copy_(h)
+    _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out)
+    B, S, d_in = x.shape
+    y = torch.empty_like(x)
+    h_last = torch.empty_like(h0) if h_out is None else h_out
+    err = build.library().selective_scan_launch(
+        x.data_ptr(), dt.data_ptr(), z.data_ptr(), Bc.data_ptr(),
+        Cc.data_ptr(), A_log.data_ptr(), D.data_ptr(), dt_bias.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, d_in,
+        A_log.shape[-1], _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "selective_scan")
+    build.LAUNCHES["selective_scan"] += 1
+    return y, h_last

@@ -50,6 +50,8 @@ Runs on the card unless ``--device cpu`` is given:
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch deepseek-v2-236b --smoke --device cpu --rounds 2 --seq 16 \\
         --algorithm fedavg
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch jamba-1.5-large-398b --smoke --device cpu --rounds 2 --seq 16
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 2 --seq 16 --ckpt-dir ckpt --ckpt-every 2   # then --rounds 4
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -63,7 +65,10 @@ one card. An MLA model (deepseek-v2-236b) trains with the zeroth-order
 algorithms and with FedAvg (``--algorithm fedavg``: its gradient goes
 through the flash backward at MLA's head dims (192, 128)); FedLoRA raises
 NotImplementedError there, since its targets (wq, wv) are not in an MLA
-attention (ROADMAP.md, queue 1, item 6).
+attention (ROADMAP.md, queue 1, item 6). The Mamba hybrid
+(jamba-1.5-large-398b) trains with the zeroth-order algorithms only:
+FedAvg and FedLoRA raise NotImplementedError, the selective scan having
+no backward yet (ROADMAP.md, queue 1, item 6.3).
 """
 from __future__ import annotations
 

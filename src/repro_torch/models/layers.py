@@ -8,6 +8,7 @@ scales (not its numbers).
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Tuple
 
@@ -69,6 +70,19 @@ def init_mlp(cfg: ModelConfig, gen: torch.Generator, d_model: int, d_ff: int,
         p["wg"] = dense_init(gen, (d_model, d_ff), dtype, lead=lead)
     p["wo"] = dense_init(gen, (d_ff, d_model), dtype, lead=lead)
     return p
+
+
+@contextlib.contextmanager
+def full_f32():
+    """f32 matrix products in full f32 on the card (TF32 off) inside: the
+    MoE router's and the Mamba dt_proj's, as the reference's f32
+    products."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 # ---------------------------------------------------------------------------

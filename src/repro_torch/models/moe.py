@@ -9,7 +9,7 @@ capacity goes to the trash slot C, which is dropped. The rows run side by
 side here as a leading batch dim.
 
 What keeps the port's routing equal to the reference's:
-- the router product runs in full f32 (``_full_f32``: no TF32 on the card);
+- the router product runs in full f32 (``full_f32``: no TF32 on the card);
 - the top-k takes the lower expert index on ties, as ``jax.lax.top_k``
   does (a stable descending sort, where ``torch.topk`` promises no order);
 - the dispatch order is a stable argsort;
@@ -20,13 +20,12 @@ The expert products are batched matrix products (``apply_mlp_expert``).
 """
 from __future__ import annotations
 
-import contextlib
-
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (apply_mlp, apply_mlp_expert,
-                                       dense_init, init_mlp, torch_dtype)
+                                       dense_init, full_f32, init_mlp,
+                                       torch_dtype)
 
 
 def moe_dims(cfg: ModelConfig):
@@ -58,23 +57,12 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
     return max(8, (c + 7) // 8 * 8)
 
 
-@contextlib.contextmanager
-def _full_f32():
-    """f32 matrix products in full f32 on the card (TF32 off) inside."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def route(cfg: ModelConfig, p, x: torch.Tensor):
     """x: (B, N, D) -> (gates (B, N, k) renormalised, experts (B, N, k),
     aux (B,) f32). The top-k is a stable descending sort: on ties the
     lower expert index comes first."""
     E, k, _, _ = moe_dims(cfg)
-    with _full_f32():
+    with full_f32():
         logits = x.to(torch.float32) @ p["router"]              # (B, N, E)
     probs = torch.softmax(logits, dim=-1)
     gate_k, idx_k = torch.sort(probs, dim=-1, descending=True, stable=True)

@@ -1,17 +1,24 @@
 """Decoder LM, the split-point machinery and the serving paths
-(counterpart of ``repro.models.transformer`` for ``attn`` decoders with
-GQA or MLA attention, dense or mixture-of-experts).
+(counterpart of ``repro.models.transformer`` for decoders whose
+``block_pattern`` is made of ``attn`` blocks (GQA or MLA) and ``mamba``
+blocks, dense or mixture-of-experts: the attention decoders' ``("attn",)``
+and jamba's 8-block hybrid).
 
 Parameters are a nested dict of tensors whose per-layer leaves are stacked
 along a leading ``n_units`` dim, as in the reference: the ZO noise is laid
 out over each leaf's elements, so per-layer modules would change the noise.
-The reference's ``lax.scan`` over units is a Python loop over that dim.
+A unit is one repetition of the pattern, its blocks ``units["b0"]`` ...
+``units["b{L-1}"]``, block j an MoE block where ``cfg.layer_uses_moe(j)``
+holds; the SFL cut lands on unit boundaries. The reference's ``lax.scan``
+over units is a Python loop over that dim, each unit's blocks in order.
 
 Everything in the training half is differentiable with ``torch.autograd``
 (the first-order baselines take gradients of ``loss_fn``): attention and
 RMSNorm through their kernels' autograd Functions, the bf16 head product
 on the card through ``_LogitsF32``; MLA's attention through the flash
-backward at its head dims (192, 128). An MoE block returns its
+backward at its head dims (192, 128). A Mamba block's selective scan has
+no backward (the first-order rounds refuse such a model; the ZO rounds
+need none). An MoE block returns its
 load-balancing aux loss beside x; the client's sum rides the cut in
 ``h["aux"]`` and the server adds ``MOE_AUX_COEF`` times the whole sum to
 its loss.
@@ -23,8 +30,11 @@ block position, stacked over the units, as the reference does:
   lives in slot t mod Sc);
 - MLA: the compressed {"c_kv" (n_units, B, S, kv_lora_rank), "k_rope"
   (n_units, B, S, qk_rope_dim)}, no window; decode rebuilds the heads'
-  keys and values through the absorbed weights.
-``decode_step`` writes the new token's entries into the cache in place.
+  keys and values through the absorbed weights;
+- Mamba: the recurrent state {"h" (n_units, B, d_inner, d_state) f32,
+  "conv" (n_units, B, d_conv - 1, d_inner)}.
+``decode_step`` writes the new token's entries (a Mamba block's new h and
+conv) into the cache in place.
 Prefill attends through the flash kernel (GQA with the window where the
 prompt exceeds it; the reference's banded form ``_banded_swa`` computes
 the same and is not ported; MLA at its (192, 128) head dims), and keeps
@@ -42,6 +52,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_mlp, apply_norm, dense_init,
                                        embed_init, init_mlp, init_norm,
                                        torch_dtype)
@@ -53,18 +64,42 @@ MOE_AUX_COEF = 0.01
 
 
 def _require_ported(cfg: ModelConfig) -> None:
-    """Admit the GQA and MLA ``("attn",)`` decoders, dense or MoE."""
-    if (cfg.block_pattern != ("attn",) or cfg.attn_impl not in ("gqa", "mla")
+    """Admit patterns of GQA or MLA ``attn`` blocks and ``mamba`` blocks,
+    dense or MoE."""
+    if (not set(cfg.block_pattern) <= {"attn", "mamba"}
+            or cfg.attn_impl not in ("gqa", "mla")
             or cfg.is_encoder_decoder or cfg.n_image_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only the GQA and MLA attn decoders (dense or MoE) "
-            f"are ported; SSM, cross-attention and encoder-decoder models "
-            f"follow (ROADMAP.md, queue 1, item 6)")
+            f"{cfg.name}: only decoders of GQA or MLA attn blocks and Mamba "
+            f"blocks (dense or MoE) are ported; xLSTM, cross-attention and "
+            f"encoder-decoder models follow (ROADMAP.md, queue 1, item 6)")
 
 
 # ===========================================================================
 # init
 # ===========================================================================
+
+def _has_ffn(cfg: ModelConfig) -> bool:
+    """Every ported block (attention or Mamba) has its feed-forward where
+    the config has one."""
+    return cfg.d_ff > 0 or cfg.moe is not None
+
+
+def _init_block(cfg: ModelConfig, gen: torch.Generator, btype: str,
+                pos_in_unit: int, lead) -> Params:
+    """Block ``pos_in_unit`` of the pattern, stacked over ``lead``: norm1
+    and its core (attention or Mamba), then norm2 and its feed-forward, an
+    MoE where ``cfg.layer_uses_moe(pos_in_unit)`` holds."""
+    block = {"norm1": init_norm(cfg, cfg.d_model, gen.device, lead),
+             "core": (ssm.init_mamba(cfg, gen, lead) if btype == "mamba"
+                      else attn.init_attn(cfg, gen, lead))}
+    if _has_ffn(cfg):
+        block["norm2"] = init_norm(cfg, cfg.d_model, gen.device, lead)
+        block["ffn"] = (moe_lib.init_moe(cfg, gen, lead)
+                        if cfg.layer_uses_moe(pos_in_unit)
+                        else init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, lead))
+    return block
+
 
 def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     """Random parameters on ``gen.device``, with the reference's shapes,
@@ -72,16 +107,11 @@ def init_params(cfg: ModelConfig, gen: torch.Generator) -> Params:
     _require_ported(cfg)
     dtype = torch_dtype(cfg)
     lead = (cfg.n_units,)
-    block = {"norm1": init_norm(cfg, cfg.d_model, gen.device, lead),
-             "core": attn.init_attn(cfg, gen, lead)}
-    if cfg.d_ff > 0 or cfg.moe is not None:
-        block["norm2"] = init_norm(cfg, cfg.d_model, gen.device, lead)
-        block["ffn"] = (moe_lib.init_moe(cfg, gen, lead)
-                        if cfg.layer_uses_moe(0)
-                        else init_mlp(cfg, gen, cfg.d_model, cfg.d_ff, lead))
+    units = {f"b{j}": _init_block(cfg, gen, bt, j, lead)
+             for j, bt in enumerate(cfg.block_pattern)}
     params: Params = {
         "embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype),
-        "units": {"b0": block},
+        "units": units,
         "final_norm": init_norm(cfg, cfg.d_model, gen.device)}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (cfg.d_model, cfg.vocab_size),
@@ -125,12 +155,16 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor):
     return apply_mlp(cfg, p["ffn"], h), None
 
 
-def _apply_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+def _apply_block(cfg: ModelConfig, p: Params, btype: str, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool):
     """One block, full sequence: (x, aux or None)."""
     h = apply_norm(cfg, p["norm1"], x)
-    core = attn.mla_attention if cfg.attn_impl == "mla" else attn.gqa_attention
-    x = x + core(cfg, p["core"], h, positions, causal=causal)
+    if btype == "mamba":
+        x = x + ssm.mamba_forward(cfg, p["core"], h)[0]
+    else:
+        core = (attn.mla_attention if cfg.attn_impl == "mla"
+                else attn.gqa_attention)
+        x = x + core(cfg, p["core"], h, positions, causal=causal)
     if "ffn" not in p:
         return x, None
     y, aux = _ffn(cfg, p, x)
@@ -159,8 +193,10 @@ def _unit_scan(cfg: ModelConfig, units, x: torch.Tensor,
         units = _unbind_units(units)
     aux = None
     for unit in units:
-        x, a = _apply_block(cfg, unit["b0"], x, positions, causal=causal)
-        aux = _add(aux, a)
+        for j, bt in enumerate(cfg.block_pattern):
+            x, a = _apply_block(cfg, unit[f"b{j}"], bt, x, positions,
+                                causal=causal)
+            aux = _add(aux, a)
     return x, aux
 
 
@@ -340,34 +376,59 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 # serving: cache init / prefill / decode
 # ===========================================================================
 
-def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
-               device="cuda") -> Params:
-    """GQA: {"b0": {"k", "v"}}, zeros (n_units, B, Hkv, Sc, dh), Sc =
-    ``attention.gqa_cache_len``; MLA: {"b0": {"c_kv", "k_rope"}}, zeros
-    (n_units, B, seq_len, r) and (n_units, B, seq_len, rope). In the model
-    type on ``device``."""
-    _require_ported(cfg)
+def _block_cache_init(cfg: ModelConfig, btype: str, batch: int,
+                      seq_len: int, lead, device) -> Params:
+    if btype == "mamba":
+        return ssm.mamba_init_state(cfg, batch, lead, device)
     init = (attn.mla_init_cache if cfg.attn_impl == "mla"
             else attn.gqa_init_cache)
-    return {"b0": init(cfg, batch, seq_len, (cfg.n_units,), device)}
+    return init(cfg, batch, seq_len, lead, device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
+               device="cuda") -> Params:
+    """{"b{j}": block j's cache} stacked over the units, zeros on
+    ``device``: GQA {"k", "v"} (n_units, B, Hkv, Sc, dh), Sc =
+    ``attention.gqa_cache_len``; MLA {"c_kv", "k_rope"} (n_units, B,
+    seq_len, r) and (n_units, B, seq_len, rope), in the model type; Mamba
+    {"h" (n_units, B, d_inner, d_state) f32, "conv" (n_units, B, d_conv -
+    1, d_inner) in the model type}."""
+    _require_ported(cfg)
+    return {f"b{j}": _block_cache_init(cfg, bt, batch, seq_len,
+                                       (cfg.n_units,), device)
+            for j, bt in enumerate(cfg.block_pattern)}
+
+
+def _decode_block(cfg: ModelConfig, p: Params, btype: str, x: torch.Tensor,
+                  cache: Params, pos: int) -> torch.Tensor:
+    """One block at one token: x after it. Its cache entries (this unit's
+    views) are written in place."""
+    h = apply_norm(cfg, p["norm1"], x)
+    if btype == "mamba":
+        y, _ = ssm.mamba_decode(cfg, p["core"], h, cache)
+    else:
+        decode = (attn.mla_decode if cfg.attn_impl == "mla"
+                  else attn.gqa_decode)
+        y, _ = decode(cfg, p["core"], h, cache, pos)
+    x = x + y
+    if "ffn" in p:
+        x = x + _ffn(cfg, p, x)[0]
+    return x
 
 
 def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
                 cache: Params, pos: int):
     """One-token decode. token: (B, 1) int; pos: the token's absolute
-    position. Writes the token's cache entries (k and v, or MLA's c_kv and
-    k_rope) into ``cache`` (in place) and returns (logits (B, 1, V) in the
-    model type, cache)."""
+    position. Writes the token's cache entries (k and v, MLA's c_kv and
+    k_rope, a Mamba block's h and conv) into ``cache`` (in place) and
+    returns (logits (B, 1, V) in the model type, cache)."""
     _require_ported(cfg)
-    decode = attn.mla_decode if cfg.attn_impl == "mla" else attn.gqa_decode
     x = params["embed"][token]
     for u, unit in enumerate(_unbind_units(params["units"])):
-        p = unit["b0"]
-        y, _ = decode(cfg, p["core"], apply_norm(cfg, p["norm1"], x),
-                      {k: c[u] for k, c in cache["b0"].items()}, pos)
-        x = x + y
-        if "ffn" in p:
-            x = x + _ffn(cfg, p, x)[0]
+        for j, bt in enumerate(cfg.block_pattern):
+            b = f"b{j}"
+            x = _decode_block(cfg, unit[b], bt, x,
+                              {k: c[u] for k, c in cache[b].items()}, pos)
     x = apply_norm(cfg, params["final_norm"], x)
     return x @ _head(params), cache
 
@@ -399,15 +460,20 @@ def _gqa_prompt_cache(cfg: ModelConfig, k: torch.Tensor, v: torch.Tensor,
     return {"k": ck, "v": cv}
 
 
-def _prefill_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                   positions: torch.Tensor, seq_len: int):
+def _prefill_block(cfg: ModelConfig, p: Params, btype: str,
+                   x: torch.Tensor, positions: torch.Tensor, seq_len: int):
     """One block over the prompt that also fills its decode cache: (x,
     the block's cache). GQA: the k and v the attention used
     (``_gqa_prompt_cache``); MLA: {"c_kv", "k_rope"} (B, seq_len, ·), the
     latent and the rope key the attention rebuilt its keys and values
-    from, right-padded."""
+    from, right-padded; Mamba: the state after the prompt ({"h", "conv"};
+    a prompt shorter than d_conv - 1 keeps the zero conv state, as the
+    reference does)."""
     h = apply_norm(cfg, p["norm1"], x)
-    if cfg.attn_impl == "mla":
+    if btype == "mamba":
+        y, cache = ssm.mamba_forward(cfg, p["core"], h)
+        x = x + y
+    elif cfg.attn_impl == "mla":
         q, k, v, cache = attn.mla_qkv(cfg, p["core"], h, positions)
         x = x + attn.attend(cfg, p["core"], q, k, v, causal=True)
         cache = {n: _right_pad(a, seq_len, 1) for n, a in cache.items()}
@@ -429,10 +495,12 @@ def prefill(cfg: ModelConfig, params: Params, batch, *, cache_len: int = 0):
     seq_len = max(cache_len, S)
     x = params["embed"][tokens]
     pos = _positions(B, S, tokens.device)
-    caches = []
+    caches = {f"b{j}": [] for j in range(len(cfg.block_pattern))}
     for unit in _unbind_units(params["units"]):
-        x, c = _prefill_block(cfg, unit["b0"], x, pos, seq_len)
-        caches.append(c)
+        for j, bt in enumerate(cfg.block_pattern):
+            x, c = _prefill_block(cfg, unit[f"b{j}"], bt, x, pos, seq_len)
+            caches[f"b{j}"].append(c)
     x = apply_norm(cfg, params["final_norm"], x[:, -1:].contiguous())
-    return x @ _head(params), {"b0": {n: torch.stack([c[n] for c in caches])
-                                      for n in caches[0]}}
+    return x @ _head(params), {
+        b: {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+        for b, cs in caches.items()}

@@ -41,6 +41,16 @@ shape, single and pair; past the old 4.19 M-row limit (rows of 128,
 bf16); and against its CPU emulation (tests/rmsnorm_bwd_emulation.py) at
 the geometry the launch reports: dscale within 2^-20·max|dscale|, dx
 within 2^-8·max|dx|.
+
+The selective scan (Mamba) against its plain version at N 4 and 16, S 1,
+40 and 512, zero and nonzero h0 and a ragged d_in: f32 y and h_last
+within 1e-5 of each largest magnitude (both run the tokens in order; the
+kernel contracts multiply-adds); bf16 y within two bf16 ulps of each
+element plus 1e-5 of max|y| (y is rounded twice, before and after the
+silu(z) gate, so an f32 difference that moves the first rounding moves
+the product by up to two ulps), h_last as in f32. Two launches are
+bit-equal, and an h_out that is h0 itself gives the same results. jamba
+SMOKE serving, card against CPU, as the other archs.
 """
 import numpy as np
 import pytest
@@ -52,6 +62,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                         rmsnorm_bwd_plan, rmsnorm_pair,
                                         rmsnorm_pair_bwd)
+from repro_torch.kernels.selective_scan import selective_scan
 
 pytestmark = pytest.mark.gpu
 
@@ -1034,7 +1045,8 @@ def test_apply_moe_card_matches_cpu(cuda):
 
 
 @pytest.mark.parametrize("arch,S", [("mixtral-8x22b", 40), ("qwen3-14b", 24),
-                                    ("deepseek-v2-236b", 24)])
+                                    ("deepseek-v2-236b", 24),
+                                    ("jamba-1.5-large-398b", 24)])
 def test_serving_card_matches_cpu(cuda, arch, S):
     """SMOKE serving in f32, widened by ``configs.card_smoke_config`` to
     head dims the flash kernel takes (d_head 64 with 1 kv head; MLA's
@@ -1067,3 +1079,100 @@ def test_serving_card_matches_cpu(cuda, arch, S):
     assert float((l1 - l0).abs().max()) <= \
         1e-4 * max(float(l0.abs().max()), 1.0)
     assert n["flash_attention"] > 0 and n["rmsnorm"] > 0
+
+
+def scan_inputs(B, S, d_in, N, dtype, device, h0_scale=0.5, seed=5):
+    """The selective scan's inputs as a Mamba block gives them: x the
+    silu of a normal, dt a normal (the product before the bias), A_log,
+    D and dt_bias at the reference's init (softplus⁻¹(0.01) ± 1), B and
+    C normal, h0 a normal times ``h0_scale``."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    x = torch.nn.functional.silu(randn(B, S, d_in) * 2.0).to(dtype)
+    z = randn(B, S, d_in).to(dtype)
+    A_log = torch.log(torch.arange(1, N + 1.0, device=device)).expand(
+        d_in, N).contiguous()
+    bias = float(np.log(np.expm1(0.01))) + randn(d_in)
+    return (x, randn(B, S, d_in), z, randn(B, S, N), randn(B, S, N), A_log,
+            1.0 + 0.1 * randn(d_in), bias, randn(B, d_in, N) * h0_scale)
+
+
+def assert_scan_close(got, want):
+    """y: f32 within 1e-5 of max|y|, bf16 within two ulps of each element
+    plus 1e-5 of max|y|; h_last (f32) within 1e-5 of max|h|."""
+    (y, h), (wy, wh) = got, want
+    assert y.shape == wy.shape and y.dtype == wy.dtype
+    assert bool(torch.isfinite(y.float()).all())
+    scale = float(wy.float().abs().max())
+    d = (y.float() - wy.float()).abs()
+    if y.dtype == torch.bfloat16:
+        assert bool((d <= 2.0 ** -6 * wy.float().abs() + 1e-5 * scale).all())
+    else:
+        assert float(d.max()) <= 1e-5 * scale
+    assert h.dtype == torch.float32
+    assert float((h - wh).abs().max()) <= 1e-5 * float(wh.abs().max())
+
+
+@pytest.mark.parametrize("case", [(2, 1, 256, 4), (2, 40, 256, 4),
+                                  (1, 512, 1024, 4), (2, 1, 512, 16),
+                                  (2, 40, 512, 16), (1, 512, 16384, 16),
+                                  (1, 40, 100, 16)],
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("h0_scale", [0.0, 0.5], ids=["zero_h0", "h0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_matches_plain(cuda, case, h0_scale, dtype):
+    """(B, S, d_in, N): one token, 40, 512; N 4 and 16; d_in 100 leaves
+    its block ragged. One launch a call."""
+    args = scan_inputs(*case, dtype, cuda, h0_scale)
+    before = build.LAUNCHES["selective_scan"]
+    got = selective_scan(*args)
+    assert build.LAUNCHES["selective_scan"] == before + 1
+    assert_scan_close(got, ref.selective_scan_ref(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_is_deterministic_and_takes_h0_as_h_out(cuda, dtype):
+    """Two launches give bit-equal y and h_last; with h_out = h0 (decode's
+    in-place state) the results equal a launch into a new h_last."""
+    args = scan_inputs(1, 300, 2048, 16, dtype, cuda)
+    y0, h0 = selective_scan(*args)
+    y1, h1 = selective_scan(*args)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    state = args[-1].clone()
+    y2, h2 = selective_scan(*args[:-1], state, h_out=state)
+    assert h2.data_ptr() == state.data_ptr()
+    assert torch.equal(y2, y0) and torch.equal(state, h0)
+
+
+def test_selective_scan_raises_on_what_it_does_not_take(cuda):
+    """A wrong dtype, a non-contiguous input, a mismatched shape, an input
+    on the CPU, d_state 8 (no kernel instance), and an input that requires
+    a gradient (there is no backward kernel) raise."""
+    args = list(scan_inputs(1, 8, 64, 4, torch.float32, cuda))
+    with pytest.raises(TypeError):
+        selective_scan(args[0].half(), *args[1:])
+    bad = list(args)
+    bad[2] = args[2].to(torch.bfloat16)             # z's dtype differs
+    with pytest.raises(ValueError, match="z must be"):
+        selective_scan(*bad)
+    bad = list(args)
+    bad[1] = torch.empty(1, 8, 128, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="contiguous"):
+        selective_scan(*bad)
+    bad = list(args)
+    bad[3] = args[3][:, :4]
+    with pytest.raises(ValueError, match="Bc must be"):
+        selective_scan(*bad)
+    bad = list(args)
+    bad[6] = args[6].cpu()
+    with pytest.raises(ValueError, match="D must be"):
+        selective_scan(*bad)
+    with pytest.raises(ValueError, match="d_state 8"):
+        selective_scan(*scan_inputs(1, 8, 64, 8, torch.float32, cuda))
+    bad = list(args)
+    bad[0] = args[0].clone().requires_grad_()
+    with pytest.raises(NotImplementedError, match="item 6.3"):
+        selective_scan(*bad)

@@ -197,9 +197,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.ckpt.checkpoint", "repro_torch.core.events",
             "repro_torch.core.faults", "repro_torch.data.loader",
             "repro_torch.launch.train", "repro_torch.launch.serve",
-            "repro_torch.models.moe",
-            "repro_torch.configs.mixtral_8x22b"} <= set(mods)
-    assert len(mods) >= 37
+            "repro_torch.models.moe", "repro_torch.models.ssm",
+            "repro_torch.kernels.selective_scan",
+            "repro_torch.configs.mixtral_8x22b",
+            "repro_torch.configs.jamba_1_5_large_398b"} <= set(mods)
+    assert len(mods) >= 40
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/flash_sweep.py",
