@@ -52,7 +52,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      plain version at path 10's round, prefill and decode shapes
      (d_inner 16384, d_state 16) and at the card SMOKE's d_state 4, f32
      within 1e-5 and bf16 within two ulps, from a nonzero h0, two
-     launches bit-equal and h_out = h0 equal to a new h_last;
+     launches bit-equal, h_out = h0 equal to a new h_last, and z, B and
+     C read in place as the Mamba block's strided views equal to
+     contiguous copies; each instance's launch geometry first (lanes a
+     channel, registers, shared memory, blocks an SM);
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
@@ -585,9 +588,10 @@ def report_ptxas_norm_bwd(out: str) -> None:
             f"{NORM_BWD_KERNELS}: {sorted(seen)}")
 
 
-# the selective scan's instances: f32 and bf16 at d_state 4 and 16
+# the selective scan's instances: f32 and bf16 at d_state 4 and 16, each
+# at its lanes a channel (G)
 SCAN_KERNEL = re.compile(r"(selective_scan_kernel)I(13__nv_bfloat16|f)"
-                         r"Li(\d+)EE")
+                         r"Li(\d+)ELi(\d+)EE")
 SCAN_KERNELS = 4
 
 
@@ -599,7 +603,7 @@ def report_ptxas_scan(out: str) -> None:
         if "Compiling entry function" in line or "Function properties" in line:
             m = SCAN_KERNEL.search(line)
             name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
-                    f", {m.group(3)}>" if m else None)
+                    f", {m.group(3)}, {m.group(4)}>" if m else None)
             continue
         if name is None or not line.strip() or "Compile time" in line:
             continue
@@ -1346,6 +1350,21 @@ def scan_inputs(B, S, d_in, N, dtype, dev, seed=5):
             1.0 + 0.1 * randn(d_in), bias, randn(B, d_in, N) * 0.5)
 
 
+def scan_views(args):
+    """``args`` with z, B and C as the Mamba block passes them: z the second
+    half of a (B, S, 2·d_in) tensor, B and C slices of one (B, S, 7 + 2N)
+    tensor (7 columns standing for dt's), values equal."""
+    x, dt, z, Bc, Cc, *rest = args
+    B, S, d_in = z.shape
+    N = Bc.shape[-1]
+    xz = torch.empty(B, S, 2 * d_in, dtype=z.dtype, device=z.device)
+    xz[..., d_in:] = z
+    dbl = torch.empty(B, S, 7 + 2 * N, device=Bc.device)
+    dbl[..., 7:7 + N], dbl[..., 7 + N:] = Bc, Cc
+    return (x, dt, xz[..., d_in:], dbl[..., 7:7 + N], dbl[..., 7 + N:],
+            *rest)
+
+
 def check_scan(what: str, got, want) -> float:
     """y: f32 within 1e-5 of max|y|; bf16 within two bf16 ulps of each
     element plus 1e-5 of max|y| (y is rounded before and after the silu(z)
@@ -1380,10 +1399,31 @@ def phase_selective_scan(dev) -> dict:
     (device_ms, cycling through copies of the inputs that together
     exceed L2), the plain version's by CUDA events; the bound from ``scan_bytes`` and
     ``scan_mufu_ops``. No PyTorch call computes this function, so the
-    library column is null. Returns the round case's numbers (bf16), with
-    prefill's under "tokens_4096" and decode's under "decode"."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.selective_scan import selective_scan
+    library column is null. z, B and C read in place as the Mamba block
+    passes them (z a half of a (B, S, 2·d_in) tensor, B and C slices of
+    one (B, S, dt_rank + 2N) tensor) give y and h_last bit-equal to
+    contiguous copies. First each instance's launch geometry
+    (``selective_scan_plan``: lanes a channel, which must equal the
+    wrapper's LANES, channels a block, tokens a chunk, threads, registers,
+    static shared memory, blocks an SM). Returns the round case's numbers
+    (bf16), with prefill's under "tokens_4096" and decode's under
+    "decode"."""
+    import ctypes
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.selective_scan import LANES, selective_scan
+    for N in (4, 16):
+        for dt_code, dt_name in ((0, "f32"), (1, "bf16")):
+            plan = (ctypes.c_int * 7)()
+            build.check(build.library().selective_scan_plan(N, dt_code, plan),
+                        "selective_scan_plan")
+            G, cb, chunk, threads, regs, smem, blocks = plan
+            require(G == LANES[N], f"selective_scan N = {N}: the kernel "
+                    f"splits a channel over {G} lanes, the wrapper's LANES "
+                    f"says {LANES[N]}")
+            print(f"selective_scan_kernel<{dt_name}, {N}, {G}>: {cb} "
+                  f"channels x {G} lanes = {threads} threads a block, "
+                  f"{chunk}-token chunks, {regs} registers, {smem} bytes "
+                  f"of shared memory, {blocks} blocks an SM")
     res = {"err": 0.0, "library_ms": None}
     for label, (B, S, d_in, N) in SCAN_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -1401,6 +1441,11 @@ def phase_selective_scan(dev) -> dict:
             require(torch.equal(inplace[0], got[0])
                     and torch.equal(state, got[1]),
                     f"{what}: h_out = h0 differs from a new h_last")
+            strided = selective_scan(*scan_views(args))
+            require(torch.equal(strided[0], got[0])
+                    and torch.equal(strided[1], got[1]),
+                    f"{what}: z, B and C read in place differ from "
+                    f"contiguous copies")
             res["err"] = max(res["err"], err)
             nbytes = scan_bytes(B, S, d_in, N, dtype.itemsize)
             sets = [args] + [tuple(t.clone() for t in args)
@@ -1413,7 +1458,8 @@ def phase_selective_scan(dev) -> dict:
             print(f"{what}: max|Δ| {err:.3e}  kernel {ms:.4f} ms  plain "
                   f"{plain_ms:.4f} ms  library none  bound {b_ms:.4f} ms "
                   f"({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)"
-                  f"  two launches bit-equal, h_out = h0 equal")
+                  f"  two launches bit-equal, h_out = h0 equal, in-place "
+                  f"z/B/C equal")
             if dtype != torch.bfloat16 or label == "card SMOKE":
                 continue
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,

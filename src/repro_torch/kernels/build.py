@@ -108,10 +108,13 @@ SIGNATURES = {
                               ctypes.c_uint, ctypes.c_ulonglong, _VOIDP),
     # z* (2^23 floats), stream: the gaussian of every bits >> 9
     "threefry_normal_table_launch": (_VOIDP, _VOIDP),
-    # x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, y, h_last, B, S, d_in, N,
-    # dtype, stream
-    "selective_scan_launch": (_VOIDP,) * 11 + (ctypes.c_int,) * 5 + (
-        _VOIDP,),
+    # x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, y, h_last, the row strides
+    # of z, Bc and Cc, B, S, d_in, N, dtype, stream
+    "selective_scan_launch": (_VOIDP,) * 11 + (ctypes.c_longlong,) * 3 + (
+        ctypes.c_int,) * 5 + (_VOIDP,),
+    # N, dtype, plan (int[7]): the instance's lanes, channels a block,
+    # tokens a chunk, threads, registers, shared memory, blocks an SM
+    "selective_scan_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
 }
 # entry points that return other than a C int
 RESTYPES = {"flash_attention_bwd_scratch_floats": ctypes.c_longlong,

@@ -11,7 +11,10 @@ whole sequence in one launch. x and z are (B, S, d_in) in the model type
 (f32 or bf16); dt (the dt_proj product before its bias) (B, S, d_in) f32;
 Bc and Cc (B, S, N) f32; A_log (d_in, N), D and dt_bias (d_in,), h0 (B,
 d_in, N), all f32. ``h_out``, if given, receives h_last (it may be h0
-itself: decode's state is updated in place). A CUDA tensor launches the
+itself: decode's state is updated in place). z, Bc and Cc may be views
+whose rows (b, t) are evenly spaced with a contiguous last dimension (a
+half of in_proj's output, slices of x_proj's): the kernel reads them in
+place; every other tensor is contiguous. A CUDA tensor launches the
 kernel (N 4 or 16) or raises; a CPU tensor takes the plain version in
 ``kernels/ref.py``. There is no backward: a CUDA input that requires a
 gradient is refused (the first-order algorithms refuse a Mamba model,
@@ -28,11 +31,32 @@ from repro_torch.kernels import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 STATES = (4, 16)           # the kernel's template instances of N
+# lanes a channel's N states are split over in the kernel (csrc:
+# kLanesN16, kLanesN4): its sum over n runs in that many partials
+LANES = {4: 4, 16: 4}
+_STRIDED = ("z", "Bc", "Cc")   # read in place through a row stride
 
 
-def _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out) -> None:
-    """Raise unless every tensor is contiguous on x's CUDA device with the
-    shape and dtype the kernel takes."""
+def _row_stride(name: str, t: torch.Tensor) -> int:
+    """The stride between the rows (b, t) of a (B, S, W) view whose last
+    dimension is contiguous and whose rows are evenly spaced; raise
+    otherwise."""
+    B, S, W = t.shape
+    if W > 1 and t.stride(2) != 1:
+        raise ValueError(f"selective_scan: {name}'s last dimension must be "
+                         f"contiguous, got strides {t.stride()}")
+    rs = t.stride(1) if S > 1 else (t.stride(0) if B > 1 else W)
+    if B > 1 and t.stride(0) != S * rs:
+        raise ValueError(f"selective_scan: {name}'s rows must be evenly "
+                         f"spaced (contiguous over (B, S)), got strides "
+                         f"{t.stride()}")
+    return rs
+
+
+def _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out) -> tuple:
+    """Raise unless every tensor lies on x's CUDA device with the shape
+    and dtype the kernel takes, contiguous but for the row strides of z,
+    Bc and Cc. Returns those three strides."""
     what = "selective_scan"
     if not x.is_cuda:
         raise ValueError(f"{what}: expected a CPU or CUDA tensor, got "
@@ -61,12 +85,14 @@ def _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out) -> None:
             raise ValueError(f"{what}: {name} must be {shape} {dtype} on "
                              f"{x.device}, got {tuple(t.shape)} {t.dtype} "
                              f"on {t.device}")
-        if not t.is_contiguous():
+        if name not in _STRIDED and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
                 f"{what}: {name} requires a gradient; the scan has no "
                 f"backward kernel (ROADMAP.md, queue 1, item 6.3)")
+    return tuple(_row_stride(name, t) for name, t in
+                 (("z", z), ("Bc", Bc), ("Cc", Cc)))
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
@@ -81,15 +107,15 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
         if h_out is None:
             return y, h
         return y, h_out.copy_(h)
-    _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out)
+    strides = _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out)
     B, S, d_in = x.shape
     y = torch.empty_like(x)
     h_last = torch.empty_like(h0) if h_out is None else h_out
     err = build.library().selective_scan_launch(
         x.data_ptr(), dt.data_ptr(), z.data_ptr(), Bc.data_ptr(),
         Cc.data_ptr(), A_log.data_ptr(), D.data_ptr(), dt_bias.data_ptr(),
-        h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), B, S, d_in,
-        A_log.shape[-1], _DTYPES[x.dtype],
+        h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), *strides, B, S,
+        d_in, A_log.shape[-1], _DTYPES[x.dtype],
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "selective_scan")
     build.LAUNCHES["selective_scan"] += 1

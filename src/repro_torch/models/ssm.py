@@ -88,14 +88,15 @@ def _scan(cfg: ModelConfig, p, xs: torch.Tensor, z: torch.Tensor,
           h0: torch.Tensor, h_out=None):
     """The selective scan of the post-conv activation xs (B, S, d_in):
     x_proj in the model type (then f32, as the reference's ``:87``), the
-    dt_proj product in full f32, then the kernel. Returns (y, h_last)."""
+    dt_proj product in full f32, then the kernel, which reads z (a half of
+    in_proj's output) and B and C (slices of x_dbl) in place. Returns (y,
+    h_last)."""
     _, N, _, dt_rank, _ = mamba_dims(cfg)
     x_dbl = (xs @ p["x_proj"]).to(torch.float32)
     with full_f32():
         dt = x_dbl[..., :dt_rank] @ p["dt_proj"].to(torch.float32)
-    Bc = x_dbl[..., dt_rank:dt_rank + N].contiguous()
-    Cc = x_dbl[..., dt_rank + N:].contiguous()
-    return ops.selective_scan_op(xs, dt, z.contiguous(), Bc, Cc, p["A_log"],
+    return ops.selective_scan_op(xs, dt, z, x_dbl[..., dt_rank:dt_rank + N],
+                                 x_dbl[..., dt_rank + N:], p["A_log"],
                                  p["D"], p["dt_bias"], h0, h_out=h_out)
 
 

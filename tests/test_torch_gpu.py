@@ -43,13 +43,15 @@ the geometry the launch reports: dscale within 2^-20·max|dscale|, dx
 within 2^-8·max|dx|.
 
 The selective scan (Mamba) against its plain version at N 4 and 16, S 1,
-40 and 512, zero and nonzero h0 and a ragged d_in: f32 y and h_last
-within 1e-5 of each largest magnitude (both run the tokens in order; the
-kernel contracts multiply-adds); bf16 y within two bf16 ulps of each
+33, 40, 65 and 512, zero and nonzero h0 and a ragged d_in: f32 y and
+h_last within 1e-5 of each largest magnitude (both run the tokens in
+order; the kernel contracts multiply-adds and sums over n in lane groups,
+tests/test_torch_scan_order.py); bf16 y within two bf16 ulps of each
 element plus 1e-5 of max|y| (y is rounded twice, before and after the
 silu(z) gate, so an f32 difference that moves the first rounding moves
 the product by up to two ulps), h_last as in f32. Two launches are
-bit-equal, and an h_out that is h0 itself gives the same results. jamba
+bit-equal, an h_out that is h0 itself gives the same results, and z, B
+and C read in place as strided views equal contiguous copies. jamba
 SMOKE serving, card against CPU, as the other archs.
 """
 import numpy as np
@@ -62,7 +64,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
 from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                         rmsnorm_bwd_plan, rmsnorm_pair,
                                         rmsnorm_pair_bwd)
-from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.selective_scan import LANES, selective_scan
 
 pytestmark = pytest.mark.gpu
 
@@ -1119,13 +1121,17 @@ def assert_scan_close(got, want):
 @pytest.mark.parametrize("case", [(2, 1, 256, 4), (2, 40, 256, 4),
                                   (1, 512, 1024, 4), (2, 1, 512, 16),
                                   (2, 40, 512, 16), (1, 512, 16384, 16),
-                                  (1, 40, 100, 16)],
+                                  (1, 40, 100, 16), (2, 33, 100, 16),
+                                  (2, 33, 100, 4), (1, 65, 300, 16)],
                          ids=lambda c: "x".join(map(str, c)))
 @pytest.mark.parametrize("h0_scale", [0.0, 0.5], ids=["zero_h0", "h0"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_matches_plain(cuda, case, h0_scale, dtype):
-    """(B, S, d_in, N): one token, 40, 512; N 4 and 16; d_in 100 leaves
-    its block ragged. One launch a call."""
+    """(B, S, d_in, N): one token, 33, 40, 65, 512 (33, 40 and 65 end
+    in a part of a 32-token chunk); N 4 and 16, each dtype, so every
+    template instance (T, N, G) the kernel ships; d_in 100 and 300 leave
+    the last block ragged (32 channels a block at N = 16, 64 at N = 4).
+    One launch a call."""
     args = scan_inputs(*case, dtype, cuda, h0_scale)
     before = build.LAUNCHES["selective_scan"]
     got = selective_scan(*args)
@@ -1145,6 +1151,57 @@ def test_selective_scan_is_deterministic_and_takes_h0_as_h_out(cuda, dtype):
     y2, h2 = selective_scan(*args[:-1], state, h_out=state)
     assert h2.data_ptr() == state.data_ptr()
     assert torch.equal(y2, y0) and torch.equal(state, h0)
+
+
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_reads_z_b_c_in_place(cuda, N, dtype):
+    """z as the second half of a (B, S, 2·d_in) tensor and B and C as
+    slices of one (B, S, 7 + 2N) tensor, as the Mamba block passes them,
+    give y and h_last bit-equal to contiguous copies, one launch; at one
+    token too. A z whose last dimension is strided, or whose rows are not
+    evenly spaced over (B, S), raises."""
+    for S in (40, 1):
+        args = scan_inputs(2, S, 100, N, dtype, cuda)
+        x, dt, z, Bc, Cc, *rest = args
+        xz = torch.randn(2, S, 200, device=cuda).to(dtype)
+        xz[..., 100:] = z
+        dbl = torch.randn(2, S, 7 + 2 * N, device=cuda)
+        dbl[..., 7:7 + N], dbl[..., 7 + N:] = Bc, Cc
+        views = (xz[..., 100:], dbl[..., 7:7 + N], dbl[..., 7 + N:])
+        assert not any(v.is_contiguous() for v in views)
+        before = build.LAUNCHES["selective_scan"]
+        y, h = selective_scan(x, dt, *views, *rest)
+        assert build.LAUNCHES["selective_scan"] == before + 1
+        y0, h0 = selective_scan(*args)
+        assert torch.equal(y, y0) and torch.equal(h, h0)
+    args = list(scan_inputs(2, 8, 64, N, dtype, cuda))
+    bad = list(args)
+    bad[2] = torch.empty(2, 8, 128, dtype=dtype, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="z's last dimension must be "
+                                         "contiguous"):
+        selective_scan(*bad)
+    bad = list(args)
+    bad[2] = torch.empty(8, 2, 64, dtype=dtype, device=cuda).transpose(0, 1)
+    with pytest.raises(ValueError, match="z's rows must be evenly spaced"):
+        selective_scan(*bad)
+
+
+def test_selective_scan_plan_matches_the_wrapper(cuda):
+    """Each instance's launch geometry from the library: its lanes a
+    channel equal the wrapper's LANES (the order of the sum over n that
+    tests/test_torch_scan_order.py models), the lanes times the channels
+    make the threads, and an SM holds at least one block."""
+    import ctypes
+    for N in (4, 16):
+        for code in (0, 1):
+            plan = (ctypes.c_int * 7)()
+            assert build.library().selective_scan_plan(N, code, plan) == 0
+            G, channels, chunk, threads, regs, smem, blocks = plan
+            assert G == LANES[N] and G * channels == threads
+            assert chunk % G == 0 and regs > 0 and smem > 0 and blocks >= 1
+    plan = (ctypes.c_int * 7)()
+    assert build.library().selective_scan_plan(8, 0, plan) != 0
 
 
 def test_selective_scan_raises_on_what_it_does_not_take(cuda):
