@@ -9,11 +9,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them,
      flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-     threefry.cu, rmsnorm.cu and selective_scan.cu with -Xptxas -v: the
-     kernels' registers, shared memory, stack frames and spills are
-     printed (the bf16 flash kernels, every flash backward kernel, each
-     (d_qk, d_v) pair's, every rmsnorm backward kernel and the four
-     selective-scan kernels must not spill); the
+     threefry.cu, rmsnorm.cu, selective_scan.cu and selective_scan_bwd.cu
+     with -Xptxas -v: the kernels' registers, shared memory, stack frames
+     and spills are printed (the bf16 flash kernels, every flash backward
+     kernel, each (d_qk, d_v) pair's, every rmsnorm backward kernel and the
+     thirteen selective-scan kernels, forward and backward, must not
+     spill); the
      built library's
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
@@ -55,15 +56,21 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      launches bit-equal, h_out = h0 equal to a new h_last, and z, B and
      C read in place as the Mamba block's strided views equal to
      contiguous copies; each instance's launch geometry first (lanes a
-     channel, registers, shared memory, blocks an SM);
+     channel, registers, shared memory, blocks an SM); and the scan's
+     backward (selective_scan_bwd) against its plain version at path 10
+     (c)'s round shape, at 4096 tokens and at the card SMOKE's d_state 4,
+     f32 and bf16, from a nonzero h0 and dh_last, each gradient within
+     1e-5 (f32) or 2^-7 (bf16) of its largest magnitude, two calls
+     bit-equal and z, B and C read in place;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
      olmo-1b, and MU-SplitFed and GAS on mixtral-8x22b SMOKE widened to
      d_head 64 and on deepseek-v2-236b SMOKE widened to MLA's (192, 128);
      FedAvg with SGD and AdamW, FedLoRA, and FedAvg with SGD on
-     deepseek-v2-236b at (192, 128); MU-SplitFed and GAS on
-     jamba-1.5-large-398b SMOKE widened to d_head 64) and small f32
+     deepseek-v2-236b at (192, 128); MU-SplitFed and GAS, FedAvg with SGD
+     and FedLoRA on jamba-1.5-large-398b SMOKE widened to d_head 64) and
+     small f32
      serving (mixtral-8x22b past its window, qwen3-14b, deepseek-v2-236b,
      jamba-1.5-large-398b), then
      the seven training paths through the
@@ -151,14 +158,19 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      new tokens (the selective scan at S = 4096 and 1), then the f32
      decode-vs-full check with 2 experts at capacity factor 1.0 on a
      512-token prompt; (b) one MU-SplitFed round of the 2-expert model
-     (11.4 B) through the driver, its peak beside the reckoning;
+     (11.4 B) through the driver, its peak beside the reckoning; (c) one
+     FedLoRA round of (b)'s model through the driver, the selective scan's
+     backward launched for the 4 Mamba blocks behind the adapters, its
+     peak beside the reckoning (FedAvg, at 5x its parameter bytes or more,
+     does not fit the card);
   5. one JSON line with every kernel's numbers (launches summed over the
      paths; the flash row and the flash backward's row carry their MLA
      instance's numbers under "mla", with the launches the wrappers
      counted at the (192, 128) pair, the rmsnorm backward's row its
-     MLA widths', and the selective scan's row, at path 10's round shape,
-     its prefill's under "tokens_4096" and its decode's under "decode"),
-     then the result line.
+     MLA widths', the selective scan's row, at path 10's round shape,
+     its prefill's under "tokens_4096" and its decode's under "decode",
+     and its backward's row at the round shape, the 4096-token case under
+     "tokens_4096"), then the result line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
 noise kernels at the path leaves, with the SM clock read by nvidia-smi
@@ -241,9 +253,11 @@ PORT_KERNEL = re.compile(r"(zo_update|zo_replay|flash_fwd|flash_fwd_bf16|"
                          r"flash_bwd_delta_bf16|flash_bwd_dkdv_bf16|"
                          r"flash_bwd_dq_bf16|"
                          r"rmsnorm_block|rmsnorm_pair|rmsnorm_bwd|"
-                         r"rmsnorm_bwd_wide|"
+                         r"rmsnorm_bwd_wide|selective_scan|"
+                         r"selective_scan_bwd|"
                          r"threefry_update|threefry_sumsq)_kernel<[^>]*>|"
-                         r"threefry_sumsq_kernel|flash_bwd_dkdv_sum_kernel")
+                         r"threefry_sumsq_kernel|flash_bwd_dkdv_sum_kernel|"
+                         r"selective_scan_bwd_sum_kernel")
 # operations of the RMSNorm backward per element
 NORM_BWD_OPS = 10
 
@@ -261,6 +275,29 @@ def scan_bytes(B: int, S: int, d_in: int, N: int, elem: int) -> int:
     A_log, D and dt_bias once."""
     return (B * S * d_in * (3 * elem + 4) + 2 * B * S * N * 4
             + 2 * B * d_in * N * 4 + d_in * N * 4 + 2 * d_in * 4)
+
+
+def scan_bwd_mufu_ops(N: int) -> int:
+    """MUFU operations the selective scan's gradient needs per (token,
+    channel): N exponentials for the decays exp(δ·A) (h recomputed once),
+    2 for softplus (exp, log1p), 1 for sigmoid(v) (a reciprocal beside
+    softplus's exp) and 2 for silu'(z) (exp, reciprocal). The kernel
+    issues N more (it recomputes h twice) and 2 more (sigmoid(v)'s
+    exponential, silu(z)'s division)."""
+    return N + 5
+
+
+def scan_bwd_bytes(B: int, S: int, d_in: int, N: int, elem: int,
+                   chunk: int = 32) -> int:
+    """Bytes the scan's gradient must move: x, z and dy in the model type
+    and dt in f32 read, dx and dz in the model type and ddt in f32 written,
+    per (token, channel); B and C read and dB and dC written per token; the
+    forward's h at each chunk's start read (the first is h0); dh_last read
+    and dh0 written; A_log, D and dt_bias read and their gradients
+    written."""
+    return (B * S * d_in * (5 * elem + 8) + 4 * B * S * N * 4
+            + B * -(-S // chunk) * d_in * N * 4 + 2 * B * d_in * N * 4
+            + 2 * d_in * N * 4 + 4 * d_in * 4)
 
 
 def flash_bwd_ops(d_qk: int, d_v: int) -> int:
@@ -427,7 +464,8 @@ def phase_card():
 def phase_build():
     """Build the package's kernel library and, at the same time, -Xptxas -v
     builds of flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-    threefry.cu, rmsnorm.cu and selective_scan.cu. Returns the zo
+    threefry.cu, rmsnorm.cu, selective_scan.cu and selective_scan_bwd.cu.
+    Returns the zo
     kernels' SASS instructions per gaussian and the threefry kernels' per
     element."""
     from repro_torch.kernels import build
@@ -441,7 +479,7 @@ def phase_build():
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("flash_attention.cu", "flash_attention_bwd.cu",
                     "zo_update.cu", "threefry.cu", "rmsnorm.cu",
-                    "selective_scan.cu")}
+                    "selective_scan.cu", "selective_scan_bwd.cu")}
     try:
         build.library()
     finally:
@@ -454,7 +492,8 @@ def phase_build():
     report_ptxas(ptxas_out["flash_attention.cu"])
     report_ptxas_bwd(ptxas_out["flash_attention_bwd.cu"])
     report_ptxas_norm_bwd(ptxas_out["rmsnorm.cu"])
-    report_ptxas_scan(ptxas_out["selective_scan.cu"])
+    report_ptxas_scan(ptxas_out["selective_scan.cu"]
+                      + ptxas_out["selective_scan_bwd.cu"])
     lib = build.library()
     for d, dv in FLASH_PAIRS:
         print(f"flash_fwd_bf16_kernel<{d}, {dv}>: dynamic shared memory "
@@ -589,21 +628,32 @@ def report_ptxas_norm_bwd(out: str) -> None:
 
 
 # the selective scan's instances: f32 and bf16 at d_state 4 and 16, each
-# at its lanes a channel (G)
-SCAN_KERNEL = re.compile(r"(selective_scan_kernel)I(13__nv_bfloat16|f)"
-                         r"Li(\d+)ELi(\d+)EE")
-SCAN_KERNELS = 4
+# at its lanes a channel (G); the forward without and with the chunk
+# starts saved for the backward (kSave), the backward, and the backward's
+# sum launch
+SCAN_KERNEL = re.compile(r"(selective_scan(?:_bwd)?_kernel)I"
+                         r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E(?:Lb([01])E)?E"
+                         r"|selective_scan_bwd_sum_kernel")
+SCAN_KERNELS = 13
+
+
+def scan_name(m) -> str:
+    if m.group(1) is None:
+        return m.group(0)
+    save = "" if m.group(5) is None else (", save" if m.group(5) == "1"
+                                          else ", no save")
+    return (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}, "
+            f"{m.group(3)}, {m.group(4)}{save}>")
 
 
 def report_ptxas_scan(out: str) -> None:
     """Print ptxas's registers, shared memory and spills for each
-    selective-scan kernel; none may spill."""
+    selective-scan kernel, forward and backward; none may spill."""
     name, seen = None, set()
     for line in out.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             m = SCAN_KERNEL.search(line)
-            name = (f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'f32'}"
-                    f", {m.group(3)}, {m.group(4)}>" if m else None)
+            name = scan_name(m) if m else None
             continue
         if name is None or not line.strip() or "Compile time" in line:
             continue
@@ -615,7 +665,9 @@ def report_ptxas_scan(out: str) -> None:
             require(spills.groups() == ("0", "0"),
                     f"{name} spills registers: {line.strip()}")
     require(len(seen) == SCAN_KERNELS, f"ptxas -v reported spill lines for "
-            f"{sorted(seen)}, not the {SCAN_KERNELS} selective-scan kernels")
+            f"{sorted(seen)}, not the {SCAN_KERNELS} selective-scan kernels "
+            f"(forward with and without the saved chunk starts, backward "
+            f"and its sum)")
 
 
 def check_sass(lib: Path) -> None:
@@ -1472,6 +1524,129 @@ def phase_selective_scan(dev) -> dict:
 
 
 
+# the scan backward's cases: path 10 (c)'s round shape and the 4096-token
+# prefill at jamba's published d_inner and d_state, and the card SMOKE's
+# N = 4 (FO_SMALL's jamba rounds)
+SCAN_BWD_CASES = (("round (path 10)", (1, 512, 16384, 16)),
+                  ("tokens 4096", (1, 4096, 16384, 16)),
+                  ("card SMOKE", (2, 40, 256, 4)))
+SCAN_BWD_NAMES = ("dx", "ddt", "dz", "dBc", "dCc", "dA_log", "dD",
+                  "ddt_bias", "dh0")
+
+
+def check_scan_bwd(what: str, got, want) -> float:
+    """Each gradient within 1e-5 (f32) or 2^-7 (bf16: dx and dz are
+    rounded to it, and do and dy·T(o) before them) of its largest
+    magnitude; types and shapes equal. Returns the largest |Δ| over
+    them."""
+    worst = 0.0
+    for name, g, w in zip(SCAN_BWD_NAMES, got, want):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what} {name}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        require(bool(torch.isfinite(g.float()).all()),
+                f"{what} {name}: non-finite")
+        tol = 1e-5 if want[0].dtype == torch.float32 else 2.0 ** -7
+        scale = float(w.float().abs().max())
+        err = max_err(g, w)
+        require(err <= tol * scale, f"{what} {name}: max |Δ| {err:.3e} of "
+                f"{scale:.3e} outside {tol:.1e} of it")
+        worst = max(worst, err)
+    return worst
+
+
+def event_ms(fn):
+    """(fn's result, its milliseconds by CUDA events): one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def phase_selective_scan_bwd(dev) -> dict:
+    """The scan's backward kernel (``selective_scan_bwd``: the reverse
+    recurrence, then the launch that sums its per-block partials) against
+    its plain version (``ref.selective_scan_bwd_ref``, a loop over tokens
+    in PyTorch ops) at SCAN_BWD_CASES, f32 and bf16, from a nonzero h0 and
+    dh_last, on the h at chunk starts that the forward saved
+    (``check_scan_bwd``); z, B and C as the Mamba block's strided views
+    (``scan_views``) give every gradient bit-equal to contiguous copies,
+    and two calls are bit-equal. Times: the kernel's device time per call
+    (both launches, device_ms over copies of the inputs past L2), the
+    plain version's by CUDA events (one call); the bound from
+    ``scan_bwd_bytes`` and ``scan_bwd_mufu_ops``; no PyTorch call
+    computes it. First each instance's geometry (``selective_scan_bwd_plan``).
+    Returns the round case's numbers (bf16), with the 4096-token case's
+    under "tokens_4096"."""
+    import ctypes
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.selective_scan import (LANES, _launch,
+                                                    selective_scan_bwd)
+    for N in (4, 16):
+        for dt_code, dt_name in ((0, "f32"), (1, "bf16")):
+            plan = (ctypes.c_int * 7)()
+            build.check(build.library().selective_scan_bwd_plan(
+                N, dt_code, plan), "selective_scan_bwd_plan")
+            G, cb, sub, threads, regs, smem, blocks = plan
+            require(G == LANES[N], f"selective_scan_bwd N = {N}: {G} lanes, "
+                    f"the forward's {LANES[N]}")
+            print(f"selective_scan_bwd_kernel<{dt_name}, {N}, {G}>: {cb} "
+                  f"channels x {G} lanes = {threads} threads a block, "
+                  f"{sub}-token sub-chunks, {regs} registers, {smem} bytes "
+                  f"of dynamic shared memory, {blocks} blocks an SM")
+    res = {"err": 0.0, "library_ms": None}
+    for label, (B, S, d_in, N) in SCAN_BWD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = scan_inputs(B, S, d_in, N, dtype, dev)
+            g = torch.Generator(device=dev).manual_seed(9)
+            dy = torch.randn(B, S, d_in, generator=g, device=dev).to(dtype)
+            dh_last = torch.randn(B, d_in, N, generator=g, device=dev)
+            what = (f"selective_scan_bwd {label} {str(dtype)[6:]} "
+                    f"(B, S, d_in, N) = {(B, S, d_in, N)}")
+            views = scan_views(args)
+            _, _, hc = _launch(*views, None, save=True)
+            got = selective_scan_bwd(*views, hc, dy, dh_last)
+            want, plain_ms = event_ms(lambda: ref.selective_scan_bwd_ref(
+                *args, dy, dh_last))
+            err = check_scan_bwd(what, got, want)
+            del want
+            again = selective_scan_bwd(*args, hc, dy, dh_last)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{what}: two calls differ, or z, B and C read in place "
+                    f"differ from contiguous copies")
+            res["err"] = max(res["err"], err)
+            nbytes = scan_bwd_bytes(B, S, d_in, N, dtype.itemsize)
+            sets = [(args, hc)] + [
+                (tuple(t.clone() for t in args), hc.clone())
+                for _ in range(L2_BYTES // nbytes + 1)]
+            by_kernel = {}
+            ms = device_ms(lambda t: selective_scan_bwd(*t[0], t[1], dy,
+                                                        dh_last), sets, 10,
+                           by_kernel=by_kernel)
+            del sets
+            require(ms > 0, f"{what}: the profiler recorded no device time")
+            b_ms, b_by = bound(nbytes, scan_bwd_mufu_ops(N) * B * S * d_in,
+                               "mufu")
+            print(f"{what}: max|Δ| {err:.3e}  kernel {ms:.4f} ms  plain "
+                  f"{plain_ms:.4f} ms  library none  bound {b_ms:.4f} ms "
+                  f"({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)"
+                  f"  two calls bit-equal, in-place z/B/C equal; by launch "
+                  + ", ".join(f"{'sum' if 'sum' in k else 'recurrence'} "
+                              f"{v:.4f} ms" for k, v in by_kernel.items()))
+            if dtype != torch.bfloat16 or label == "card SMOKE":
+                continue
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       shape=f"(B, S, d_in, N) = {(B, S, d_in, N)} bf16")
+            if label.startswith("round"):
+                res.update(row)
+            else:
+                res["tokens_4096"] = row
+    return res
+
+
 def flash_pairs(S: int, causal: bool, window: int) -> int:
     """The (query, key) pairs a causal / window mask leaves unmasked."""
     n = 0
@@ -2019,11 +2194,14 @@ def small_rounds(dev, arch: str, n_kv_heads: int, cases):
 # gradients from moving an element by more than the check's 1e-4 on
 # olmo-1b (on deepseek-v2-236b's MLA it moved one by 2.7e-4, so MLA's
 # round runs SGD here; its AdamW round is held against the reference on
-# the CPU, tests/test_torch_mla_grad.py)
+# the CPU, tests/test_torch_mla_grad.py); jamba's FedAvg and FedLoRA
+# through the selective scan's backward at the card SMOKE's d_state 4
 FO_SMALL = (("fedavg", "sgd", 1e-2, "olmo-1b"),
             ("fedavg", "adamw", 1e-3, "olmo-1b"),
             ("fedlora", "sgd", 1e-2, "qwen3-14b"),
-            ("fedavg", "sgd", 1e-2, "deepseek-v2-236b"))
+            ("fedavg", "sgd", 1e-2, "deepseek-v2-236b"),
+            ("fedavg", "sgd", 1e-2, "jamba-1.5-large-398b"),
+            ("fedlora", "sgd", 1e-2, "jamba-1.5-large-398b"))
 
 
 def phase_small_fo(dev):
@@ -2033,7 +2211,10 @@ def phase_small_fo(dev):
     (d_head 64), FedLoRA on qwen3-14b with qk-norm and GQA (d_head 64, two
     query heads a kv head), FedAvg with SGD on deepseek-v2-236b's MLA at
     (192, 128) (the flash backward at that pair, the rmsnorm backward of
-    its kv_norm and q_norm), each widened by ``card_smoke_config``."""
+    its kv_norm and q_norm), FedAvg with SGD and FedLoRA on
+    jamba-1.5-large-398b (the selective scan's backward at d_state 4; the
+    adapters on its attention block), each widened by
+    ``card_smoke_config``."""
     import numpy as np
     from repro_torch.configs import card_smoke_config
     from repro_torch.core import prng
@@ -2049,7 +2230,7 @@ def phase_small_fo(dev):
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                  (2, 2, 64))
         keys = ("flash_attention_bwd", "rmsnorm_bwd",
-                "flash_attention_bwd (192, 128)")
+                "flash_attention_bwd (192, 128)", "selective_scan_bwd")
         outs = {}
         for d in ("cpu", dev):
             p = tree.tree_map(lambda a: a.to(d), params)
@@ -2073,10 +2254,12 @@ def phase_small_fo(dev):
               f"{err:.3e}; backward launches on the card {n}")
         require(err <= 1e-4, f"small round ({what}): card and CPU disagree")
         mla = cfg.attn_impl == "mla"
+        mamba = "mamba" in cfg.block_pattern
         require(n["flash_attention_bwd"] > 0 and (
             algorithm == "fedavg" or n["rmsnorm_bwd"] > 0) and (
             not mla or min(n["rmsnorm_bwd"],
-                           n["flash_attention_bwd (192, 128)"]) > 0),
+                           n["flash_attention_bwd (192, 128)"]) > 0) and (
+            not mamba or n["selective_scan_bwd"] > 0),
             f"small round ({what}): a backward kernel did not launch")
 
 
@@ -3306,6 +3489,74 @@ JAMBA_ARGV = ["--arch", "jamba-1.5-large-398b", "--clients", "2", "--tau",
               "2", "--batch", "1", "--seq", "512", "--rounds", "1",
               "--chunk-size", "1", "--aggregation", "seed_replay"]
 JAMBA_KERNELS = ("flash_attention", "rmsnorm", "selective_scan")
+# path 10 (c): one FedLoRA round of (b)'s model through the driver (rank 4,
+# alpha 16 on the attention block's wq and wv, one local SGD step). FedAvg
+# holds at least 5x the parameter bytes (the global tree, a client copy,
+# its gradients and an f32 running sum; path 9 (c) measured 5.40x), 106
+# GiB at 2 experts, over the card's 79.2 GiB (84 GiB with every MoE
+# position dense); FedLoRA holds the parameters, the activations and the
+# adapters, 1.65x on path 5 (4.36 GiB for paper-opt-1.3b's 2.634)
+JAMBA_FO_ARGV = ["--arch", "jamba-1.5-large-398b", "--clients", "2",
+                 "--batch", "1", "--seq", "512", "--rounds", "1",
+                 "--chunk-size", "1", "--algorithm", "fedlora"]
+FEDLORA_ROUND_BYTES_PER_PARAM_BYTE = 1.65
+FEDAVG_MIN_BYTES_PER_PARAM_BYTE = 5.0
+
+
+def jamba_fo_round(dev, rcfg) -> dict:
+    """Path 10 (c): one FedLoRA round of ``rcfg`` through the driver
+    (``JAMBA_FO_ARGV``) with ``drive``: the flash backward once a client
+    (the attention block b3 holds the adapters), the selective scan's
+    backward once for each Mamba block behind it (b4-b7: 4 a client), the
+    rmsnorm backward; the loss finite, the base frozen and the adapters
+    moved; its peak reckoned first (FEDLORA_ROUND_BYTES_PER_PARAM_BYTE x
+    the parameter bytes) and printed with the round's seconds. Returns the
+    launches."""
+    from repro_torch.core import engine
+    from repro_torch.launch import train
+    from repro_torch.models import param_count
+    from repro_torch.utils import tree
+    name = (f"FedLoRA path (10c) jamba-1.5-large-398b ({JAMBA_LAYERS} of 72 "
+            f"layers, {JAMBA_ROUND_EXPERTS} of 16 experts)")
+    torch.cuda.empty_cache()
+    run = train.setup(JAMBA_FO_ARGV, cfg=rcfg)
+    gib = param_count(run.params) * 2 / 2 ** 30
+    card = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    behind = [j for j, b in enumerate(rcfg.block_pattern)
+              if b == "mamba" and j > rcfg.block_pattern.index("attn")]
+    print(f"{name}: reckoned peak {FEDLORA_ROUND_BYTES_PER_PARAM_BYTE} x "
+          f"{gib:.2f} GiB of parameters = "
+          f"{FEDLORA_ROUND_BYTES_PER_PARAM_BYTE * gib:.1f} GiB of the card's "
+          f"{card:.1f}; FedAvg would hold at least "
+          f"{FEDAVG_MIN_BYTES_PER_PARAM_BYTE} x {gib:.2f} = "
+          f"{FEDAVG_MIN_BYTES_PER_PARAM_BYTE * gib:.1f} GiB; Mamba blocks "
+          f"behind the adapters {behind}")
+    res, _, n, chunks = drive(dev, name, run, run.sfl, (
+        "flash_attention", "flash_attention_bwd", "rmsnorm", "rmsnorm_bwd",
+        "selective_scan", "selective_scan_bwd"), frozen=True)
+    M = run.sfl.n_clients
+    print(f"{name}: backward launches: selective_scan_bwd "
+          f"{n.get('selective_scan_bwd')}, flash_attention_bwd "
+          f"{n.get('flash_attention_bwd')}, rmsnorm_bwd "
+          f"{n.get('rmsnorm_bwd')}")
+    require(n.get("selective_scan_bwd") == M * len(behind)
+            and n.get("flash_attention_bwd") == M,
+            f"{name}: launches {n}, not {M * len(behind)} selective-scan "
+            f"backwards and {M} flash backwards")
+    init = engine.get_algorithm("fedlora").init_state(rcfg, run.sfl,
+                                                       run.params, None)
+    moved = max(max_err(a, b) for a, b in zip(tree.leaves(res.state),
+                                              tree.leaves(init)))
+    peak = max(c[2] for c in chunks)
+    print(f"{name}: adapters max |Δ| from their init {moved:.3e}; a round "
+          f"{chunks[0][1]:.3f} s, peak {peak:.2f} GiB against the reckoning "
+          f"{FEDLORA_ROUND_BYTES_PER_PARAM_BYTE * gib:.1f} GiB; measured "
+          f"ratio {peak / gib:.3f}")
+    require(moved > 0, f"{name}: the adapters did not move")
+    require(peak < card, f"{name}: peak {peak:.2f} GiB over the card")
+    del run, res, init
+    torch.cuda.empty_cache()
+    return n
 
 
 def phase_jamba(dev) -> dict:
@@ -3324,9 +3575,12 @@ def phase_jamba(dev) -> dict:
          driver (``JAMBA_ARGV``: counter noise, seed replay, M=2, tau=2,
          batch 1, seq 512, the config's cut after the one unit, so the
          server holds final_norm and the head only), ``moe_round``: the
-         noise kernels, flash, rmsnorm and selective_scan must launch.
+         noise kernels, flash, rmsnorm and selective_scan must launch;
+      c. one FedLoRA round of (b)'s model through the driver
+         (``jamba_fo_round``): the selective scan's backward 4 times a
+         client, the flash and rmsnorm backwards.
     Prints what it cut, each part's seconds and the parameter counts and
-    reckoned peak; returns the launches summed over a-b."""
+    reckoned peak; returns the launches summed over a-c."""
     from repro_torch.configs import get_config
     from repro_torch.models import init_params, param_count, split_dims
     from repro_torch.models.ssm import mamba_dims
@@ -3407,6 +3661,9 @@ def phase_jamba(dev) -> dict:
                   f"experts)", JAMBA_ARGV, rcfg,
                   kernels=MOE_ROUND_KERNELS + ("selective_scan",)))
     print(f"MoE round path (10b): {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    add(jamba_fo_round(dev, rcfg))
+    print(f"FedLoRA path (10c): {time.perf_counter() - t0:.1f} s")
     print(f"jamba path: prefill {st['prefill_ms']:.1f} ms (4096 tokens), "
           f"decode {st['decode_ms']:.2f} ms a step, {st['tok_s']:.1f} "
           f"tokens/s, peak {st['peak']:.2f} GiB; path 10 "
@@ -3503,6 +3760,7 @@ def main() -> int:
     flash_bwd = phase_flash_bwd(dev)
     norm_bwd = phase_rmsnorm_bwd(dev)
     scan = phase_selective_scan(dev)
+    scan_bwd = phase_selective_scan_bwd(dev)
     t_small = time.perf_counter()
     phase_small_round(dev)
     phase_small_fo(dev)
@@ -3560,7 +3818,10 @@ def main() -> int:
             # no Pallas kernel: the counterpart of the reference's jnp
             # chunked associative scan and its gate (XLA)
             ("selective_scan", src + "selective_scan.cu",
-             "src/repro/models/ssm.py:70", scan)]
+             "src/repro/models/ssm.py:70", scan),
+            # no Pallas kernel: XLA's autodiff of that scan and gate
+            ("selective_scan_bwd", src + "selective_scan_bwd.cu",
+             "src/repro/models/ssm.py:70", scan_bwd)]
     for name, *_ in rows:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was launched on no path")

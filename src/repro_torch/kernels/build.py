@@ -17,7 +17,9 @@ wrappers raise on a nonzero code. ``LAUNCHES`` counts the launches each
 wrapper made, so a run can show that its main path went through the
 kernels; the flash forward's and backward's are also counted by head-dim
 pair, under ``"flash_attention (d_qk, d_v)"`` and
-``"flash_attention_bwd (d_qk, d_v)"``.
+``"flash_attention_bwd (d_qk, d_v)"``. ``selective_scan_bwd.cu`` includes
+``selective_scan.cu`` (its constants and helpers, not its entry points),
+which SOURCES holds too, so the hash covers what it compiles.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("zo_update.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "rmsnorm.cu", "threefry.cu", "selective_scan.cu")
+           "rmsnorm.cu", "threefry.cu", "selective_scan.cu",
+           "selective_scan_bwd.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -108,17 +111,29 @@ SIGNATURES = {
                               ctypes.c_uint, ctypes.c_ulonglong, _VOIDP),
     # z* (2^23 floats), stream: the gaussian of every bits >> 9
     "threefry_normal_table_launch": (_VOIDP, _VOIDP),
-    # x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, y, h_last, the row strides
-    # of z, Bc and Cc, B, S, d_in, N, dtype, stream
-    "selective_scan_launch": (_VOIDP,) * 11 + (ctypes.c_longlong,) * 3 + (
+    # x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, y, h_last, h_chunks (or
+    # null), the row strides of z, Bc and Cc, B, S, d_in, N, dtype, stream
+    "selective_scan_launch": (_VOIDP,) * 12 + (ctypes.c_longlong,) * 3 + (
         ctypes.c_int,) * 5 + (_VOIDP,),
+    # x, dt, z, Bc, Cc, A_log, D, dt_bias, h_chunks, dy, dh_last (or null),
+    # dx, ddt, dz, dBc, dCc, dA_log, dD, ddt_bias, dh0, scratch, the row
+    # strides of z, Bc and Cc, B, S, d_in, N, dtype, stream
+    "selective_scan_bwd_launch": (_VOIDP,) * 21 + (ctypes.c_longlong,) * 3
+    + (ctypes.c_int,) * 5 + (_VOIDP,),
+    # B, S, d_in, N: the floats of a backward launch's scratch
+    "selective_scan_bwd_scratch_floats": (ctypes.c_int,) * 4,
+    # N, dtype, plan (int[7]): the backward instance's lanes, channels a
+    # block, tokens a sub-chunk, threads, registers, dynamic shared memory,
+    # blocks an SM
+    "selective_scan_bwd_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
     # N, dtype, plan (int[7]): the instance's lanes, channels a block,
     # tokens a chunk, threads, registers, shared memory, blocks an SM
     "selective_scan_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
 }
 # entry points that return other than a C int
 RESTYPES = {"flash_attention_bwd_scratch_floats": ctypes.c_longlong,
-            "rmsnorm_bwd_scratch_floats": ctypes.c_longlong}
+            "rmsnorm_bwd_scratch_floats": ctypes.c_longlong,
+            "selective_scan_bwd_scratch_floats": ctypes.c_longlong}
 
 
 def reset_launches() -> None:

@@ -88,9 +88,20 @@
 // and 32-token chunks against 256 threads and 16-token chunks (3% slower);
 // groups of 8 tokens against 4, 2 and 1. At N = 4 (the SMOKE config) G = 4
 // as well, one state a thread.
-// On the H100 each instance holds 104-115 registers a thread, 36,864
-// (N = 16) or 33,792 (N = 4) bytes of static shared memory a block and 4
-// blocks an SM (chip_smoke.py prints ptxas -v and selective_scan_plan).
+// On the H100 each instance holds 104-115 registers a thread (the kSave
+// instances 108-120), 36,864 (N = 16) or 33,792 (N = 4) bytes of static
+// shared memory a block and 4 blocks an SM (chip_smoke.py prints ptxas -v
+// and selective_scan_plan).
+//
+// Under autograd (kSave, a non-null h_chunks) the kernel also writes h at
+// the start of each kChunk-token chunk, (B, ceil(S / kChunk), d_in, N)
+// f32: the backward (selective_scan_bwd.cu) recomputes each chunk's h from
+// there. The recurrence step is scan_step, the one the backward calls:
+// its multiply-add is written out (__fmaf_rn), so that the two kernels
+// round h alike and the backward's h equals this kernel's bit for bit.
+// Without h_chunks the kSave = false instance runs, as before.
+// selective_scan_bwd.cu includes this file with SELECTIVE_SCAN_KERNEL_ONLY
+// defined, for its constants and helpers, without the C entry points.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -163,6 +174,14 @@ __device__ __forceinline__ void load_shared(float (&v)[K], const float* p) {
   }
 }
 
+// h = e·h + (δ·x)·B and the partial sum acc + h·C, rounded as written: one
+// product, then one fused multiply-add each (what nvcc contracts the
+// plain expressions to, so the outputs equal the uncontracted source's)
+__device__ __forceinline__ float scan_step(float e, float h, float dx,
+                                           float b) {
+  return __fmaf_rn(e, h, __fmul_rn(dx, b));
+}
+
 template <int N, int G>
 struct Geometry {
   static_assert(N % G == 0 && kThreads % G == 0 && kChunk % G == 0, "G");
@@ -177,7 +196,7 @@ struct Geometry {
   static constexpr bool kExact = kRows * kBcRows == kChunk;
 };
 
-template <typename T, int N, int G>
+template <typename T, int N, int G, bool kSave>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     selective_scan_kernel(const T* __restrict__ x,
                           const float* __restrict__ dt,
@@ -187,7 +206,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                           const float* __restrict__ A_log,
                           const float* __restrict__ Dp,
                           const float* __restrict__ dt_bias, const float* h0,
-                          T* __restrict__ y, float* h_last, int S, int d_in) {
+                          T* __restrict__ y, float* h_last,
+                          float* __restrict__ h_chunks, int S, int d_in) {
   using Geo = Geometry<N, G>;
   constexpr int NS = Geo::kStates, CB = Geo::kChannels;
   __shared__ float2 s_dd[kChunk][CB];                    // {delta, delta·x}
@@ -295,8 +315,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       float acc = 0.0f;
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        h[n] = e[i][n] * h[n] + dd[i].y * b[i][n];
-        acc += h[n] * cc[i][n];
+        h[n] = scan_step(e[i][n], h[n], dd[i].y, b[i][n]);
+        acc = __fmaf_rn(h[n], cc[i][n], acc);
       }
       s_part[t + i][tid] = acc;
     }
@@ -327,7 +347,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   } else {
     load(Part(), 0, len);
   }
+  const long long n_chunks = (S + kChunk - 1) / kChunk;
   while (t0 < S) {
+    if constexpr (kSave) {      // h at the chunk's start, for the backward
+      if (live) {
+        float* hc = h_chunks + ((blockIdx.y * n_chunks + t0 / kChunk) * d_in
+                                + c) * N + g * NS;
+#pragma unroll
+        for (int n = 0; n < NS; ++n) hc[n] = h[n];
+      }
+    }
     if (len == kChunk) {
       stage(Full(), len);
     } else {
@@ -364,9 +393,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <typename T, int N>
+template <typename T, int N, bool kSave = false>
 auto kernel_of() {
-  return selective_scan_kernel<T, N, lanes<N>()>;
+  return selective_scan_kernel<T, N, lanes<N>(), kSave>;
 }
 
 template <typename T, int N>
@@ -374,17 +403,17 @@ cudaError_t launch(const void* x, const void* dt, const void* z,
                    long long zs, const void* Bc, long long bs, const void* Cc,
                    long long cs, const void* A_log, const void* D,
                    const void* dt_bias, const void* h0, void* y, void* h_last,
-                   int B, int S, int d_in, cudaStream_t st) {
+                   void* h_chunks, int B, int S, int d_in, cudaStream_t st) {
   constexpr int CB = Geometry<N, lanes<N>()>::kChannels;
   const dim3 grid((d_in + CB - 1) / CB, B);
-  const auto kernel = kernel_of<T, N>();
+  const auto kernel = h_chunks ? kernel_of<T, N, true>() : kernel_of<T, N>();
   kernel<<<grid, kThreads, 0, st>>>(
       static_cast<const T*>(x), static_cast<const float*>(dt),
       static_cast<const T*>(z), zs, static_cast<const float*>(Bc), bs,
       static_cast<const float*>(Cc), cs, static_cast<const float*>(A_log),
       static_cast<const float*>(D), static_cast<const float*>(dt_bias),
       static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(h_last), S, d_in);
+      static_cast<float*>(h_last), static_cast<float*>(h_chunks), S, d_in);
   return cudaGetLastError();
 }
 
@@ -393,15 +422,15 @@ cudaError_t dispatch_n(const void* x, const void* dt, const void* z,
                        long long zs, const void* Bc, long long bs,
                        const void* Cc, long long cs, const void* A_log,
                        const void* D, const void* dt_bias, const void* h0,
-                       void* y, void* h_last, int B, int S, int d_in, int N,
-                       cudaStream_t st) {
+                       void* y, void* h_last, void* h_chunks, int B, int S,
+                       int d_in, int N, cudaStream_t st) {
   if (N == 4) {
     return launch<T, 4>(x, dt, z, zs, Bc, bs, Cc, cs, A_log, D, dt_bias, h0,
-                        y, h_last, B, S, d_in, st);
+                        y, h_last, h_chunks, B, S, d_in, st);
   }
   if (N == 16) {
     return launch<T, 16>(x, dt, z, zs, Bc, bs, Cc, cs, A_log, D, dt_bias,
-                         h0, y, h_last, B, S, d_in, st);
+                         h0, y, h_last, h_chunks, B, S, d_in, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -426,17 +455,21 @@ cudaError_t plan_of(int* plan) {
 
 }  // namespace
 
+#ifndef SELECTIVE_SCAN_KERNEL_ONLY
 // x, dt, y: (B, S, d_in) contiguous, x and y in one dtype (0 = float32, 1
 // = bfloat16), dt f32; z: (B, S, d_in) in x's dtype, row (b, t) at (b·S +
 // t)·z_stride elements, each row contiguous; Bc, Cc: (B, S, N) f32 rows
 // likewise at bc_stride and cc_stride; A_log: (d_in, N) f32; D, dt_bias:
-// (d_in,) f32; h0, h_last: (B, d_in, N) f32 contiguous, h_last may be h0.
+// (d_in,) f32; h0, h_last: (B, d_in, N) f32 contiguous, h_last may be h0;
+// h_chunks: null, or (B, ceil(S / kChunk), d_in, N) f32 receiving h at
+// each chunk's start (kChunk tokens: selective_scan_plan's plan[2]).
 // N is 4 or 16. Returns cudaGetLastError() after the launch.
 extern "C" int selective_scan_launch(const void* x, const void* dt,
                                      const void* z, const void* Bc,
                                      const void* Cc, const void* A_log,
                                      const void* D, const void* dt_bias,
                                      const void* h0, void* y, void* h_last,
+                                     void* h_chunks,
                                      long long z_stride, long long bc_stride,
                                      long long cc_stride, int B, int S,
                                      int d_in, int N, int dtype,
@@ -453,12 +486,12 @@ extern "C" int selective_scan_launch(const void* x, const void* dt,
   cudaError_t err;
   if (dtype == 0) {
     err = dispatch_n<float>(x, dt, z, z_stride, Bc, bc_stride, Cc, cc_stride,
-                            A_log, D, dt_bias, h0, y, h_last, B, S, d_in, N,
-                            st);
+                            A_log, D, dt_bias, h0, y, h_last, h_chunks, B, S,
+                            d_in, N, st);
   } else if (dtype == 1) {
     err = dispatch_n<__nv_bfloat16>(x, dt, z, z_stride, Bc, bc_stride, Cc,
                                     cc_stride, A_log, D, dt_bias, h0, y,
-                                    h_last, B, S, d_in, N, st);
+                                    h_last, h_chunks, B, S, d_in, N, st);
   } else {
     err = cudaErrorInvalidValue;
   }
@@ -479,3 +512,4 @@ extern "C" int selective_scan_plan(int N, int dtype, int* plan) {
   if (dtype == 1 && N == 16) err = plan_of<__nv_bfloat16, 16>(plan);
   return static_cast<int>(err);
 }
+#endif  // SELECTIVE_SCAN_KERNEL_ONLY

@@ -90,5 +90,7 @@ def rmsnorm_pair_op(xq, sq, xk, sk, *, eps: float = 1e-5):
 
 def selective_scan_op(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, *,
                       h_out=None):
+    """Under autograd through ``selective_scan``'s Function: the backward
+    kernel (the plain backward on the CPU)."""
     return selective_scan(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0,
                           h_out=h_out)

@@ -282,6 +282,70 @@ def selective_scan_ref(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
     return y * torch.nn.functional.silu(z), h
 
 
+def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           z: torch.Tensor, Bc: torch.Tensor,
+                           Cc: torch.Tensor, A_log: torch.Tensor,
+                           D: torch.Tensor, dt_bias: torch.Tensor,
+                           h0: torch.Tensor, dy: torch.Tensor,
+                           dh_last: torch.Tensor | None = None):
+    """The gradient of ``selective_scan_ref`` by an explicit reverse
+    recurrence in f32: from its inputs, dy (y's cotangent, in x's type)
+    and dh_last (h_last's, f32; None for zero), returns (dx, ddt, dz, dBc,
+    dCc, dA_log, dD, ddt_bias, dh0), each in its input's type and shape.
+
+    With a_t = exp(δ_t·A), b_t = (δ_t·x_t)·B_t and o = Σ_n h·C + x·D:
+        do = T(dy·T(silu(z))),  dz = T(T(dy·T(o))·silu'(z))
+        G_t = do_t·C_t + a_{t+1}·G_{t+1}  (G_S = dh_last),  dh0 = a_0·G_0
+        dC_t = Σ_c do_t·h_t,  dB_t = Σ_c G_t·δ_t·x_t
+        dδ_t = Σ_n G_t·h_{t-1}·a_t·A + x_t·Σ_n G_t·B_t
+        dx = do·D + δ·Σ_n G·B,  dD = Σ do·x,  dA = Σ G·h_{t-1}·a·δ
+        ddt = dδ·sigmoid(v),  ddt_bias = Σ ddt,  dA_log = dA·A
+    (T: x's type; do and T(dy·T(o)) are rounded to it as the bf16
+    product's autodiff rounds them)."""
+    f32 = torch.float32
+    T = x.dtype
+    B, S, d_in = x.shape
+    v = dt + dt_bias
+    delta = v.clamp(min=0.0) + torch.log1p(torch.exp(-v.abs()))
+    A = -torch.exp(A_log)
+    xf, zf = x.to(f32), z.to(f32)
+    dxB = delta * xf
+    hs = torch.empty((B, S + 1, d_in, A.shape[-1]), dtype=f32,
+                     device=x.device)
+    hs[:, 0] = h0
+    ys = torch.empty_like(dxB)
+    for t in range(S):
+        hs[:, t + 1] = (torch.exp(delta[:, t, :, None] * A) * hs[:, t]
+                        + dxB[:, t, :, None] * Bc[:, t, None, :])
+        ys[:, t] = (hs[:, t + 1] * Cc[:, t, None, :]).sum(-1)
+    o = (ys + xf * D).to(T).to(f32)
+    dyf = dy.to(f32)
+    do = (dyf * torch.nn.functional.silu(z).to(f32)).to(T).to(f32)
+    sig = torch.sigmoid(zf)
+    dz = ((dyf * o).to(T).to(f32) * (sig * (1.0 + zf * (1.0 - sig)))).to(T)
+    dD = (do * xf).sum((0, 1))
+    dx = do * D
+    ddelta = torch.empty_like(dxB)
+    dBc, dCc = torch.empty_like(Bc, dtype=f32), torch.empty_like(Cc,
+                                                                dtype=f32)
+    dA = torch.zeros_like(A)
+    dh = (torch.zeros_like(hs[:, 0]) if dh_last is None
+          else dh_last.to(f32).clone())
+    for t in range(S - 1, -1, -1):
+        dh = dh + do[:, t, :, None] * Cc[:, t, None, :]
+        dCc[:, t] = (do[:, t, :, None] * hs[:, t + 1]).sum(1)
+        a = torch.exp(delta[:, t, :, None] * A)
+        q = dh * hs[:, t] * a
+        sb = (dh * Bc[:, t, None, :]).sum(-1)
+        ddelta[:, t] = (q * A).sum(-1) + xf[:, t] * sb
+        dA += (q * delta[:, t, :, None]).sum(0)
+        dx[:, t] += delta[:, t] * sb
+        dBc[:, t] = (dh * dxB[:, t, :, None]).sum(1)
+        dh = a * dh
+    ddt = ddelta * torch.sigmoid(v)
+    return (dx.to(T), ddt, dz, dBc, dCc, dA * A, dD, ddt.sum((0, 1)), dh)
+
+
 # ---------------------------------------------------------------------------
 # threefry gaussian noise (jax.random.normal at one leaf)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Mamba's selective scan: the wrapper of the CUDA kernel in
-``csrc/selective_scan.cu`` (no Pallas counterpart: the reference's scan
-is jnp, ``repro.models.ssm``'s ``_mamba_ssm_params``, ``_ssm_scan_chunk``
-and the gate of ``mamba_forward``).
+"""Mamba's selective scan: the wrappers of the CUDA kernels in
+``csrc/selective_scan.cu`` and its backward ``csrc/selective_scan_bwd.cu``
+(no Pallas counterpart: the reference's scan is jnp, ``repro.models.ssm``'s
+``_mamba_ssm_params``, ``_ssm_scan_chunk`` and the gate of
+``mamba_forward``, and its gradient XLA's autodiff of them).
 
     y, h_last = selective_scan(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0)
 
@@ -16,9 +17,16 @@ whose rows (b, t) are evenly spaced with a contiguous last dimension (a
 half of in_proj's output, slices of x_proj's): the kernel reads them in
 place; every other tensor is contiguous. A CUDA tensor launches the
 kernel (N 4 or 16) or raises; a CPU tensor takes the plain version in
-``kernels/ref.py``. There is no backward: a CUDA input that requires a
-gradient is refused (the first-order algorithms refuse a Mamba model,
-``core/baselines.py``).
+``kernels/ref.py``.
+
+Under autograd (grad enabled and an input that requires a gradient) the
+call goes through ``_SelectiveScan``: on the card its forward launches the
+kernel with ``h_chunks``, h at the start of each 32-token chunk, (B,
+ceil(S / 32), d_in, N) f32, and its backward launches
+``selective_scan_bwd`` (two launches: the reverse recurrence, then the
+sums of its per-block partials), which recomputes each chunk's h from
+there; on the CPU the plain forward and ``ref.selective_scan_bwd_ref`` run.
+h_out is not taken under autograd.
 """
 from __future__ import annotations
 
@@ -35,6 +43,9 @@ STATES = (4, 16)           # the kernel's template instances of N
 # kLanesN16, kLanesN4): its sum over n runs in that many partials
 LANES = {4: 4, 16: 4}
 _STRIDED = ("z", "Bc", "Cc")   # read in place through a row stride
+# tokens between the h the forward saves for the backward (csrc: kChunk;
+# selective_scan_plan's plan[2])
+CHUNK = 32
 
 
 def _row_stride(name: str, t: torch.Tensor) -> int:
@@ -87,12 +98,105 @@ def _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out) -> tuple:
                              f"on {t.device}")
         if name not in _STRIDED and not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-        if t.requires_grad and torch.is_grad_enabled():
-            raise NotImplementedError(
-                f"{what}: {name} requires a gradient; the scan has no "
-                f"backward kernel (ROADMAP.md, queue 1, item 6.3)")
     return tuple(_row_stride(name, t) for name, t in
                  (("z", z), ("Bc", Bc), ("Cc", Cc)))
+
+
+def _launch(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out, save: bool):
+    """One forward launch on the card: (y, h_last, h_chunks or None)."""
+    strides = _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out)
+    B, S, d_in = x.shape
+    N = A_log.shape[-1]
+    y = torch.empty_like(x)
+    h_last = torch.empty_like(h0) if h_out is None else h_out
+    h_chunks = (torch.empty(B, -(-S // CHUNK), d_in, N, dtype=torch.float32,
+                            device=x.device) if save else None)
+    err = build.library().selective_scan_launch(
+        x.data_ptr(), dt.data_ptr(), z.data_ptr(), Bc.data_ptr(),
+        Cc.data_ptr(), A_log.data_ptr(), D.data_ptr(), dt_bias.data_ptr(),
+        h0.data_ptr(), y.data_ptr(), h_last.data_ptr(),
+        None if h_chunks is None else h_chunks.data_ptr(), *strides, B, S,
+        d_in, N, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "selective_scan")
+    build.LAUNCHES["selective_scan"] += 1
+    return y, h_last, h_chunks
+
+
+def selective_scan_bwd(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_chunks,
+                       dy, dh_last=None):
+    """The scan's gradient: (dx, ddt, dz, dBc, dCc, dA_log, dD, ddt_bias,
+    dh0), each in its input's type and shape, contiguous. ``h_chunks`` is
+    what the forward saved under autograd (on the card; ignored on the
+    CPU, where ``ref.selective_scan_bwd_ref`` runs); dy is y's cotangent
+    (x's type), dh_last h_last's (f32, None for zero)."""
+    if x.device.type == "cpu":
+        return _ref.selective_scan_bwd_ref(x, dt, z, Bc, Cc, A_log, D,
+                                           dt_bias, h0, dy, dh_last)
+    if dh_last is not None:
+        dh_last = dh_last.contiguous()
+    # dh_last takes h_out's checks: (B, d_in, N) f32 on x's device
+    strides = _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, dh_last)
+    B, S, d_in = x.shape
+    N = A_log.shape[-1]
+    want = (B, -(-S // CHUNK), d_in, N)
+    if (h_chunks is None or tuple(h_chunks.shape) != want
+            or h_chunks.dtype != torch.float32 or not h_chunks.is_contiguous()
+            or h_chunks.device != x.device):
+        raise ValueError(f"selective_scan_bwd: h_chunks must be {want} "
+                         f"float32 contiguous on {x.device}")
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device):
+        raise ValueError(f"selective_scan_bwd: dy must be {tuple(x.shape)} "
+                         f"{x.dtype} on {x.device}, got {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device}")
+    dy = dy.contiguous()
+    lib = build.library()
+    outs = (torch.empty_like(x), torch.empty_like(dt),
+            torch.empty(x.shape, dtype=x.dtype, device=x.device),
+            torch.empty(B, S, N, device=x.device),
+            torch.empty(B, S, N, device=x.device), torch.empty_like(A_log),
+            torch.empty_like(D), torch.empty_like(dt_bias),
+            torch.empty_like(h0))
+    scratch = torch.empty(lib.selective_scan_bwd_scratch_floats(B, S, d_in,
+                                                                N),
+                          dtype=torch.float32, device=x.device)
+    err = lib.selective_scan_bwd_launch(
+        x.data_ptr(), dt.data_ptr(), z.data_ptr(), Bc.data_ptr(),
+        Cc.data_ptr(), A_log.data_ptr(), D.data_ptr(), dt_bias.data_ptr(),
+        h_chunks.data_ptr(), dy.data_ptr(),
+        None if dh_last is None else dh_last.data_ptr(),
+        *(t.data_ptr() for t in outs), scratch.data_ptr(), *strides, B, S,
+        d_in, N, _DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(err, "selective_scan_bwd")
+    build.LAUNCHES["selective_scan_bwd"] += 1
+    return outs
+
+
+class _SelectiveScan(torch.autograd.Function):
+    """The scan with its gradient through the kernels (or, on the CPU,
+    their plain versions)."""
+
+    @staticmethod
+    def forward(ctx, x, dt, z, Bc, Cc, A_log, D, dt_bias, h0):
+        if x.device.type == "cpu":
+            y, h_last = _ref.selective_scan_ref(x, dt, z, Bc, Cc, A_log, D,
+                                                dt_bias, h0)
+            h_chunks = None
+        else:
+            y, h_last, h_chunks = _launch(x, dt, z, Bc, Cc, A_log, D,
+                                          dt_bias, h0, None, save=True)
+        ctx.save_for_backward(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0,
+                              h_chunks)
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        *inputs, h_chunks = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(inputs[0])
+        return selective_scan_bwd(*inputs, h_chunks, dy, dh_last)
 
 
 def selective_scan(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
@@ -101,22 +205,16 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, z: torch.Tensor,
                    *, h_out: Optional[torch.Tensor] = None):
     """(y (B, S, d_in) in x's type, h_last (B, d_in, N) f32); h_last is
     ``h_out`` when given."""
+    args = (x, dt, z, Bc, Cc, A_log, D, dt_bias, h0)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        if h_out is not None:
+            raise ValueError("selective_scan: h_out is not taken under "
+                             "autograd")
+        return _SelectiveScan.apply(*args)
     if x.device.type == "cpu":
-        y, h = _ref.selective_scan_ref(x, dt, z, Bc, Cc, A_log, D, dt_bias,
-                                       h0)
+        y, h = _ref.selective_scan_ref(*args)
         if h_out is None:
             return y, h
         return y, h_out.copy_(h)
-    strides = _check(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, h_out)
-    B, S, d_in = x.shape
-    y = torch.empty_like(x)
-    h_last = torch.empty_like(h0) if h_out is None else h_out
-    err = build.library().selective_scan_launch(
-        x.data_ptr(), dt.data_ptr(), z.data_ptr(), Bc.data_ptr(),
-        Cc.data_ptr(), A_log.data_ptr(), D.data_ptr(), dt_bias.data_ptr(),
-        h0.data_ptr(), y.data_ptr(), h_last.data_ptr(), *strides, B, S,
-        d_in, A_log.shape[-1], _DTYPES[x.dtype],
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "selective_scan")
-    build.LAUNCHES["selective_scan"] += 1
+    y, h_last, _ = _launch(*args, h_out, save=False)
     return y, h_last

@@ -66,9 +66,10 @@ algorithms and with FedAvg (``--algorithm fedavg``: its gradient goes
 through the flash backward at MLA's head dims (192, 128)); FedLoRA raises
 NotImplementedError there, since its targets (wq, wv) are not in an MLA
 attention (ROADMAP.md, queue 1, item 6). The Mamba hybrid
-(jamba-1.5-large-398b) trains with the zeroth-order algorithms only:
-FedAvg and FedLoRA raise NotImplementedError, the selective scan having
-no backward yet (ROADMAP.md, queue 1, item 6.3).
+(jamba-1.5-large-398b) trains with the zeroth-order algorithms and with
+FedAvg and FedLoRA (``--algorithm fedavg|fedlora``: its gradient goes
+through the selective scan's backward kernel; FedLoRA's adapters are the
+attention block's wq and wv).
 """
 from __future__ import annotations
 

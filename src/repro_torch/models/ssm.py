@@ -11,8 +11,11 @@ is the selective-scan kernel (``kernels/selective_scan.py``), which runs
 the whole sequence in one launch: the reference's chunked associative
 scan (``cfg.mamba.chunk``, its TPU form) computes the same recurrence in
 another order, so the port has no chunk. The dt_proj product runs in full
-f32 (TF32 off), as the reference's f32 product does. The scan has no
-backward kernel: the first-order algorithms refuse a Mamba model.
+f32 (TF32 off), as the reference's f32 product does. Under autograd (the
+first-order rounds) the scan's gradient is its backward kernel
+(``csrc/selective_scan_bwd.cu``; on the CPU ``ref.selective_scan_bwd_ref``),
+and the projections, the conv and the slices around it are PyTorch's
+autograd.
 """
 from __future__ import annotations
 

@@ -16,9 +16,9 @@ Everything in the training half is differentiable with ``torch.autograd``
 (the first-order baselines take gradients of ``loss_fn``): attention and
 RMSNorm through their kernels' autograd Functions, the bf16 head product
 on the card through ``_LogitsF32``; MLA's attention through the flash
-backward at its head dims (192, 128). A Mamba block's selective scan has
-no backward (the first-order rounds refuse such a model; the ZO rounds
-need none). An MoE block returns its
+backward at its head dims (192, 128); a Mamba block's selective scan
+through its backward kernel (``kernels/selective_scan.py``). An MoE
+block returns its
 load-balancing aux loss beside x; the client's sum rides the cut in
 ``h["aux"]`` and the server adds ``MOE_AUX_COEF`` times the whole sum to
 its loss.

@@ -52,7 +52,13 @@ silu(z) gate, so an f32 difference that moves the first rounding moves
 the product by up to two ulps), h_last as in f32. Two launches are
 bit-equal, an h_out that is h0 itself gives the same results, and z, B
 and C read in place as strided views equal contiguous copies. jamba
-SMOKE serving, card against CPU, as the other archs.
+SMOKE serving, card against CPU, as the other archs. The scan's backward
+kernel against ref.selective_scan_bwd_ref at N 4 and 16, S 1, 31, 32,
+33 and 300, B 2, a ragged d_in, nonzero h0 and dh_last, z, B and C as
+strided views: each gradient within 1e-5 (f32) or 2^-7 (bf16) of its
+largest magnitude; two calls bit-equal; the autograd path on the card
+against the CPU's within the same; small f32 FedAvg and FedLoRA rounds
+of jamba SMOKE, card against CPU, within 1e-4.
 """
 import numpy as np
 import pytest
@@ -759,19 +765,24 @@ def fo_small_round(algorithm, optimizer, device, arch=None):
 
 @pytest.mark.parametrize("algorithm,optimizer,arch", [
     ("fedavg", "sgd", None), ("fedavg", "adamw", None),
-    ("fedlora", "sgd", None), ("fedavg", "sgd", "deepseek-v2-236b")])
+    ("fedlora", "sgd", None), ("fedavg", "sgd", "deepseek-v2-236b"),
+    ("fedavg", "sgd", "jamba-1.5-large-398b"),
+    ("fedlora", "sgd", "jamba-1.5-large-398b")])
 def test_fo_round_card_matches_cpu(cuda, algorithm, optimizer, arch):
     """One small f32 first-order round on the card (the forward and
     backward kernels; on deepseek-v2-236b the flash backward at (192, 128)
-    and the rmsnorm backward of the MLA norms) against the same round on
-    the CPU (their plain versions): the new tree within 1e-4."""
+    and the rmsnorm backward of the MLA norms; on jamba-1.5-large-398b the
+    selective scan's backward at d_state 4) against the same round on the
+    CPU (their plain versions): the new tree within 1e-4."""
     before = dict(build.LAUNCHES)
     got = fo_small_round(algorithm, optimizer, cuda, arch)
     keys = ("flash_attention_bwd",)
     if algorithm == "fedlora":
         keys += ("rmsnorm_bwd",)
-    if arch is not None:
+    if arch == "deepseek-v2-236b":
         keys += ("rmsnorm_bwd", "flash_attention_bwd (192, 128)")
+    if arch == "jamba-1.5-large-398b":
+        keys += ("rmsnorm_bwd", "selective_scan_bwd")
     for k in keys:
         assert build.LAUNCHES[k] > before.get(k, 0)
     want = fo_small_round(algorithm, optimizer, torch.device("cpu"), arch)
@@ -1191,23 +1202,25 @@ def test_selective_scan_plan_matches_the_wrapper(cuda):
     """Each instance's launch geometry from the library: its lanes a
     channel equal the wrapper's LANES (the order of the sum over n that
     tests/test_torch_scan_order.py models), the lanes times the channels
-    make the threads, and an SM holds at least one block."""
+    make the threads, the chunk is the wrapper's CHUNK (the h_chunks it
+    allocates for the backward), and an SM holds at least one block."""
     import ctypes
+    from repro_torch.kernels.selective_scan import CHUNK
     for N in (4, 16):
         for code in (0, 1):
             plan = (ctypes.c_int * 7)()
             assert build.library().selective_scan_plan(N, code, plan) == 0
             G, channels, chunk, threads, regs, smem, blocks = plan
             assert G == LANES[N] and G * channels == threads
-            assert chunk % G == 0 and regs > 0 and smem > 0 and blocks >= 1
+            assert chunk == CHUNK and chunk % G == 0
+            assert regs > 0 and smem > 0 and blocks >= 1
     plan = (ctypes.c_int * 7)()
     assert build.library().selective_scan_plan(8, 0, plan) != 0
 
 
 def test_selective_scan_raises_on_what_it_does_not_take(cuda):
     """A wrong dtype, a non-contiguous input, a mismatched shape, an input
-    on the CPU, d_state 8 (no kernel instance), and an input that requires
-    a gradient (there is no backward kernel) raise."""
+    on the CPU and d_state 8 (no kernel instance) raise."""
     args = list(scan_inputs(1, 8, 64, 4, torch.float32, cuda))
     with pytest.raises(TypeError):
         selective_scan(args[0].half(), *args[1:])
@@ -1229,7 +1242,144 @@ def test_selective_scan_raises_on_what_it_does_not_take(cuda):
         selective_scan(*bad)
     with pytest.raises(ValueError, match="d_state 8"):
         selective_scan(*scan_inputs(1, 8, 64, 8, torch.float32, cuda))
-    bad = list(args)
-    bad[0] = args[0].clone().requires_grad_()
-    with pytest.raises(NotImplementedError, match="item 6.3"):
-        selective_scan(*bad)
+
+
+# ---------------------------------------------------------------------------
+# the selective scan's backward
+# ---------------------------------------------------------------------------
+
+def assert_scan_grads_close(got, want):
+    """Each of the nine gradients: types and shapes equal, finite, within
+    1e-5 (f32) or 2^-7 (bf16) of its largest magnitude."""
+    tol = 1e-5 if want[0].dtype == torch.float32 else 2.0 ** -7
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert bool(torch.isfinite(g.float()).all())
+        scale = float(w.float().abs().max())
+        assert float((g.float() - w.float()).abs().max()) <= tol * scale
+
+
+def scan_views(args):
+    """z, B and C as the Mamba block passes them: z the second half of a
+    (B, S, 2·d_in) tensor, B and C slices of one (B, S, 7 + 2N) tensor."""
+    x, dt, z, Bc, Cc, *rest = args
+    B, S, d_in = z.shape
+    N = Bc.shape[-1]
+    xz = torch.randn(B, S, 2 * d_in, device=z.device).to(z.dtype)
+    xz[..., d_in:] = z
+    dbl = torch.randn(B, S, 7 + 2 * N, device=Bc.device)
+    dbl[..., 7:7 + N], dbl[..., 7 + N:] = Bc, Cc
+    return (x, dt, xz[..., d_in:], dbl[..., 7:7 + N], dbl[..., 7 + N:],
+            *rest)
+
+
+def scan_cotangents(B, S, d_in, N, dtype, device, seed=9):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn(B, S, d_in, generator=g, device=device).to(dtype),
+            torch.randn(B, d_in, N, generator=g, device=device))
+
+
+@pytest.mark.parametrize("S", [1, 31, 32, 33, 300])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_matches_plain(cuda, S, N, dtype):
+    """The backward kernel on the h the forward saved at its chunk starts,
+    z, B and C as strided views, against ref.selective_scan_bwd_ref: B 2,
+    d_in 100 (the last block ragged), nonzero h0 and dh_last; S ending in
+    a part of a 32-token chunk, on one, at one token; every gradient
+    within 1e-5 (f32) or 2^-7 (bf16) of its largest magnitude. One call
+    (two launches) counted once."""
+    from repro_torch.kernels.selective_scan import (_launch,
+                                                    selective_scan_bwd)
+    args = scan_views(scan_inputs(2, S, 100, N, dtype, cuda))
+    dy, dh_last = scan_cotangents(2, S, 100, N, dtype, cuda)
+    _, _, hc = _launch(*args, None, save=True)
+    assert tuple(hc.shape) == (2, -(-S // 32), 100, N)
+    before = build.LAUNCHES["selective_scan_bwd"]
+    got = selective_scan_bwd(*args, hc, dy, dh_last)
+    assert build.LAUNCHES["selective_scan_bwd"] == before + 1
+    assert_scan_grads_close(got, ref.selective_scan_bwd_ref(*args, dy,
+                                                            dh_last))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_is_deterministic(cuda, dtype):
+    """Two calls give bit-equal gradients (no atomics: per-block partials
+    summed in block order); strided z, B and C equal contiguous copies; no
+    dh_last equals a zero one; the forward that saves chunk starts gives
+    y and h_last bit-equal to the one that does not."""
+    from repro_torch.kernels.selective_scan import (_launch,
+                                                    selective_scan_bwd)
+    args = scan_inputs(1, 300, 2048, 16, dtype, cuda)
+    dy, _ = scan_cotangents(1, 300, 2048, 16, dtype, cuda)
+    y0, h0, hc = _launch(*args, None, save=True)
+    y1, h1 = selective_scan(*args)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    one = selective_scan_bwd(*args, hc, dy, None)
+    two = selective_scan_bwd(*scan_views(args), hc, dy,
+                             torch.zeros_like(h0))
+    assert all(torch.equal(a, b) for a, b in zip(one, two))
+
+
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_autograd_card_matches_cpu(cuda, N, dtype):
+    """``selective_scan`` under autograd (every input requiring a
+    gradient) on the card, its backward the kernel, against the same on
+    the CPU, where the plain forward and backward run: y and h_last as the
+    forward's tolerance, each input's gradient within 1e-5 (f32) or 2^-7
+    (bf16) of its largest magnitude; one forward and one backward launch.
+    With h_out under autograd it raises."""
+    args = scan_inputs(2, 40, 256, N, dtype, cuda)
+    dy, dh_last = scan_cotangents(2, 40, 256, N, dtype, cuda)
+    outs = {}
+    for d in (cuda, torch.device("cpu")):
+        ins = [t.detach().to(d).requires_grad_() for t in args]
+        before = dict(build.LAUNCHES)
+        y, h = selective_scan(*ins)
+        grads = torch.autograd.grad((y, h), ins, (dy.to(d), dh_last.to(d)))
+        n = {k: build.LAUNCHES[k] - before.get(k, 0)
+             for k in ("selective_scan", "selective_scan_bwd")}
+        outs[d.type] = (y.detach().cpu(), h.detach().cpu(),
+                        [g.cpu() for g in grads], n)
+    (yc, hc_, gc, nc), (yg, hg, gg, ng) = outs["cuda"], outs["cpu"]
+    assert nc == {"selective_scan": 1, "selective_scan_bwd": 1}
+    assert ng == {"selective_scan": 0, "selective_scan_bwd": 0}
+    assert_scan_close((yc, hc_), (yg, hg))
+    assert_scan_grads_close(gc, gg)
+    ins = [t.detach().requires_grad_() for t in args]
+    with pytest.raises(ValueError, match="h_out"):
+        selective_scan(*ins[:-1], ins[-1], h_out=torch.empty_like(args[-1]))
+
+
+def test_selective_scan_without_grad_saves_nothing(cuda):
+    """Under no_grad and inference_mode an input that requires a gradient
+    takes the forward alone (the ZO and serving paths' counts): one
+    forward launch, no backward, y without a grad_fn."""
+    args = [t.clone().requires_grad_() for t in
+            scan_inputs(1, 40, 256, 16, torch.bfloat16, cuda)]
+    for ctx in (torch.no_grad, torch.inference_mode):
+        before = dict(build.LAUNCHES)
+        with ctx():
+            y, _ = selective_scan(*args)
+        assert y.grad_fn is None
+        assert build.LAUNCHES["selective_scan"] == \
+            before.get("selective_scan", 0) + 1
+        assert build.LAUNCHES["selective_scan_bwd"] == \
+            before.get("selective_scan_bwd", 0)
+
+
+def test_selective_scan_bwd_plan(cuda):
+    """Each backward instance's geometry from the library: the forward's
+    lanes a channel, a (token, channel) a thread in a sub-chunk, and every
+    block of d_in 16384 at B = 1 resident at once (4 an SM on 132 SMs)."""
+    import ctypes
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for N in (4, 16):
+        for code in (0, 1):
+            plan = (ctypes.c_int * 7)()
+            assert build.library().selective_scan_bwd_plan(N, code, plan) == 0
+            G, channels, sub, threads, regs, smem, blocks = plan
+            assert G == LANES[N] and G * channels == threads
+            assert sub * channels == threads and regs > 0 and smem > 0
+            assert blocks * sms >= 16384 // channels

@@ -46,7 +46,6 @@ from repro.models import untie_params as j_untie
 from repro_torch.configs import SFLConfig as TSFL
 from repro_torch.configs import card_smoke_config
 from repro_torch.configs import get_config as t_get_config
-from repro_torch.core import baselines as tbase
 from repro_torch.core import prng
 from repro_torch.core.splitfed import mu_splitfed_round
 from repro_torch.kernels import ops, ref
@@ -57,7 +56,6 @@ from repro_torch.models import (client_forward, decode_step, init_cache,
                                 prefill, server_forward, split_dims,
                                 split_params, ssm, untie_params)
 from repro_torch.models.convert import from_jax_params, to_jax_params
-from repro_torch.optim.lora import init_lora
 from repro_torch.utils import tree
 
 ARCH = "jamba-1.5-large-398b"
@@ -450,22 +448,6 @@ def test_driver_and_serve_main_run_jamba_on_the_cpu(capsys):
                        "--batch", "2", "--prompt-len", "12", "--gen", "3"])
     assert tuple(toks.shape) == (2, 3)
     assert "generated (2, 3)" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("algorithm", ["fedavg", "fedlora"])
-def test_first_order_rounds_refuse_a_mamba_model(algorithm):
-    """The selective scan has no backward: FedAvg and FedLoRA on jamba
-    raise NotImplementedError naming ROADMAP queue 1 item 6.3 (on the CPU
-    as on the card)."""
-    _, tcfg, _, tp = _model()
-    _, tb = _batches()
-    mask = torch.ones(2)
-    with pytest.raises(NotImplementedError, match="queue 1, item 6.3"):
-        if algorithm == "fedavg":
-            tbase.fedavg_round(tcfg, tp, tb, mask, 1e-2)
-        else:
-            lora = init_lora(tcfg, tp, 4, prng.PRNGKey(0))
-            tbase.fedlora_round(tcfg, tp, lora, tb, mask, 1e-2)
 
 
 def test_converter_round_trips_jamba_parameters_and_cache():

@@ -11,11 +11,14 @@ Each source is built with nvcc (``-Xptxas -v``, its scan kernels'
 registers, shared memory and spills printed) into
 ``build/repro_torch/scan_ab/`` and called through its own
 ``selective_scan_launch`` (a source without ``z_stride`` takes the
-signature without the row strides). At path 10's three shapes, (1, 512,
-16384, 16), (1, 4096, 16384, 16) and one token (chip_smoke.py's
-SCAN_CASES), it prints whether each source's y and h_last lie within
-chip_smoke.py's ``check_scan`` tolerance of the plain version, then each
-one's device time per call (torch.profiler, cycling through copies of the
+signature without the row strides, one without ``h_chunks`` the signature
+without that pointer; a source with it is called with a null one, the
+path that saves nothing). At path 10's three shapes, (1, 512, 16384, 16),
+(1, 4096, 16384, 16) and one token (chip_smoke.py's SCAN_CASES), it
+prints whether each source's y and h_last lie within chip_smoke.py's
+``check_scan`` tolerance of the plain version (with an older source, also
+whether the two sources' y and h_last are bit-equal), then each one's
+device time per call (torch.profiler, cycling through copies of the
 inputs past the 50 MB L2, as chip_smoke.py does).
 
 With an older source: bf16 and f32, in the order old, new, new, old,
@@ -132,10 +135,11 @@ class Scan:
     def __init__(self, so: Path, text: str):
         self.lib = ctypes.CDLL(str(so))
         self.strided = "z_stride" in text
+        self.chunks = "h_chunks" in text
         v, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         self.lib.selective_scan_launch.argtypes = (
-            (v,) * 11 + ((ll,) * 3 if self.strided else ()) + (i,) * 5
-            + (v,))
+            (v,) * (12 if self.chunks else 11)
+            + ((ll,) * 3 if self.strided else ()) + (i,) * 5 + (v,))
 
     def __call__(self, args):
         x, dt, z, Bc, Cc, A_log, D, bias, h0 = args
@@ -146,7 +150,8 @@ class Scan:
         err = self.lib.selective_scan_launch(
             x.data_ptr(), dt.data_ptr(), z.data_ptr(), Bc.data_ptr(),
             Cc.data_ptr(), A_log.data_ptr(), D.data_ptr(), bias.data_ptr(),
-            h0.data_ptr(), y.data_ptr(), h.data_ptr(), *strides, B, S, d_in,
+            h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+            *((None,) if self.chunks else ()), *strides, B, S, d_in,
             N, BF16 if x.dtype == torch.bfloat16 else F32,
             torch.cuda.current_stream().cuda_stream)
         build.check(err, "selective_scan A/B")
@@ -207,6 +212,10 @@ def main() -> int:
             want = ref.selective_scan_ref(*args)
             for n, scan in scans.items():
                 print(f"{what} {n}: {agrees(scan, args, want)}")
+            if not sweep:
+                a, b = scans["old"](args), scans["new"](args)
+                print(f"{what}: old and new y and h_last bit-equal "
+                      f"{torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])}")
             del want
             nbytes = chip_smoke.scan_bytes(B, S, d_in, N, dtype.itemsize)
             sets = [args] + [tuple(t.clone() for t in args)
