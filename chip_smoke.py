@@ -61,7 +61,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      (c)'s round shape, at 4096 tokens and at the card SMOKE's d_state 4,
      f32 and bf16, from a nonzero h0 and dh_last, each gradient within
      1e-5 (f32) or 2^-7 (bf16) of its largest magnitude, two calls
-     bit-equal and z, B and C read in place;
+     bit-equal and z, B and C read in place; its geometry first (cluster
+     size, barriers a chunk, registers, shared memory, blocks an SM);
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
@@ -282,8 +283,9 @@ def scan_bwd_mufu_ops(N: int) -> int:
     channel): N exponentials for the decays exp(δ·A) (h recomputed once),
     2 for softplus (exp, log1p), 1 for sigmoid(v) (a reciprocal beside
     softplus's exp) and 2 for silu'(z) (exp, reciprocal). The kernel
-    issues N more (it recomputes h twice) and 2 more (sigmoid(v)'s
-    exponential, silu(z)'s division)."""
+    issues about N more (it recomputes h twice, but for each chunk's last
+    sub-chunk) and 2 more (silu(z)'s exponential and reciprocal again for
+    dz)."""
     return N + 5
 
 
@@ -1578,7 +1580,8 @@ def phase_selective_scan_bwd(dev) -> dict:
     (both launches, device_ms over copies of the inputs past L2), the
     plain version's by CUDA events (one call); the bound from
     ``scan_bwd_bytes`` and ``scan_bwd_mufu_ops``; no PyTorch call
-    computes it. First each instance's geometry (``selective_scan_bwd_plan``).
+    computes it. First each instance's geometry (``selective_scan_bwd_plan``:
+    cluster size, barriers a chunk, registers, shared memory, blocks an SM).
     Returns the round case's numbers (bf16), with the 4096-token case's
     under "tokens_4096"."""
     import ctypes
@@ -1587,16 +1590,20 @@ def phase_selective_scan_bwd(dev) -> dict:
                                                     selective_scan_bwd)
     for N in (4, 16):
         for dt_code, dt_name in ((0, "f32"), (1, "bf16")):
-            plan = (ctypes.c_int * 7)()
+            plan = (ctypes.c_int * 10)()
             build.check(build.library().selective_scan_bwd_plan(
                 N, dt_code, plan), "selective_scan_bwd_plan")
-            G, cb, sub, threads, regs, smem, blocks = plan
+            (G, cb, sub, threads, regs, smem, blocks, cluster, barriers,
+             clusters) = plan
             require(G == LANES[N], f"selective_scan_bwd N = {N}: {G} lanes, "
                     f"the forward's {LANES[N]}")
             print(f"selective_scan_bwd_kernel<{dt_name}, {N}, {G}>: {cb} "
                   f"channels x {G} lanes = {threads} threads a block, "
-                  f"{sub}-token sub-chunks, {regs} registers, {smem} bytes "
-                  f"of dynamic shared memory, {blocks} blocks an SM")
+                  f"{sub}-token sub-chunks, clusters of {cluster} blocks, "
+                  f"{barriers} block barriers and 1 cluster barrier a "
+                  f"32-token chunk, {regs} registers, {smem} bytes of "
+                  f"dynamic shared memory, {blocks} blocks an SM, {clusters} "
+                  f"clusters at once ({clusters * cluster} blocks)")
     res = {"err": 0.0, "library_ms": None}
     for label, (B, S, d_in, N) in SCAN_BWD_CASES:
         for dtype in (torch.float32, torch.bfloat16):

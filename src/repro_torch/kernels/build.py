@@ -122,9 +122,10 @@ SIGNATURES = {
     + (ctypes.c_int,) * 5 + (_VOIDP,),
     # B, S, d_in, N: the floats of a backward launch's scratch
     "selective_scan_bwd_scratch_floats": (ctypes.c_int,) * 4,
-    # N, dtype, plan (int[7]): the backward instance's lanes, channels a
+    # N, dtype, plan (int[10]): the backward instance's lanes, channels a
     # block, tokens a sub-chunk, threads, registers, dynamic shared memory,
-    # blocks an SM
+    # blocks an SM, blocks a cluster, block barriers a chunk, clusters the
+    # card holds at once
     "selective_scan_bwd_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
     # N, dtype, plan (int[7]): the instance's lanes, channels a block,
     # tokens a chunk, threads, registers, shared memory, blocks an SM

@@ -19,10 +19,10 @@
 //   dC_t = Σ_c do_t·h_t, dB_t = Σ_c G_t·δ_t·x_t,
 //   dδ = Σ_n G·h_{t-1}·a·A + x·Σ_n G·B, dA = Σ_t G·h_{t-1}·a·δ,
 //   ddt = dδ·sigmoid(v), ddt_bias = Σ ddt, dA_log = dA·A.
-// Sums over c (dB, dC) run over the block's channels in a fixed order and
-// then over the blocks in block order (the second launch, which also sums
-// dA_log, dD and ddt_bias over batch rows): no atomics, two launches are
-// bit-equal.
+// Sums over c (dB, dC) run over a warp's channels, then the block's warps,
+// then a cluster's blocks, then the clusters (the second launch, which also
+// sums dA_log, dD and ddt_bias over batch rows), each in a fixed order: no
+// atomics, two launches are bit-equal.
 //
 // Bound on this card: per (token, channel) it reads x, z and dy in the
 // model type and dt in f32, and writes dx and dz in the model type and
@@ -30,85 +30,135 @@
 // transcendentals for softplus, 1 for sigmoid(v) and 2 for silu'(z) on the
 // SFU (MUFU, 16 a clock an SM): at N = 16 the SFU bounds it
 // (chip_smoke.py: scan_bwd_mufu_ops, scan_bwd_bytes). This kernel issues
-// about 2N + 8: h is recomputed twice (below).
+// about 2N + 7: h is recomputed twice (below; each chunk's last sub-chunk
+// once), and silu(z)'s exponential and reciprocal are taken again for dz.
 //
 // Design. The forward under autograd saved h at the start of each
 // kChunk-token chunk (selective_scan.cu, kSave). Blocks and lanes are the
-// forward's: thread (c, g) owns states [g·N/G, (g+1)·N/G) of channel c, a
-// block kThreads / G channels of one batch row, A in registers. Each block
-// walks the chunks last to first, carrying G (dh) in registers, in phases
-// split by block barriers:
-//   1. stage: δ and δ·x once per (token, channel), the chunk's B and C
-//      rows, into shared memory (the forward's arithmetic);
-//   2. recompute: the chunk's h from its saved start with the forward's
-//      exact arithmetic (the same expf/log1pf, scan_step, the partials of
-//      Σ h·C in its lane order), so h and o equal the forward's bit for
-//      bit; h at each kSub-token sub-chunk's start kept in shared memory;
-//   3. gate: do and dz a (token, channel) over the block, do into shared
-//      memory, dz stored, Σ do·x in a register;
-//   4. for each sub-chunk, last first: its h and decays recomputed again
-//      from the sub-chunk's start into registers, then the reverse pass
-//      over its tokens carrying dh: each lane's terms of dB and dC and its
-//      partials of dδ and of Σ_n G·B into shared memory; barrier; then
-//      dB and dC of the sub-chunk summed over the block's channels (a
-//      thread an output) into per-block partials, and dx, ddt and
-//      Σ ddt a (token, channel) over the block (the G lanes' partials in
-//      lane order); barrier.
-// dA sums over tokens in registers, dD and ddt_bias too (their G threads
-// of a channel added in order at the end); dh0 is the carried G.
+// forward's: thread (c, g) owns states [g·N/G, (g+1)·N/G) of channel c, the
+// G lanes of a channel adjacent in one warp, a block kThreads / G channels
+// of one batch row, A in registers. Each block walks the chunks last to
+// first, carrying G (dh) in registers:
+//   1. stage: thread (t, o) takes row t of the chunk, channels [8o, 8o + 8),
+//      from shared memory, where its own cp.async copies put them (so it
+//      waits for them alone), and computes δ = softplus(v) (the forward's
+//      arithmetic), do (silu(z) beside it) and sigmoid(v) from softplus's
+//      exp(-|v|): {δ, do} into their own array, sigmoid(v) over dt in
+//      place. One block barrier.
+//   2. recompute: the chunk's h from its saved start in the forward's
+//      grouped form (a group's exponentials first, then its recurrence),
+//      with scan_step and the precise expf, so h equals the forward's bit
+//      for bit, up to the last sub-chunk's start (that sub-chunk recomputes
+//      itself); each thread keeps its h at every kSub-token sub-chunk start
+//      in its own slots of shared memory, which it alone reads back: no
+//      barrier.
+//   3. for each sub-chunk, last first: its h and decays recomputed from the
+//      slot into registers, then the reverse pass over its tokens carrying
+//      dh. Per token each lane's 2N/G terms of dB and dC are summed over
+//      the warp's channels by a shuffle reduce-scatter (a lane ends with
+//      one output), and its partials of dδ, Σ_n G·B and Σ_n h·C (o; the
+//      forward's partials, summed over the lanes as a tree) over the
+//      channel's G lanes by another, lane g ending with the sub-chunk's
+//      token g, whose dx, ddt and dz it writes (x, z, dy and sigmoid(v)
+//      read from the stage). One block barrier a sub-chunk: then the
+//      block's warps' dB and dC are added in warp order into the chunk's
+//      block partial (a thread an output; two buffers alternate, so no
+//      second barrier). After the last sub-chunk the stage and the chunk
+//      start's slot, which no thread reads again, are refilled with the
+//      next chunk's (the one before it) by cp.async, in 16-byte pieces
+//      where the rows are aligned: they land while the block passes the
+//      cluster barrier and the next stage begins.
+//   4. after the next chunk's staging barrier: the cluster's blocks wait at
+//      a cluster barrier (arrived at when each finished the chunk), and
+//      rank q adds slice q of the chunk's block partials over the cluster's
+//      ranks in order through distributed shared memory into one partial a
+//      cluster; two buffers alternate, so this one split arrive/wait a
+//      chunk is all the cluster synchronises.
+// dA sums over tokens in registers, dD and ddt_bias over a lane's tokens
+// (their G lanes of a channel added in order at the end); dh0 is the
+// carried G. The grid's x dimension is rounded up to whole clusters; a
+// block past d_in computes on zeros and writes none of its channels.
+//
+// What tools/scan_bwd_ab.py --sweep chose (PERF.md §6, PR 31): clusters of
+// 2, since at 4 blocks an SM the card holds only 124 clusters of 4 and 62
+// of 8 (512 blocks need 128 and 64: the rest run in a second wave, 40%
+// slower); the sums by shuffles, which beat a transpose through shared
+// memory; one refill at the chunk's end, which beat refilling each
+// sub-chunk's rows as they free (copy code inside the loop costs
+// registers and spills); 4-token sub-chunks (8 spill).
 //
 // Traps:
-//  - The forward needs every block resident (each runs the whole
-//    sequence); this kernel's blocks are independent, but at B = 1 and
-//    d_in 16384 its 512 blocks of 128 threads fill 132 SMs only at 4 an SM:
-//    a second wave doubles the time. kBwdMinBlocks = 4 caps the registers
-//    at 128 a thread; the 53,248 bytes of dynamic shared memory a block
-//    (N = 16) leave 4 blocks in the SM's 228 KB.
-//  - h for every token of a 32-token chunk, 32 channels x 16 states, is 64
-//    KB a block, more than a quarter of the SM: phase 4 recomputes h a
-//    kSub = 4-token sub-chunk at a time into registers (5 x N/G values of
-//    h, 4 x N/G decays), from starts that phase 2 kept, paying N more
-//    exponentials a (token, channel).
+//  - Every block runs the whole sequence: at B = 1 and d_in 16384 the 512
+//    blocks of 128 threads fill 132 SMs only at 4 an SM, so the registers
+//    are capped at 128 (kBwdMinBlocks) and shared memory must stay within
+//    56 KB a block. A chunk's h (64 KB a block at N = 16) does not fit:
+//    h is recomputed twice, the chunk once (keeping the 8 sub-chunk starts,
+//    16 KB) and each sub-chunk into registers. The stage is not double
+//    buffered: a second stage would not fit beside them.
+//  - The recompute must be the forward's (scan_step, expf).
 //  - z, B and C arrive as strided views (a half of in_proj's output,
 //    slices of x_proj's), read through their row strides as in the
-//    forward; dx, ddt, dz, dB and dC are written contiguous.
-//  - The per-block partials of dB and dC are (B, S, blocks, 2N) f32: 268 MB
-//    at (1,4096,16384,16), written once and read once by the second launch.
+//    forward; dx, ddt, dz, dB and dC are written contiguous. The stage is
+//    copied in 16-byte pieces where every row and pointer allows (d_in and
+//    z's stride multiples of 8, B's and C's of 4), else element by element
+//    (bf16 then through registers).
+//  - The per-cluster partials of dB and dC are (B, S, clusters, 2N) f32:
+//    134 MB at (1,4096,16384,16) with clusters of 2, written once and read
+//    once by the second launch (per-block partials, PR 30's, were 268 MB).
 // Every output is computed (the autograd Function asks for all of them).
-// On the H100 (chip_smoke.py prints ptxas -v and selective_scan_bwd_plan)
-// the N = 16 instances hold 118 registers, the N = 4 ones 87-102, none
-// spills, and 4 blocks run an SM (5 for bf16 at N = 4).
+// chip_smoke.py prints ptxas -v and selective_scan_bwd_plan.
 
 #define SELECTIVE_SCAN_KERNEL_ONLY
 #include "selective_scan.cu"
 
+#include <cooperative_groups.h>
+
+#include <cstdint>
+
 namespace {
 
-constexpr int kSub = 4;          // tokens a reverse sub-chunk
-constexpr int kBwdMinBlocks = 4;
+namespace cg = cooperative_groups;
 
-template <int N, int G>
+constexpr int kSub = 4;           // tokens a reverse sub-chunk
+constexpr int kBwdMinBlocks = 4;  // blocks an SM the registers leave room for
+constexpr int kCluster = 2;       // blocks a cluster summing dB and dC
+constexpr int kRecGroup = 8;      // tokens a recompute group
+constexpr int kExBufs = 2;        // sub-chunks' dB/dC exchanges in flight
+
+template <typename T, int N, int G>
 struct BwdGeometry {
   using Geo = Geometry<N, G>;
   static constexpr int NS = Geo::kStates, CB = Geo::kChannels;
-  static constexpr int kSubs = kChunk / kSub;          // sub-chunks a chunk
-  static_assert(kChunk % kSub == 0, "sub-chunks");
-  // phase 4's elementwise half takes one (token, channel) a thread
-  static_assert(kSub * CB == kThreads, "a sub-chunk's (token, channel)s");
-  static constexpr int kOuts = kSub * 2 * N;          // dB, dC a sub-chunk
-  static_assert(kOuts <= kThreads, "a thread an output of dB and dC");
+  static constexpr int kWarps = kThreads / 32;
+  static constexpr int kSubs = kChunk / kSub;        // sub-chunks a chunk
+  static constexpr int kPer = kSub / G;              // tokens a lane finishes
+  static constexpr int kOct = CB / 8;               // stage: 8-channel units
+  static constexpr int V = 2 * NS;                   // a lane's dB, dC terms
+  static constexpr int kSlice = kChunk / kCluster;   // rows a cluster rank sums
+  static_assert(kSub % G == 0 && kChunk % kSub == 0, "sub-chunks");
+  static_assert(kRecGroup % kSub == 0 && kChunk % kRecGroup == 0, "groups");
+  static_assert(CB % 8 == 0 && kChunk * kOct == kThreads,
+                "a thread stages one row's 8 channels");
+  static_assert(V <= 32 / G, "a warp's channels reduce-scatter a lane's terms");
+  static_assert(kChunk % kCluster == 0, "cluster slices");
   static_assert(NS == 1 || NS % 4 == 0, "16-byte shared accesses");
-  // dynamic shared memory, in floats (each part a multiple of 4)
-  static constexpr int kDd = 2 * kChunk * CB;               // {δ, δ·x}
-  static constexpr int kBc = kChunk * 2 * N;                // B, then C
-  static constexpr int kDo = kChunk * CB;                   // do
-  static constexpr int kHsub = kSubs * kThreads * NS;       // sub-starts
-  static constexpr int kRed = kSub * kThreads * 2 * NS;     // dB, dC terms
-  static constexpr int kLane = kSub * kThreads * 2;         // {dδ_a, Σ G·B}
-  static constexpr int kPart = kChunk * kThreads;           // Σ h·C parts
-  static constexpr int kUnion = kPart > kRed + kLane ? kPart : kRed + kLane;
-  static constexpr int kFloats = kDd + kBc + kDo + kHsub + kUnion;
-  static constexpr int kBytes = kFloats * 4;
+  // dynamic shared memory, in bytes, each part a multiple of 16
+  static constexpr int kX = kChunk * CB * static_cast<int>(sizeof(T));  // x
+  static constexpr int kV = kChunk * CB * 4;          // dt, then sigmoid(v)
+  static constexpr int kBc = kChunk * 2 * N * 4;      // B, then C
+  static constexpr int kDd = kChunk * CB * 8;         // {δ, do}
+  static constexpr int kHs = kSubs * kThreads * NS * 4;  // sub-chunk starts
+  // the warps' dB and dC of kExBufs sub-chunks; a barrier every half of them
+  static constexpr int kPair = kExBufs / 2;
+  static_assert(kExBufs % 2 == 0 && kSubs % kPair == 0, "exchanges");
+  static constexpr int kEx = kExBufs * kSub * kWarps * 32 * 4;
+  static constexpr int kCs = 2 * kChunk * 2 * N * 4;  // block partials
+  static constexpr int oX = 0, oZ = oX + kX, oDy = oZ + kX, oV = oDy + kX,
+                       oBc = oV + kV, oDd = oBc + kBc, oHs = oDd + kDd,
+                       oEx = oHs + kHs, oCs = oEx + kEx;
+  static constexpr int kBytes = oCs + kCs;
+  // block barriers a full chunk: the stage's and one a sub-chunk
+  static constexpr int kBarriers = 1 + kSubs / kPair;
 };
 
 template <int K>
@@ -125,9 +175,115 @@ __device__ __forceinline__ void store_shared(float* p, const float (&v)[K]) {
   }
 }
 
+// BYTES from global to shared memory, asynchronously; zeros where !valid
+// (src must still be a mapped address)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(src), "r"(valid ? 16 : 0)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// One element from global to shared memory, zero where !valid: 4 bytes
+// asynchronously, 2 bytes through registers
+template <typename E>
+__device__ __forceinline__ void copy_elem(E* dst, const E* src, bool valid) {
+  if constexpr (sizeof(E) == 4) {
+    cp_async<4>(dst, src, valid);
+  } else {
+    *dst = valid ? *src : from_f32<E>(0.0f);
+  }
+}
+
+// 4 consecutive elements of shared memory (aligned to them) as floats
+template <typename T>
+__device__ __forceinline__ void load4(float (&v)[4], const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    load_shared<4>(v, reinterpret_cast<const float*>(p));
+  } else {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    v[0] = __uint_as_float(u.x << 16);
+    v[1] = __uint_as_float(u.x & 0xffff0000u);
+    v[2] = __uint_as_float(u.y << 16);
+    v[3] = __uint_as_float(u.y & 0xffff0000u);
+  }
+}
+
+// K values to K/2 between lanes that differ in bit M: the lane with the bit
+// set keeps the upper half, its partner the lower; each kept value is the
+// keeper's plus the partner's (one lane computes each sum)
+template <int K, int M>
+__device__ __forceinline__ void halve(const float (&v)[K], float (&out)[K / 2],
+                                      int lane) {
+  const bool up = lane & M;
+#pragma unroll
+  for (int i = 0; i < K / 2; ++i) {
+    const float send = up ? v[i] : v[K / 2 + i];
+    const float keep = up ? v[K / 2 + i] : v[i];
+    out[i] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+}
+
+// The channel's G lanes' K values reduce-scattered (lane bits M, M/2, ...,
+// 1): lane g ends with values [g·K/G, (g+1)·K/G), summed over the G lanes
+template <int K, int M>
+__device__ __forceinline__ void lane_scatter(const float (&v)[K], float* out,
+                                             int lane) {
+  if constexpr (M == 0) {
+#pragma unroll
+    for (int i = 0; i < K; ++i) out[i] = v[i];
+  } else {
+    float w[K / 2];
+    halve<K, M>(v, w, lane);
+    lane_scatter<K / 2, M / 2>(w, out, lane);
+  }
+}
+
+// A lane's K terms summed over the warp's 32/G channels (lane bits 16, 8,
+// ..., G): halved while there are two or more, then all-reduced. The lane
+// ends with term (lane & (32 - 32/K)) / (32/K) of its lane group's.
+template <int G, int K, int M = 16>
+__device__ __forceinline__ float channel_sum(const float (&v)[K], int lane) {
+  if constexpr (M < G) {
+    static_assert(K == 1, "terms left over");
+    return v[0];
+  } else if constexpr (K == 1) {
+    const float w[1] = {v[0] + __shfl_xor_sync(0xffffffffu, v[0], M)};
+    return channel_sum<G, 1, M / 2>(w, lane);
+  } else {
+    float w[K / 2];
+    halve<K, M>(v, w, lane);
+    return channel_sum<G, K / 2, M / 2>(w, lane);
+  }
+}
+
 template <typename T, int N, int G>
-__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-    selective_scan_bwd_kernel(
+__global__ void __cluster_dims__(kCluster, 1, 1)
+    __launch_bounds__(kThreads, kBwdMinBlocks) selective_scan_bwd_kernel(
         const T* __restrict__ x, const float* __restrict__ dt,
         const T* __restrict__ z, long long zs, const float* __restrict__ Bc,
         long long bs, const float* __restrict__ Cc, long long cs,
@@ -137,247 +293,378 @@ __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
         T* __restrict__ dx, float* __restrict__ ddt, T* __restrict__ dz,
         float* __restrict__ dh0, float* __restrict__ part_bc,
         float* __restrict__ part_A, float* __restrict__ part_D,
-        float* __restrict__ part_bias, int S, int d_in) {
-  using Geo = Geometry<N, G>;
-  using Bwd = BwdGeometry<N, G>;
-  constexpr int NS = Bwd::NS, CB = Bwd::CB;
+        float* __restrict__ part_bias, int S, int d_in, int vec) {
+  using Bwd = BwdGeometry<T, N, G>;
+  constexpr int NS = Bwd::NS, CB = Bwd::CB, V = Bwd::V, kPer = Bwd::kPer;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float2 (*s_dd)[CB] = reinterpret_cast<float2 (*)[CB]>(smem);
-  float (*s_bc)[2 * N] = reinterpret_cast<float (*)[2 * N]>(smem + Bwd::kDd);
-  float (*s_do)[CB] =
-      reinterpret_cast<float (*)[CB]>(smem + Bwd::kDd + Bwd::kBc);
-  float* s_hsub = smem + Bwd::kDd + Bwd::kBc + Bwd::kDo;
-  float* s_u = s_hsub + Bwd::kHsub;
-  float (*s_part)[kThreads] = reinterpret_cast<float (*)[kThreads]>(s_u);
-  float* s_red = s_u;                                    // [i][tid][2·NS]
-  float2* s_lane = reinterpret_cast<float2*>(s_u + Bwd::kRed);  // [i][tid]
+  char* smem = reinterpret_cast<char*>(smem4);
+  T (*s_x)[CB] = reinterpret_cast<T (*)[CB]>(smem + Bwd::oX);
+  T (*s_z)[CB] = reinterpret_cast<T (*)[CB]>(smem + Bwd::oZ);
+  T (*s_dy)[CB] = reinterpret_cast<T (*)[CB]>(smem + Bwd::oDy);
+  float (*s_v)[CB] = reinterpret_cast<float (*)[CB]>(smem + Bwd::oV);
+  float (*s_bc)[2 * N] = reinterpret_cast<float (*)[2 * N]>(smem + Bwd::oBc);
+  float2 (*s_dd)[CB] = reinterpret_cast<float2 (*)[CB]>(smem + Bwd::oDd);
+  float* s_hs = reinterpret_cast<float*>(smem + Bwd::oHs);  // [j][tid][NS]
+  float* s_ex = reinterpret_cast<float*>(smem + Bwd::oEx);  // [b][w][i][32]
+  float* s_cs = reinterpret_cast<float*>(smem + Bwd::oCs);  // [b][t][2N]
 
-  const int tid = threadIdx.x;
-  const long long base = static_cast<long long>(blockIdx.x) * CB;
-  const long long row0 = static_cast<long long>(blockIdx.y) * S;
-  const long long n_chunks = (S + kChunk - 1) / kChunk;
-  // phases 2 and 4: channel c, lane g
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  // 32-bit indices (B·S and d_in fit, the launch checks); element offsets
+  // in global memory are taken in 64 bits where they are formed
+  const int base = blockIdx.x * CB;
+  const int row0 = blockIdx.y * S;
+  const int n_chunks = (S + kChunk - 1) / kChunk;
+  // the recompute's and reverse pass's thread: channel c, lane g
   const int cl = tid / G, g = tid % G;
-  const long long c = base + cl;
+  const int c = base + cl;
   const bool live = c < d_in;
-  // phases 1, 3 and 4's elementwise half: channel c1, slot q
-  const int c1l = tid % CB, q = tid / CB;
-  const long long c1 = base + c1l;
-  const bool live1 = c1 < d_in;
-  const long long cld = live1 ? c1 : d_in - 1;
-  const long long hrow = (static_cast<long long>(blockIdx.y) * d_in + c) * N
-                         + g * NS;
+  const float Dc = live ? Dp[c] : 0.0f;
+  // this thread's states of dh_last, dh0 and part_A
+  const auto hrow = [&] {
+    return (static_cast<long long>(blockIdx.y) * d_in + c) * N + g * NS;
+  };
   float A[NS], dh[NS], dA[NS];
 #pragma unroll
   for (int n = 0; n < NS; ++n) {
-    A[n] = live ? -expf(A_log[c * N + g * NS + n]) : 0.0f;
-    dh[n] = live && dh_last != nullptr ? dh_last[hrow + n] : 0.0f;
+    A[n] = live ? -expf(A_log[static_cast<long long>(c) * N + g * NS + n])
+                : 0.0f;
+    dh[n] = live && dh_last != nullptr ? dh_last[hrow() + n] : 0.0f;
     dA[n] = 0.0f;
   }
-  const float bias = live1 ? dt_bias[c1] : 0.0f;
-  const float Dc = live1 ? Dp[c1] : 0.0f;
   float accD = 0.0f, accBias = 0.0f;
-  const int jb = tid % (2 * N), tb = tid / (2 * N);
-  const float* bcol = jb < N ? Bc + jb : Cc + (jb - N);
-  const long long bcs = jb < N ? bs : cs;
 
-  for (long long k = n_chunks - 1; k >= 0; --k) {
-    const long long t0 = k * kChunk;
-    const int len = static_cast<int>(min(static_cast<long long>(kChunk),
-                                         S - t0));
-    // 1. δ and δ·x (the forward's stage), B and C rows
+  // Chunk k's stage rows [lo, hi) below len copied in: x, dt, z and dy of
+  // row su's 8 channels by this thread (which alone stages them), in
+  // 16-byte pieces where `vec` (aligned rows), else element by element; B
+  // and C rows by any thread
+  auto copy_rows = [&](int k, int lo, int hi, int len) {
+    const int su = tid / Bwd::kOct, c8 = 8 * (tid % Bwd::kOct);
+    const long long r0 = static_cast<long long>(row0) + k * kChunk;
+    if (su >= lo && su < hi && su < len) {
+      const long long r = r0 + su;
+      if (vec) {
+        constexpr int kE = 16 / static_cast<int>(sizeof(T));
 #pragma unroll
-    for (int kk = 0; kk < Geo::kTokens; ++kk) {
-      const int t = q + kk * G;
-      if (t < len) {
-        const long long r = row0 + t0 + t;
-        const float v = dt[r * d_in + cld] + bias;
-        const float xv = to_f32(x[r * d_in + cld]);
-        const float delta = fmaxf(v, 0.0f) + log1pf(expf(-fabsf(v)));
-        s_dd[t][c1l] = live1 ? make_float2(delta, delta * xv)
-                             : make_float2(0.0f, 0.0f);
+        for (int e = 0; e < 8; e += kE) {
+          const bool v = base + c8 + e < d_in;
+          const int cc = v ? base + c8 + e : 0;
+          cp_async<16>(&s_x[su][c8 + e], x + r * d_in + cc, v);
+          cp_async<16>(&s_z[su][c8 + e], z + r * zs + cc, v);
+          cp_async<16>(&s_dy[su][c8 + e], dy + r * d_in + cc, v);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; e += 4) {
+          const bool v = base + c8 + e < d_in;
+          const int cc = v ? base + c8 + e : 0;
+          cp_async<16>(&s_v[su][c8 + e], dt + r * d_in + cc, v);
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const bool v = base + c8 + e < d_in;
+          const int cc = v ? base + c8 + e : 0;
+          copy_elem<T>(&s_x[su][c8 + e], x + r * d_in + cc, v);
+          copy_elem<T>(&s_z[su][c8 + e], z + r * zs + cc, v);
+          copy_elem<T>(&s_dy[su][c8 + e], dy + r * d_in + cc, v);
+          copy_elem<float>(&s_v[su][c8 + e], dt + r * d_in + cc, v);
+        }
       }
     }
-#pragma unroll
-    for (int kk = 0; kk < Geo::kRows; ++kk) {
-      const int t = tb + kk * Geo::kBcRows;
-      if (t < len) s_bc[t][jb] = bcol[(row0 + t0 + t) * bcs];
+#pragma unroll 1
+    for (int e = tid; e < (hi - lo) * 2 * N; e += kThreads) {
+      const int t = lo + e / (2 * N), jb = e % (2 * N);
+      if (t < len && (!vec || jb % 4 == 0)) {
+        const long long r = r0 + t;
+        const float* src = jb < N ? Bc + r * bs + jb : Cc + r * cs + (jb - N);
+        if (vec) {
+          cp_async<16>(&s_bc[t][jb], src, true);
+        } else {
+          cp_async<4>(&s_bc[t][jb], src, true);
+        }
+      }
     }
-    __syncthreads();
-    // 2. the chunk's h from its saved start, the partials of Σ h·C, and h
-    // at each sub-chunk's start
-    {
-      float h[NS];
+  };
+  auto copy_start = [&](int k) {
+    const float* src = hs + ((static_cast<long long>(blockIdx.y) * n_chunks
+                              + k) * d_in + (live ? c : 0)) * N + g * NS;
+    cp_async<4 * NS>(s_hs + tid * NS, src, live);
+  };
+
+  // 1. δ, do and sigmoid(v) of the thread's own (token, channel)s, 4
+  // channels at a time
+  auto stage = [&](int len) {
+    const int su = tid / Bwd::kOct, c8 = 8 * (tid % Bwd::kOct);
+    if (su < len) {
+#pragma unroll
+      for (int c4 = c8; c4 < c8 + 8; c4 += 4) {
+        float v[4], zv[4], dyv[4], sg[4], dd[8];
+        load_shared<4>(v, &s_v[su][c4]);
+        load4<T>(zv, &s_z[su][c4]);
+        load4<T>(dyv, &s_dy[su][c4]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = base + c4 + e < d_in;
+          const float ve = v[e] + (ok ? __ldg(dt_bias + base + c4 + e) : 0.0f);
+          const float ev = expf(-fabsf(ve));
+          const float delta = fmaxf(ve, 0.0f) + log1pf(ev);
+          const float r = 1.0f / (1.0f + ev);
+          sg[e] = ve >= 0.0f ? r : ev * r;
+          const float gz = to_f32(from_f32<T>(zv[e] / (1.0f + expf(-zv[e]))));
+          const float dov = to_f32(from_f32<T>(dyv[e] * gz));
+          dd[2 * e] = ok ? delta : 0.0f;
+          dd[2 * e + 1] = ok ? dov : 0.0f;
+        }
+        store_shared<4>(&s_v[su][c4], sg);
+        store_shared<8>(reinterpret_cast<float*>(&s_dd[su][c4]), dd);
+      }
+    }
+  };
+
+  // 2. U tokens of the chunk from t in the forward's form; h after every
+  // kSub-th token into the slot of the sub-chunk it starts
+  float h[NS];
+  auto recompute = [&](auto u, int t) {
+    constexpr int U = decltype(u)::value;
+    float dl[U], dxv[U], b[U][NS], e[U][NS];
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      dl[i] = s_dd[t + i][cl].x;
+      dxv[i] = dl[i] * to_f32(s_x[t + i][cl]);
+      load_shared<NS>(b[i], &s_bc[t + i][g * NS]);
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) e[i][n] = expf(dl[i] * A[n]);
+    }
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
-        h[n] = live ? hs[((blockIdx.y * n_chunks + k) * d_in + c) * N
-                         + g * NS + n]
-                    : 0.0f;
+        h[n] = scan_step(e[i][n], h[n], dxv[i], b[i][n]);
       }
-      for (int t = 0; t < len; ++t) {
-        if (t % kSub == 0) {
-          store_shared<NS>(s_hsub + ((t / kSub) * kThreads + tid) * NS, h);
-        }
-        const float2 dd = s_dd[t][cl];
-        float b[NS], cc[NS];
-        load_shared<NS>(b, &s_bc[t][g * NS]);
-        load_shared<NS>(cc, &s_bc[t][N + g * NS]);
-        float acc = 0.0f;
+      if ((i + 1) % kSub == 0) {
+        store_shared<NS>(s_hs + (((t + i + 1) / kSub) * kThreads + tid) * NS,
+                         h);
+      }
+    }
+  };
+
+  // 3. sub-chunk j (tokens ts .. ts + ul - 1) of the chunk at t0: recompute,
+  // reverse pass, the warp's dB and dC into exchange j % kExBufs, dx, ddt,
+  // dz
+  auto sub = [&](auto full, int j, int t0, int ul) {
+    constexpr bool kFull = decltype(full)::value;
+    const int ts = j * kSub;
+    float hh[kSub + 1][NS], ee[kSub][NS], dl[kSub], dxv[kSub];
+    load_shared<NS>(hh[0], s_hs + (j * kThreads + tid) * NS);
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      if (kFull || i < ul) {
+        dl[i] = s_dd[ts + i][cl].x;
+        dxv[i] = dl[i] * to_f32(s_x[ts + i][cl]);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) ee[i][n] = expf(dl[i] * A[n]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kSub; ++i) {
+      if (kFull || i < ul) {
+        float b[NS];
+        load_shared<NS>(b, &s_bc[ts + i][g * NS]);
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
-          const float e = expf(dd.x * A[n]);
-          h[n] = scan_step(e, h[n], dd.y, b[n]);
-          acc = __fmaf_rn(h[n], cc[n], acc);
+          hh[i + 1][n] = scan_step(ee[i][n], hh[i][n], dxv[i], b[n]);
         }
-        s_part[t][tid] = acc;
       }
     }
-    __syncthreads();
-    // 3. the gate's backward: o as the forward forms it (the partials in
-    // lane order, then x·D), do into shared memory, dz stored
+    float da[kSub], sb[kSub], op[kSub];
+    float* ex = s_ex + ((j % kExBufs) * Bwd::kWarps + warp) * kSub * 32;
 #pragma unroll
-    for (int kk = 0; kk < Geo::kTokens; ++kk) {
-      const int t = q + kk * G;
-      if (t < len) {
-        const long long r = row0 + t0 + t;
-        float p[G];
-        load_shared<G>(p, &s_part[t][c1l * G]);
-        float o = p[0];
+    for (int i = kSub - 1; i >= 0; --i) {
+      da[i] = sb[i] = op[i] = 0.0f;
+      if (kFull || i < ul) {
+        const float2 dd = s_dd[ts + i][cl];     // δ, do
+        const float dov = dd.y, dxi = dd.x * to_f32(s_x[ts + i][cl]);
+        float b[NS], cc[NS], red[V];
+        load_shared<NS>(b, &s_bc[ts + i][g * NS]);
+        load_shared<NS>(cc, &s_bc[ts + i][N + g * NS]);
+        float a = 0.0f, s = 0.0f, o = 0.0f;
 #pragma unroll
-        for (int i = 1; i < G; ++i) o += p[i];
-        const float xv = to_f32(x[r * d_in + cld]);
-        const float zv = to_f32(z[r * zs + cld]);
-        const float dyv = to_f32(dy[r * d_in + cld]);
-        o = o + __fmul_rn(xv, Dc);
-        const float ez = expf(-zv);
-        const float gv = to_f32(from_f32<T>(zv / (1.0f + ez)));
-        const float dov = to_f32(from_f32<T>(dyv * gv));
+        for (int n = 0; n < NS; ++n) o = __fmaf_rn(hh[i + 1][n], cc[n], o);
+#pragma unroll
+        for (int n = 0; n < NS; ++n) {
+          dh[n] = fmaf(dov, cc[n], dh[n]);
+          red[n] = dxi * dh[n];                 // dB's term
+          red[NS + n] = dov * hh[i + 1][n];     // dC's term
+          s = fmaf(b[n], dh[n], s);
+          const float qn = dh[n] * hh[i][n] * ee[i][n];
+          a = fmaf(qn, A[n], a);
+          dA[n] = fmaf(qn, dd.x, dA[n]);
+          dh[n] *= ee[i][n];
+        }
+        da[i] = a;
+        sb[i] = s;
+        op[i] = o;
+        // the token's dB and dC over the warp's channels into ex[i]: lane
+        // (c', g) ends with term c' >> (3 - log2 V) of lane group g's
+        const float e = channel_sum<G, V>(red, lane);
+        if ((lane & ((32 - G) & ~(32 - 32 / V))) == 0) ex[i * 32 + lane] = e;
+      }
+    }
+    // dx, ddt and dz of lane g's tokens ts + g·kPer + i, their partials
+    // summed over the channel's G lanes by a shuffle reduce-scatter
+    float fa[kPer], fs[kPer], fo[kPer];
+    lane_scatter<kSub, G / 2>(da, fa, lane);
+    lane_scatter<kSub, G / 2>(sb, fs, lane);
+    lane_scatter<kSub, G / 2>(op, fo, lane);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int tl = g * kPer + i, t = ts + tl;
+      if ((kFull || tl < ul) && live) {
+        const long long r = static_cast<long long>(row0 + t0 + t) * d_in + c;
+        const float2 dd = s_dd[t][cl];
+        const float xv = to_f32(s_x[t][cl]), zv = to_f32(s_z[t][cl]);
+        const float dyv = to_f32(s_dy[t][cl]);
+        const float o = fo[i] + __fmul_rn(xv, Dc);
+        const float sig = 1.0f / (1.0f + expf(-zv));
         const float dgate = to_f32(from_f32<T>(dyv * to_f32(from_f32<T>(o))));
-        const float sig = 1.0f / (1.0f + ez);
-        if (live1) {
-          dz[r * d_in + c1] =
-              from_f32<T>(dgate * (sig * (1.0f + zv * (1.0f - sig))));
-          accD += dov * xv;
-        }
-        s_do[t][c1l] = live1 ? dov : 0.0f;
-      }
-    }
-    __syncthreads();
-    // 4. the sub-chunks, last first
-    const int n_subs = (len + kSub - 1) / kSub;
-    for (int j = n_subs - 1; j >= 0; --j) {
-      const int ts = j * kSub, ul = min(kSub, len - ts);
-      float hh[kSub + 1][NS], ee[kSub][NS];
-      load_shared<NS>(hh[0], s_hsub + (j * kThreads + tid) * NS);
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) {
-        if (i < ul) {
-          const float2 dd = s_dd[ts + i][cl];
-          float b[NS];
-          load_shared<NS>(b, &s_bc[ts + i][g * NS]);
-#pragma unroll
-          for (int n = 0; n < NS; ++n) {
-            ee[i][n] = expf(dd.x * A[n]);
-            hh[i + 1][n] = scan_step(ee[i][n], hh[i][n], dd.y, b[n]);
-          }
-        }
-      }
-#pragma unroll
-      for (int i = kSub - 1; i >= 0; --i) {
-        if (i < ul) {
-          const int t = ts + i;
-          const float2 dd = s_dd[t][cl];
-          const float dov = s_do[t][cl];
-          float b[NS], cc[NS], red[2 * NS];
-          load_shared<NS>(b, &s_bc[t][g * NS]);
-          load_shared<NS>(cc, &s_bc[t][N + g * NS]);
-          float da = 0.0f, sb = 0.0f;
-#pragma unroll
-          for (int n = 0; n < NS; ++n) {
-            dh[n] = fmaf(dov, cc[n], dh[n]);
-            red[n] = dd.y * dh[n];                 // dB's term
-            red[NS + n] = dov * hh[i + 1][n];      // dC's term
-            sb = fmaf(b[n], dh[n], sb);
-            const float qn = dh[n] * hh[i][n] * ee[i][n];
-            da = fmaf(qn, A[n], da);
-            dA[n] = fmaf(qn, dd.x, dA[n]);
-            dh[n] *= ee[i][n];
-          }
-          store_shared<2 * NS>(s_red + (i * kThreads + tid) * 2 * NS, red);
-          s_lane[i * kThreads + tid] = make_float2(da, sb);
-        }
-      }
-      __syncthreads();
-      // dB and dC of the sub-chunk's tokens over the block's channels
-      if (tid < Bwd::kOuts) {
-        const int i = tid / (2 * N), w = tid % (2 * N);
-        if (i < ul) {
-          const int n = w % N;
-          const int slot = (w / N) * NS + n % NS;
-          const float* src = s_red + (i * kThreads + n / NS) * 2 * NS + slot;
-          float s = 0.0f;
-#pragma unroll 8
-          for (int cc = 0; cc < CB; ++cc) s += src[cc * G * 2 * NS];
-          part_bc[((row0 + t0 + ts + i) * gridDim.x + blockIdx.x) * 2 * N
-                  + w] = s;
-        }
-      }
-      // dx, ddt: token ts + q of channel c1
-      if (q < ul && live1) {
-        const int t = ts + q;
-        const long long r = row0 + t0 + t;
-        float2 pl[G];
-#pragma unroll
-        for (int i = 0; i < G; ++i) {
-          pl[i] = s_lane[q * kThreads + c1l * G + i];
-        }
-        float da = pl[0].x, sb = pl[0].y;
-#pragma unroll
-        for (int i = 1; i < G; ++i) {
-          da += pl[i].x;
-          sb += pl[i].y;
-        }
-        const float delta = s_dd[t][c1l].x;
-        const float xv = to_f32(x[r * d_in + c1]);
-        const float v = dt[r * d_in + c1] + bias;
-        const float ddelta = fmaf(xv, sb, da);
-        const float dv = ddelta * (1.0f / (1.0f + expf(-v)));
-        dx[r * d_in + c1] = from_f32<T>(fmaf(delta, sb, s_do[t][c1l] * Dc));
-        ddt[r * d_in + c1] = dv;
+        dz[r] = from_f32<T>(dgate * (sig * (1.0f + zv * (1.0f - sig))));
+        const float dv = fmaf(xv, fs[i], fa[i]) * s_v[t][cl];
+        dx[r] = from_f32<T>(fmaf(dd.x, fs[i], dd.y * Dc));
+        ddt[r] = dv;
+        accD += dd.y * xv;
         accBias += dv;
       }
-      __syncthreads();
     }
+  };
+
+  // after the barrier that follows sub-chunk j: its block partial of dB and
+  // dC (the warps added in order) into the chunk's rows of buffer kb
+  auto block_sum = [&](int j, int kb, int ul) {
+#pragma unroll 1
+    for (int o = tid; o < kSub * 2 * N; o += kThreads) {
+      const int i = o / (2 * N), w = o % (2 * N);
+      if (i < ul) {
+        const int gw = (w % N) / NS, v = (w / N) * NS + w % NS;
+        const float* ex = s_ex
+                          + ((j % kExBufs) * Bwd::kWarps * kSub + i) * 32
+                          + v * (32 / V) + gw;
+        float s = ex[0];
+#pragma unroll
+        for (int wp = 1; wp < Bwd::kWarps; ++wp) s += ex[wp * kSub * 32];
+        s_cs[(kb * kChunk + j * kSub + i) * 2 * N + w] = s;
+      }
+    }
+  };
+
+  // 4. slice `rank` of chunk k's block partials (buffer kb, len rows)
+  // summed over the cluster's ranks in order into the cluster's partial
+  auto cluster_sum = [&](int k, int kb, int len) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int rank = blockIdx.x % kCluster, n_cl = gridDim.x / kCluster;
+#pragma unroll 1
+    for (int o = tid; o < Bwd::kSlice * 2 * N; o += kThreads) {
+      const int t = rank * Bwd::kSlice + o / (2 * N), w = o % (2 * N);
+      if (t < len) {
+        float* mine = s_cs + (kb * kChunk + t) * 2 * N + w;
+        float s = *cluster.map_shared_rank(mine, 0);
+#pragma unroll
+        for (int r = 1; r < kCluster; ++r) {
+          s += *cluster.map_shared_rank(mine, r);
+        }
+        part_bc[(static_cast<long long>(row0 + k * kChunk + t) * n_cl
+                 + blockIdx.x / kCluster) * 2 * N + w] = s;
+      }
+    }
+  };
+
+  using Full = std::integral_constant<bool, true>;
+  using Part = std::integral_constant<bool, false>;
+  {
+    const int k = n_chunks - 1;
+    copy_rows(k, 0, kChunk, static_cast<int>(S - k * kChunk));
+    copy_start(k);
+    cp_async_commit();
   }
+#pragma unroll 1
+  for (int k = n_chunks - 1; k >= 0; --k) {
+    const int t0 = k * kChunk;
+    const int len = min(kChunk, S - t0);
+    const int n_subs = (len + kSub - 1) / kSub;
+    cp_async_wait_all();
+    stage(len);
+    __syncthreads();
+    if (k + 1 < n_chunks) {  // the chunk after this one, summed
+      cluster_wait();
+      cluster_sum(k + 1, (k + 1) & 1, min(kChunk, S - t0 - kChunk));
+    }
+    load_shared<NS>(h, s_hs + tid * NS);
+    {  // up to the last sub-chunk's start: that sub-chunk recomputes itself
+      const int lr = (n_subs - 1) * kSub;
+      int t = 0;
+#pragma unroll 1
+      for (; t + kRecGroup <= lr; t += kRecGroup) {
+        recompute(std::integral_constant<int, kRecGroup>(), t);
+      }
+#pragma unroll 1
+      for (; t + kSub <= lr; t += kSub) {
+        recompute(std::integral_constant<int, kSub>(), t);
+      }
+    }
+#pragma unroll 1
+    for (int j = n_subs - 1; j >= 0; --j) {
+      const int ul = min(kSub, len - j * kSub);
+      if (ul == kSub) {
+        sub(Full(), j, t0, ul);
+      } else {
+        sub(Part(), j, t0, ul);
+      }
+      if (j % Bwd::kPair == 0) {  // the exchanges since the last barrier
+        __syncthreads();
+#pragma unroll 1
+        for (int jj = min(j + Bwd::kPair, n_subs) - 1; jj >= j; --jj) {
+          block_sum(jj, static_cast<int>(k & 1), min(kSub, len - jj * kSub));
+        }
+      }
+    }
+    if (k > 0) {  // the stage and the slot-0 start: no thread reads them again
+      copy_rows(k - 1, 0, kChunk, kChunk);
+      copy_start(k - 1);
+      cp_async_commit();
+    }
+    cluster_arrive();
+  }
+  cluster_wait();
+  cluster_sum(0, 0, min(kChunk, S));
+  cluster_arrive();  // no block leaves while another reads its shared memory
   if (live) {
 #pragma unroll
     for (int n = 0; n < NS; ++n) {
-      dh0[hrow + n] = dh[n];
-      part_A[hrow + n] = dA[n];
+      dh0[hrow() + n] = dh[n];
+      part_A[hrow() + n] = dA[n];
     }
   }
-  // dD and ddt_bias: the G threads of a channel, in slot order
-  float2* s_fin = reinterpret_cast<float2*>(s_u);        // [q][c1]
-  s_fin[q * CB + c1l] = make_float2(accD, accBias);
-  __syncthreads();
-  if (q == 0 && live1) {
-    float2 s = s_fin[c1l];
+  // dD and ddt_bias: the channel's G lanes in lane order
+  float sD = __shfl_sync(0xffffffffu, accD, lane - g);
+  float sB = __shfl_sync(0xffffffffu, accBias, lane - g);
 #pragma unroll
-    for (int i = 1; i < G; ++i) {
-      s.x += s_fin[i * CB + c1l].x;
-      s.y += s_fin[i * CB + c1l].y;
-    }
-    const long long at = static_cast<long long>(blockIdx.y) * d_in + c1;
-    part_D[at] = s.x;
-    part_bias[at] = s.y;
+  for (int i = 1; i < G; ++i) {
+    sD += __shfl_sync(0xffffffffu, accD, lane - g + i);
+    sB += __shfl_sync(0xffffffffu, accBias, lane - g + i);
   }
+  if (g == 0 && live) {
+    const long long at = static_cast<long long>(blockIdx.y) * d_in + c;
+    part_D[at] = sD;
+    part_bias[at] = sB;
+  }
+  cluster_wait();
 }
 
-// The second launch: dB and dC summed over the blocks in block order,
+// The second launch: dB and dC summed over the clusters in cluster order,
 // dA_log, dD and ddt_bias over the batch rows in order.
 __global__ void selective_scan_bwd_sum_kernel(
-    const float* __restrict__ part_bc, int blocks, long long rows, int N,
+    const float* __restrict__ part_bc, int clusters, long long rows, int N,
     const float* __restrict__ part_A, const float* __restrict__ part_D,
     const float* __restrict__ part_bias, const float* __restrict__ A_log,
     float* __restrict__ dBc, float* __restrict__ dCc,
@@ -391,9 +678,12 @@ __global__ void selective_scan_bwd_sum_kernel(
     if (i < n_bc) {
       const long long r = i / (2 * N);
       const int w = static_cast<int>(i % (2 * N));
-      const float* p = part_bc + r * blocks * 2 * N + w;
+      const float* p = part_bc + r * clusters * 2 * N + w;
       float s = 0.0f;
-      for (int k = 0; k < blocks; ++k) s += p[static_cast<long long>(k) * 2 * N];
+#pragma unroll 8
+      for (int k = 0; k < clusters; ++k) {
+        s += p[static_cast<long long>(k) * 2 * N];
+      }
       if (w < N) {
         dBc[r * N + w] = s;
       } else {
@@ -422,11 +712,18 @@ auto bwd_kernel_of() {
   return selective_scan_bwd_kernel<T, N, lanes<N>()>;
 }
 
+// blocks across d_in, rounded up to whole clusters
+template <int N>
+int bwd_blocks(int d_in) {
+  constexpr int CB = Geometry<N, lanes<N>()>::kChannels;
+  const int blocks = (d_in + CB - 1) / CB;
+  return (blocks + kCluster - 1) / kCluster * kCluster;
+}
+
 template <int N>
 long long scratch_floats(int B, int S, int d_in) {
-  constexpr int CB = Geometry<N, lanes<N>()>::kChannels;
-  const long long blocks = (d_in + CB - 1) / CB;
-  return static_cast<long long>(B) * S * blocks * 2 * N
+  return static_cast<long long>(B) * S * (bwd_blocks<N>(d_in) / kCluster)
+             * 2 * N
          + static_cast<long long>(B) * d_in * (N + 2);
 }
 
@@ -440,15 +737,21 @@ cudaError_t bwd_launch(const void* x, const void* dt, const void* z,
                        void* dA_log, void* dD, void* ddt_bias, void* dh0,
                        void* scratch, int B, int S, int d_in,
                        cudaStream_t st) {
-  using Bwd = BwdGeometry<N, lanes<N>()>;
-  constexpr int CB = Bwd::CB;
+  using Bwd = BwdGeometry<T, N, lanes<N>()>;
   const auto kernel = bwd_kernel_of<T, N>();
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd::kBytes);
   if (attr != cudaSuccess) return attr;
-  const int blocks = (d_in + CB - 1) / CB;
+  const int blocks = bwd_blocks<N>(d_in);
+  // the stage in 16-byte copies: rows and pointers 16-byte aligned
+  const auto al = [](const void* p) {
+    return reinterpret_cast<std::uintptr_t>(p) % 16 == 0;
+  };
+  const int vec = d_in % 8 == 0 && zs % 8 == 0 && bs % 4 == 0 && cs % 4 == 0
+                  && al(x) && al(z) && al(dy) && al(dt) && al(Bc) && al(Cc);
   float* part_bc = static_cast<float*>(scratch);
-  float* part_A = part_bc + static_cast<long long>(B) * S * blocks * 2 * N;
+  float* part_A = part_bc + static_cast<long long>(B) * S
+                                * (blocks / kCluster) * 2 * N;
   float* part_D = part_A + static_cast<long long>(B) * d_in * N;
   float* part_bias = part_D + static_cast<long long>(B) * d_in;
   kernel<<<dim3(blocks, B), kThreads, Bwd::kBytes, st>>>(
@@ -459,8 +762,8 @@ cudaError_t bwd_launch(const void* x, const void* dt, const void* z,
       static_cast<const float*>(hs), static_cast<const T*>(dy),
       static_cast<const float*>(dh_last), static_cast<T*>(dx),
       static_cast<float*>(ddt), static_cast<T*>(dz),
-      static_cast<float*>(dh0), part_bc, part_A, part_D, part_bias, S,
-      d_in);
+      static_cast<float*>(dh0), part_bc, part_A, part_D, part_bias, S, d_in,
+      vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long rows = static_cast<long long>(B) * S;
@@ -469,7 +772,7 @@ cudaError_t bwd_launch(const void* x, const void* dt, const void* z,
   const int sum_grid = static_cast<int>(std::min<long long>(
       (total + 255) / 256, 132LL * 16));
   selective_scan_bwd_sum_kernel<<<sum_grid, 256, 0, st>>>(
-      part_bc, blocks, rows, N, part_A, part_D, part_bias,
+      part_bc, blocks / kCluster, rows, N, part_A, part_D, part_bias,
       static_cast<const float*>(A_log), static_cast<float*>(dBc),
       static_cast<float*>(dCc), static_cast<float*>(dA_log),
       static_cast<float*>(dD), static_cast<float*>(ddt_bias), B, d_in);
@@ -503,21 +806,29 @@ cudaError_t bwd_dispatch_n(int N, const void* x, const void* dt,
 
 template <typename T, int N>
 cudaError_t bwd_plan_of(int* plan) {
-  using Bwd = BwdGeometry<N, lanes<N>()>;
+  using Bwd = BwdGeometry<T, N, lanes<N>()>;
   const auto kernel = bwd_kernel_of<T, N>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Bwd::kBytes);
   cudaFuncAttributes attr;
   if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
-  int blocks = 0;
+  int blocks = 0, clusters = 0;
   if (err == cudaSuccess) {
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &blocks, kernel, kThreads, Bwd::kBytes);
   }
+  if (err == cudaSuccess) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = Bwd::kBytes;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  }
   if (err != cudaSuccess) return err;
-  const int out[7] = {lanes<N>(), Bwd::CB, kSub, kThreads, attr.numRegs,
-                      Bwd::kBytes, blocks};
-  for (int i = 0; i < 7; ++i) plan[i] = out[i];
+  const int out[10] = {lanes<N>(), Bwd::CB, kSub, kThreads, attr.numRegs,
+                       Bwd::kBytes, blocks, kCluster, Bwd::kBarriers,
+                       clusters};
+  for (int i = 0; i < 10; ++i) plan[i] = out[i];
   return cudaSuccess;
 }
 
@@ -530,7 +841,7 @@ cudaError_t bwd_plan_of(int* plan) {
 // contiguous: dx, dz (B, S, d_in) in x's dtype, ddt (B, S, d_in) f32, dBc,
 // dCc (B, S, N) f32, dA_log (d_in, N), dD, ddt_bias (d_in,), dh0 (B, d_in,
 // N) f32; scratch: selective_scan_bwd_scratch_floats(B, S, d_in, N)
-// floats. Two launches (the second sums the first's per-block partials).
+// floats. Two launches (the second sums the first's per-cluster partials).
 // Returns cudaGetLastError() after them.
 extern "C" int selective_scan_bwd_launch(
     const void* x, const void* dt, const void* z, const void* Bc,
@@ -542,7 +853,8 @@ extern "C" int selective_scan_bwd_launch(
     void* stream) {
   if (B <= 0 || B > 65535 || S <= 0 || d_in <= 0 || z_stride < 0 ||
       bc_stride < 0 || cc_stride < 0 ||
-      static_cast<long long>(B) * S * d_in > (1LL << 40)) {
+      static_cast<long long>(B) * S * d_in > (1LL << 40) ||
+      static_cast<long long>(B) * S >= (1LL << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -563,9 +875,9 @@ extern "C" int selective_scan_bwd_launch(
   return static_cast<int>(err);
 }
 
-// The floats of a backward launch's scratch: the per-block partials of dB
-// and dC, (B, S, blocks, 2N), then dA's (B, d_in, N), dD's and ddt_bias's
-// (B, d_in) each. 0 for an N with no instance.
+// The floats of a backward launch's scratch: the per-cluster partials of
+// dB and dC, (B, S, clusters, 2N), then dA's (B, d_in, N), dD's and
+// ddt_bias's (B, d_in) each. 0 for an N with no instance.
 extern "C" long long selective_scan_bwd_scratch_floats(int B, int S, int d_in,
                                                        int N) {
   if (N == 4) return scratch_floats<4>(B, S, d_in);
@@ -573,9 +885,11 @@ extern "C" long long selective_scan_bwd_scratch_floats(int B, int S, int d_in,
   return 0;
 }
 
-// The backward's geometry of the (N, dtype) instance into plan[7]: lanes a
+// The backward's geometry of the (N, dtype) instance into plan[10]: lanes a
 // channel, channels a block, tokens a reverse sub-chunk, threads a block,
-// registers a thread, dynamic shared memory a block (bytes), blocks an SM.
+// registers a thread, dynamic shared memory a block (bytes), blocks an SM,
+// blocks a cluster, block barriers a full chunk (the cluster's one split
+// barrier a chunk besides), and the clusters the card holds at once.
 extern "C" int selective_scan_bwd_plan(int N, int dtype, int* plan) {
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == 0 && N == 4) err = bwd_plan_of<float, 4>(plan);

@@ -55,8 +55,12 @@ and C read in place as strided views equal contiguous copies. jamba
 SMOKE serving, card against CPU, as the other archs. The scan's backward
 kernel against ref.selective_scan_bwd_ref at N 4 and 16, S 1, 31, 32,
 33 and 300, B 2, a ragged d_in, nonzero h0 and dh_last, z, B and C as
-strided views: each gradient within 1e-5 (f32) or 2^-7 (bf16) of its
-largest magnitude; two calls bit-equal; the autograd path on the card
+strided views, and where its geometry has edges (grids of 3 and 9
+blocks rounded up to whole clusters, B 3, S 38, 33 and 4097, an odd d_in
+copied element by element): each gradient within 1e-5 (f32) or 2^-7
+(bf16) of its largest magnitude; two calls bit-equal; the forward that
+saves chunk starts equal to the one that does not, its chunk starts
+equal to h_last of the sequence's heads; the autograd path on the card
 against the CPU's within the same; small f32 FedAvg and FedLoRA rounds
 of jamba SMOKE, card against CPU, within 1e-4.
 """
@@ -1321,6 +1325,59 @@ def test_selective_scan_bwd_is_deterministic(cuda, dtype):
     assert all(torch.equal(a, b) for a, b in zip(one, two))
 
 
+@pytest.mark.parametrize("shape", [(3, 38, 96), (1, 33, 288),
+                                   (1, 4097, 64), (2, 70, 99)])
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_bwd_cluster_and_chunk_edges(cuda, shape, N, dtype):
+    """The backward where its geometry has edges: 3 and 9 blocks of 32
+    channels (d_in 96, 288: the grid rounded up to clusters of 8, blocks
+    past d_in computing on zeros), B = 3, a last chunk of 6 tokens (a whole
+    sub-chunk and part of one), S 33 and 4097 (a last chunk of one token:
+    it and its sub-chunk both partial), and d_in 99 (odd: the stage copies
+    element by element, bf16 through registers). Every gradient within
+    1e-5 (f32) or 2^-7 (bf16) of its largest magnitude of the plain
+    version; two calls bit-equal."""
+    from repro_torch.kernels.selective_scan import (_launch,
+                                                    selective_scan_bwd)
+    B, S, d_in = shape
+    args = scan_views(scan_inputs(B, S, d_in, N, dtype, cuda))
+    dy, dh_last = scan_cotangents(B, S, d_in, N, dtype, cuda)
+    _, _, hc = _launch(*args, None, save=True)
+    got = selective_scan_bwd(*args, hc, dy, dh_last)
+    assert_scan_grads_close(got, ref.selective_scan_bwd_ref(*args, dy,
+                                                            dh_last))
+    again = selective_scan_bwd(*args, hc, dy, dh_last)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("N", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_selective_scan_forward_unchanged_by_saving(cuda, N, dtype):
+    """The forward the backward reads from: the saving launch (one forward
+    launch, no backward) gives y and h_last bit-equal to the launch that
+    saves nothing, and its h_chunks[:, k] bit-equal to h_last of a forward
+    over the first 32·k tokens (the saved states are the forward's own);
+    h_chunks[:, 0] is h0."""
+    from repro_torch.kernels.selective_scan import _launch
+    args = scan_inputs(2, 100, 160, N, dtype, cuda)
+    before = dict(build.LAUNCHES)
+    y0, h0, hc = _launch(*args, None, save=True)
+    assert build.LAUNCHES["selective_scan"] == \
+        before.get("selective_scan", 0) + 1
+    assert build.LAUNCHES["selective_scan_bwd"] == \
+        before.get("selective_scan_bwd", 0)
+    y1, h1 = selective_scan(*args)
+    assert torch.equal(y0, y1) and torch.equal(h0, h1)
+    assert tuple(hc.shape) == (2, 4, 160, N)
+    assert torch.equal(hc[:, 0], args[-1])
+    for k in (1, 2, 3):
+        head = [t[:, :32 * k].contiguous() if t.dim() == 3 and
+                t.shape[1] == 100 else t for t in args]
+        _, hk = selective_scan(*head)
+        assert torch.equal(hc[:, k], hk)
+
+
 @pytest.mark.parametrize("N", [4, 16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_selective_scan_autograd_card_matches_cpu(cuda, N, dtype):
@@ -1371,15 +1428,22 @@ def test_selective_scan_without_grad_saves_nothing(cuda):
 
 def test_selective_scan_bwd_plan(cuda):
     """Each backward instance's geometry from the library: the forward's
-    lanes a channel, a (token, channel) a thread in a sub-chunk, and every
-    block of d_in 16384 at B = 1 resident at once (4 an SM on 132 SMs)."""
+    lanes a channel, a sub-chunk a token a lane of each channel, clusters
+    that divide d_in 16384's 512 blocks, 9 block barriers a 32-token chunk,
+    and every block of d_in 16384 at B = 1 resident at once (4 an SM on
+    132 SMs, and as many clusters as the grid holds)."""
     import ctypes
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for N in (4, 16):
         for code in (0, 1):
-            plan = (ctypes.c_int * 7)()
+            plan = (ctypes.c_int * 10)()
             assert build.library().selective_scan_bwd_plan(N, code, plan) == 0
-            G, channels, sub, threads, regs, smem, blocks = plan
+            (G, channels, sub, threads, regs, smem, blocks, cluster,
+             barriers, clusters) = plan
             assert G == LANES[N] and G * channels == threads
-            assert sub * channels == threads and regs > 0 and smem > 0
+            assert sub == G and regs > 0 and 0 < smem <= 56 * 1024
+            assert cluster in (1, 2, 4, 8)
+            assert (16384 // channels) % cluster == 0
+            assert barriers == 1 + 32 // sub
             assert blocks * sms >= 16384 // channels
+            assert clusters * cluster >= 16384 // channels
