@@ -9,12 +9,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them,
      flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-     threefry.cu, rmsnorm.cu, selective_scan.cu and selective_scan_bwd.cu
-     with -Xptxas -v: the kernels' registers, shared memory, stack frames
-     and spills are printed (the bf16 flash kernels, every flash backward
-     kernel, each (d_qk, d_v) pair's, every rmsnorm backward kernel and the
-     thirteen selective-scan kernels, forward and backward, must not
-     spill); the
+     threefry.cu, rmsnorm.cu, selective_scan.cu, selective_scan_bwd.cu
+     and slstm.cu with -Xptxas -v: the kernels' registers, shared memory,
+     stack frames and spills are printed (the bf16 flash kernels, every
+     flash backward kernel, each (d_qk, d_v) pair's, every rmsnorm backward
+     kernel, the thirteen selective-scan kernels, forward and backward,
+     and the ten sLSTM kernels must not spill); the
      built library's
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
@@ -62,7 +62,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      f32 and bf16, from a nonzero h0 and dh_last, each gradient within
      1e-5 (f32) or 2^-7 (bf16) of its largest magnitude, two calls
      bit-equal and z, B and C read in place; its geometry first (cluster
-     size, barriers a chunk, registers, shared memory, blocks an SM);
+     size, barriers a chunk, registers, shared memory, blocks an SM); the
+     sLSTM recurrence (slstm) against its plain version at path 11's
+     round, prefill and decode shapes (head dim 256, clusters of 8
+     blocks) in bf16 (and f32 but the prefill) and at the card SMOKE's and
+     SMOKE's head dims 32 and 16 in f32, from a nonzero state: hs within
+     1e-5 of max|hs| (f32) or two bf16 ulps of each element, the state
+     within 1e-5; two launches bit-equal, the state as out equal; each
+     instance's geometry first (cluster size, columns, registers, shared
+     memory, clusters at once), each case's time a token step beside;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
@@ -70,11 +78,12 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      d_head 64 and on deepseek-v2-236b SMOKE widened to MLA's (192, 128);
      FedAvg with SGD and AdamW, FedLoRA, and FedAvg with SGD on
      deepseek-v2-236b at (192, 128); MU-SplitFed and GAS, FedAvg with SGD
-     and FedLoRA on jamba-1.5-large-398b SMOKE widened to d_head 64) and
+     and FedLoRA on jamba-1.5-large-398b SMOKE widened to d_head 64;
+     MU-SplitFed and GAS on xlstm-350m SMOKE at d_model 128) and
      small f32
      serving (mixtral-8x22b past its window, qwen3-14b, deepseek-v2-236b,
-     jamba-1.5-large-398b), then
-     the seven training paths through the
+     jamba-1.5-large-398b, xlstm-350m), then
+     the training paths through the
      training driver (``launch.train``:
      setup, then run_engine, which runs engine.run_rounds), each with every
      kernel launch counter set to 0 just before and read just after, and
@@ -164,6 +173,16 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      backward launched for the 4 Mamba blocks behind the adapters, its
      peak beside the reckoning (FedAvg, at 5x its parameter bytes or more,
      does not fit the card);
+     and path 11, xLSTM (``phase_xlstm``): xlstm-350m at its full
+     published config (24 layers, d_model 1024, mlstm x3 then slstm, no
+     FFN, vocab 50304; nothing cut): (a) serving in bf16, 4 x 512-token
+     prompts and 32 new tokens, then one 4096-token prompt and 16, then
+     the f32 decode-vs-full check (512 tokens, 8 new); (b) path 1's
+     MU-SplitFed run through the driver (3 rounds) and one profiled
+     round; every request's and the run's zo_update, zo_replay, rmsnorm
+     and slstm launches equal to the counts derived from their structure
+     (``xlstm_request_launches``, ``zo_round_launches``: 76 sLSTM launches
+     a round);
   5. one JSON line with every kernel's numbers (launches summed over the
      paths; the flash row and the flash backward's row carry their MLA
      instance's numbers under "mla", with the launches the wrappers
@@ -171,7 +190,9 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      MLA widths', the selective scan's row, at path 10's round shape,
      its prefill's under "tokens_4096" and its decode's under "decode",
      and its backward's row at the round shape, the 4096-token case under
-     "tokens_4096"), then the result line.
+     "tokens_4096"; the sLSTM's row at path 11's round shape, its prefill's
+     under "tokens_4096" and its decode's under "decode"), then the result
+     line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
 noise kernels at the path leaves, with the SM clock read by nvidia-smi
@@ -185,10 +206,10 @@ device memory; the event-timed loop is printed beside them, labelled as
 host-paced. Bounds: the larger of
 bytes / 3.35 TB/s and operations / the card's peak for their type (989
 TFLOP/s bf16 tensor cores for attention on bf16 inputs, 67 TFLOP/s on the
-f32 CUDA cores for the noise kernels and the norm, and for the selective
-scan its exponentials, logarithms and reciprocals on the SFU at 16 a
-clock an SM, 132 SMs at 1980 MHz); published H100 SXM numbers at a 700 W
-limit.
+f32 CUDA cores for the noise kernels, the norm and the sLSTM recurrence,
+and for the selective scan its exponentials, logarithms and reciprocals on
+the SFU at 16 a clock an SM, 132 SMs at 1980 MHz); published H100 SXM
+numbers at a 700 W limit.
 """
 from __future__ import annotations
 
@@ -466,7 +487,8 @@ def phase_card():
 def phase_build():
     """Build the package's kernel library and, at the same time, -Xptxas -v
     builds of flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-    threefry.cu, rmsnorm.cu, selective_scan.cu and selective_scan_bwd.cu.
+    threefry.cu, rmsnorm.cu, selective_scan.cu, selective_scan_bwd.cu and
+    slstm.cu.
     Returns the zo
     kernels' SASS instructions per gaussian and the threefry kernels' per
     element."""
@@ -481,7 +503,8 @@ def phase_build():
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for src in ("flash_attention.cu", "flash_attention_bwd.cu",
                     "zo_update.cu", "threefry.cu", "rmsnorm.cu",
-                    "selective_scan.cu", "selective_scan_bwd.cu")}
+                    "selective_scan.cu", "selective_scan_bwd.cu",
+                    "slstm.cu")}
     try:
         build.library()
     finally:
@@ -496,6 +519,7 @@ def phase_build():
     report_ptxas_norm_bwd(ptxas_out["rmsnorm.cu"])
     report_ptxas_scan(ptxas_out["selective_scan.cu"]
                       + ptxas_out["selective_scan_bwd.cu"])
+    report_ptxas_slstm(ptxas_out["slstm.cu"])
     lib = build.library()
     for d, dv in FLASH_PAIRS:
         print(f"flash_fwd_bf16_kernel<{d}, {dv}>: dynamic shared memory "
@@ -1654,6 +1678,189 @@ def phase_selective_scan_bwd(dev) -> dict:
     return res
 
 
+# the sLSTM kernel's cases (B, S, H, dh): path 11's round and prefill and
+# its decode at xlstm-350m's head dim 256 (4 heads, d_model 1024), the card
+# SMOKE's head dim 32 (card_smoke_config: the small rounds and serving) and
+# SMOKE's 16 (the CPU tests' size); (label, shape, dtypes)
+SLSTM_CASES = (("round (path 11)", (1, 512, 4, 256),
+                (torch.bfloat16, torch.float32)),
+               ("prefill (path 11)", (1, 4096, 4, 256), (torch.bfloat16,)),
+               ("decode (path 11)", (4, 1, 4, 256),
+                (torch.bfloat16, torch.float32)),
+               ("card SMOKE", (2, 64, 4, 32), (torch.float32,)),
+               ("SMOKE", (2, 40, 4, 16), (torch.float32,)))
+# the sLSTM kernel's instances <type, columns a block, head dim> (an older
+# source's <type, columns> matches too)
+SLSTM_KERNEL = re.compile(r"slstm_kernelI(f|13__nv_bfloat16)Li(\d+)E"
+                          r"(?:Li(\d+)E)?E")
+SLSTM_KERNELS = 10
+# f32 operations of the sLSTM recurrence per (token, column) beside the
+# product: the bias and the three sums of the pre-activations (8), the log
+# sigmoid (4: exp, log1p, min, subtraction), m' and the two exponentials'
+# arguments (4), i_g and f_g (2), tanh and c (4), n (5 with exp(-m')), the
+# sigmoid (3) and h (2)
+SLSTM_GATE_OPS = 32
+
+
+def slstm_bytes(B: int, S: int, H: int, dh: int, elem: int) -> int:
+    """Bytes the sLSTM recurrence must move: x_pre (4·D a token) read and
+    hs (D) written in the model type, r and the bias read once, the state
+    (c, n, m, h) read and written."""
+    D = H * dh
+    return (B * S * 5 * D * elem + 4 * H * dh * dh * 4 + 4 * D * 4
+            + 8 * B * D * 4)
+
+
+def slstm_ops(B: int, S: int, H: int, dh: int) -> int:
+    """f32 operations of the sLSTM recurrence: the recurrent product, 2
+    operations a multiply-add, 4 gates x dh x dh a head and token, and
+    SLSTM_GATE_OPS a (token, column)."""
+    return B * S * H * (8 * dh * dh + SLSTM_GATE_OPS * dh)
+
+
+def report_ptxas_slstm(out: str) -> None:
+    """Print ptxas's registers, shared memory and spills for each sLSTM
+    kernel instance (f32 and bf16 at head dims 16, 32, 64, 128 and 256);
+    none may spill."""
+    name, seen = None, set()
+    for line in out.splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            m = SLSTM_KERNEL.search(line)
+            name = (f"slstm_kernel<{'f32' if m.group(1) == 'f' else 'bf16'}, "
+                    f"{m.group(2)}, {m.group(3)}>" if m else None)
+            continue
+        if name is None or not line.strip() or "Compile time" in line:
+            continue
+        print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}")
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", line)
+        if spills:
+            seen.add(name)
+            require(spills.groups() == ("0", "0"),
+                    f"{name} spills registers: {line.strip()}")
+    require(len(seen) == SLSTM_KERNELS, f"ptxas -v reported spill lines for "
+            f"{sorted(seen)}, not the {SLSTM_KERNELS} sLSTM kernels")
+
+
+def slstm_inputs(B, S, H, dh, dtype, dev, seed=5):
+    """The sLSTM kernel's inputs as an sLSTM block gives them: x_pre a
+    normal times 2 in the model type (the gates out of their linear
+    range), b with its forget quarter at 3.0, r at its init scale
+    1/sqrt(dh), and a nonzero state (c and h normal, n >= 1, m near 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    D = H * dh
+    b = torch.zeros(4 * D, device=dev)
+    b[2 * D:3 * D] = 3.0
+    return ((randn(B, S, 4 * D) * 2.0).to(dtype), b,
+            randn(4, H, dh, dh) / math.sqrt(dh), randn(B, H, dh),
+            randn(B, H, dh).abs() + 1.0, randn(B, H, dh) * 0.5,
+            randn(B, H, dh) * 0.5)
+
+
+def check_slstm(what: str, got, want) -> float:
+    """hs: f32 within 1e-5 of max|hs|, bf16 within two bf16 ulps of each
+    element plus 1e-5 of max|hs| (the recurrent h is f32 in both, an f32
+    difference can move hs's rounding by one ulp, and the plain version's
+    own bf16 rounding of the same value by another); the final c, n, h
+    within 1e-5 of each largest magnitude, m within 1e-5 of max(|m|, 1).
+    Returns the largest |Δ| of hs and the state."""
+    (hs, st), (whs, wst) = got, want
+    require(hs.shape == whs.shape and hs.dtype == whs.dtype,
+            f"{what}: hs {hs.shape} {hs.dtype} vs {whs.shape} {whs.dtype}")
+    require(bool(torch.isfinite(hs.float()).all())
+            and all(bool(torch.isfinite(t).all()) for t in st),
+            f"{what}: non-finite")
+    scale = float(whs.float().abs().max())
+    d = (hs.float() - whs.float()).abs()
+    if hs.dtype == torch.bfloat16:
+        ok = bool((d <= 2.0 ** -6 * whs.float().abs() + 1e-5 * scale).all())
+    else:
+        ok = float(d.max()) <= 1e-5 * scale
+    err = float(d.max())
+    for k, (a, w) in enumerate(zip(st, wst)):
+        dk = float((a - w).abs().max())
+        ok = ok and a.dtype == torch.float32 and dk <= 1e-5 * max(
+            float(w.abs().max()), 1.0 if k == 2 else 0.0)
+        err = max(err, dk)
+    require(ok, f"{what}: max |Δ| {err:.3e} (hs of {scale:.3e}) outside "
+            f"tolerance")
+    return err
+
+
+def phase_slstm(dev) -> dict:
+    """The sLSTM kernel against its plain version (``ref.slstm_ref``, one
+    token at a time in PyTorch ops) at SLSTM_CASES, from a nonzero state
+    (``check_slstm``); two launches bit-equal, and the state given as
+    ``out`` (decode's in-place state) equal to a launch into a new one.
+    First each instance's launch geometry (``slstm_plan``: blocks a
+    cluster, columns a block, threads, splits of the sum over d,
+    registers, dynamic shared memory, blocks an SM, clusters the card
+    holds). Times: the kernel's device time per call (device_ms), per
+    token step beside it, the plain version's by CUDA events; the bound
+    from ``slstm_bytes`` and ``slstm_ops`` on the f32 cores. No PyTorch
+    call computes this function, so the library column is null. Returns
+    the round case's numbers (bf16), with prefill's under "tokens_4096"
+    and decode's under "decode"."""
+    import ctypes
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.slstm import slstm
+    for dh in (16, 32, 256):
+        for code, name in ((0, "f32"), (1, "bf16")):
+            plan = (ctypes.c_int * 8)()
+            build.check(build.library().slstm_plan(dh, code, plan),
+                        "slstm_plan")
+            cs, cols, threads, splits, regs, smem, blocks, clusters = plan
+            print(f"slstm_kernel<{name}, {cols}> at head dim {dh}: clusters "
+                  f"of {cs} block(s) a (batch row, head), {cols} columns x 4 "
+                  f"gates x {splits} splits = {threads} threads a block, "
+                  f"{regs} registers, {smem} bytes of dynamic shared memory, "
+                  f"{blocks} block(s) an SM, {clusters} clusters at once")
+    res = {"err": 0.0, "library_ms": None}
+    for label, (B, S, H, dh), dtypes in SLSTM_CASES:
+        for dtype in dtypes:
+            args = slstm_inputs(B, S, H, dh, dtype, dev)
+            what = (f"slstm {label} {str(dtype)[6:]} (B, S, H, dh) = "
+                    f"{(B, S, H, dh)}")
+            got = slstm(*args)
+            err = check_slstm(what, got, ref.slstm_ref(*args))
+            again = slstm(*args)
+            state = [t.clone() for t in args[3:]]
+            inplace = slstm(*args[:3], *state, out=state)
+            require(torch.equal(got[0], again[0]) and all(
+                torch.equal(a, b) for a, b in zip(got[1], again[1])),
+                f"{what}: two launches differ")
+            require(torch.equal(inplace[0], got[0]) and all(
+                torch.equal(a, b) for a, b in zip(state, got[1])),
+                f"{what}: the state as out differs from a new state")
+            res["err"] = max(res["err"], err)
+            nbytes = slstm_bytes(B, S, H, dh, dtype.itemsize)
+            sets = [args] + [tuple(t.clone() for t in args)
+                             for _ in range(min(3, L2_BYTES // nbytes + 1))]
+            ms = device_ms(lambda t: slstm(*t), sets, 5 if S >= 4096 else 10)
+            plain_ms = time_ms(lambda: ref.slstm_ref(*args), 1)
+            require(ms > 0, f"{what}: the profiler recorded no device time")
+            b_ms, b_by = bound(nbytes, slstm_ops(B, S, H, dh), "f32_core")
+            print(f"{what}: max|Δ| {err:.3e}  kernel {ms:.4f} ms "
+                  f"({ms / S * 1e3:.3f} us a token step)  plain "
+                  f"{plain_ms:.4f} ms  library none  bound {b_ms:.4f} ms "
+                  f"({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+                  f"ms)  two launches bit-equal, the state as out equal")
+            if dtype != torch.bfloat16 or label.startswith(("card", "SMOKE")):
+                continue
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                       us_per_token=ms / S * 1e3,
+                       shape=f"(B, S, H, dh) = {(B, S, H, dh)} bf16")
+            if label.startswith("round"):
+                res.update(row)
+            else:
+                res["tokens_4096" if S == 4096 else "decode"] = row
+    return res
+
+
 def flash_pairs(S: int, causal: bool, window: int) -> int:
     """The (query, key) pairs a causal / window mask leaves unmasked."""
     n = 0
@@ -2146,12 +2353,14 @@ def phase_small_round(dev):
     SMOKE (4 experts top-2, window 32 under 64 tokens), deepseek-v2-236b
     SMOKE (MLA, 8 experts top-2 and 1 shared) and jamba-1.5-large-398b
     SMOKE (Mamba through the selective scan at d_state 4, 4 experts top-2
-    at every other block), each as ``configs.card_smoke_config`` widens
-    it."""
+    at every other block) and xlstm-350m SMOKE (mLSTM heads of 64, the
+    sLSTM kernel at head dim 32), each as ``configs.card_smoke_config``
+    widens it."""
     for arch, kv, cases in (("olmo-1b", 2, SMALL_ROUNDS),
                             ("mixtral-8x22b", 1, MOE_SMALL_ROUNDS),
                             ("deepseek-v2-236b", 2, MOE_SMALL_ROUNDS),
-                            ("jamba-1.5-large-398b", 1, MOE_SMALL_ROUNDS)):
+                            ("jamba-1.5-large-398b", 1, MOE_SMALL_ROUNDS),
+                            ("xlstm-350m", 1, MOE_SMALL_ROUNDS)):
         small_rounds(dev, arch, kv, cases)
 
 
@@ -3678,11 +3887,197 @@ def phase_jamba(dev) -> dict:
     return launches
 
 
+# path 11: xLSTM, xlstm-350m at its full published config (24 layers,
+# d_model 1024, mlstm x3 then slstm, no FFN, vocab 50304: 499.7 M
+# parameters with the untied head, 0.93 GiB in bf16), random weights from
+# seed 0. (a) serving in bf16: 4 requests of 512-token prompts and 32 new
+# tokens, then one 4096-token prompt and 16; then the f32 decode-vs-full
+# check, a 512-token prompt and 8 tokens; (b) path 1's MU-SplitFed run
+# through the driver (M=2, tau=2, P=1, batch 1, seq 512, counter noise,
+# seed replay, 3 rounds, one a chunk, cut after the first unit) and one
+# profiled round. Nothing is cut.
+XLSTM_ARGV = ["--arch", "xlstm-350m", *PATH_ARGV]
+SERVE_XLSTM = (dict(batch=4, prompt_len=512, gen=32),
+               dict(batch=1, prompt_len=4096, gen=16))
+SERVE_XLSTM_F32 = dict(batch=1, prompt_len=512, gen=8, steps=(1, 4, 8))
+XLSTM_KERNELS = ("zo_update", "zo_replay", "rmsnorm", "slstm")
+# the f32 decode-vs-full check of path 11 holds each decode step within
+# F32_DECODE_TOL or XLSTM_DECODE_MARGIN times the model's own rounding
+# spread, whichever is larger: the spread is max|logits_fn at chunk 64 -
+# logits_fn at chunk 32| over the prompt, of max|logit|, two algebraically
+# equal forms of the same forward (the mLSTM's chunkwise form), as decode
+# (the recurrent form) and logits_fn are. At the published width and 24
+# layers rounding grows through the layers: PR 32's call 3 measured a
+# decode step 2.8e-4 of max|logit| off logits_fn. At 4 layers on the CPU
+# the reference's own decode steps are 1.5-2.1e-6 off its logits_fn, the
+# port's 1.7-2.8e-6, and the port's chunk 32 against chunk 64 6.0e-6
+XLSTM_DECODE_MARGIN = 4.0
+
+
+def xlstm_request_launches(cfg, gen: int) -> dict:
+    """Launches a ``serve.generate`` request makes: the prefill and each of
+    its ``gen`` decode steps (the last one's logits unused) run every
+    block once: an rmsnorm a block and the final norm, an sLSTM launch a
+    sLSTM block."""
+    norms = cfg.n_layers + 1
+    slstms = cfg.n_units * cfg.block_pattern.count("slstm")
+    return {"rmsnorm": norms * (1 + gen), "slstm": slstms * (1 + gen)}
+
+
+def zo_round_launches(cfg, sfl, params) -> dict:
+    """Launches a MU-SplitFed round with seed replay and counter noise
+    makes (``core/splitfed.py``), from its structure, M clients each: 3
+    client forwards (h, h+, h-) and 2·tau·P + 3 server forwards (the
+    round-start loss, tau SPSA steps of P ± pairs, and the client delta's
+    two); zo_update perturbs the client's L_c leaves twice and the
+    server's L_s leaves 2·tau·P times; zo_replay applies each SPSA step
+    once over the server's leaves, then the aggregation once over each
+    side's leaves. A forward runs an rmsnorm a block (the server's also
+    the final norm) and an sLSTM launch a sLSTM block."""
+    from repro_torch.models import split_params
+    from repro_torch.utils import tree
+    M, tau, P, cut = (sfl.n_clients, sfl.tau, sfl.n_perturbations,
+                      sfl.cut_units)
+    xc, xs = split_params(cfg, params, cut)
+    L_c, L_s = len(tree.leaves(xc)), len(tree.leaves(xs))
+    per_unit = len(cfg.block_pattern)
+    slstm = cfg.block_pattern.count("slstm")
+    client_fwd, server_fwd = 3, 2 * tau * P + 3
+    server_units = cfg.n_units - cut
+    return {"zo_update": M * (2 * L_c + 2 * tau * P * L_s),
+            "zo_replay": M * tau * L_s + L_s + L_c,
+            "rmsnorm": M * (client_fwd * cut * per_unit
+                            + server_fwd * (server_units * per_unit + 1)),
+            "slstm": M * slstm * (client_fwd * cut
+                                  + server_fwd * server_units)}
+
+
+def phase_xlstm(dev) -> dict:
+    """Path 11: xlstm-350m at its full published config, on the card's own
+    ``logits_fn`` as the reference:
+      a. ``serve.generate`` in bf16 (``serve_request``): 4 requests of
+         512-token prompts and 32 new tokens, then one 4096-token prompt and
+         16 tokens (each sLSTM layer's prefill one launch over the prompt,
+         each decode step one at S = 1 on the in-place state; the mLSTM's
+         chunks of 64 in PyTorch), prefill's logits within PREFILL_TOL; then
+         in f32 a 512-token prompt and 8 tokens, decode steps 1, 4 and 8
+         within F32_DECODE_TOL, or XLSTM_DECODE_MARGIN times the forward's
+         measured rounding spread, of logits_fn on prompt and tokens; each
+         request's rmsnorm and slstm launches equal to
+         ``xlstm_request_launches``;
+      b. path 1's MU-SplitFed run through the driver (``XLSTM_ARGV``,
+         counter noise set after setup) with ``drive``: 3 rounds, one a
+         chunk, then one profiled round; zo_update, zo_replay, rmsnorm and
+         slstm launches equal to 3 x ``zo_round_launches``; peak memory
+         beside the parameter bytes.
+    Prints each part's seconds; returns the launches summed over a-b."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.models import init_params, logits_fn, param_count
+    from repro_torch.models.ssm import mlstm_dims, slstm_dims
+    t_path = time.perf_counter()
+    launches = {}
+
+    def add(n):
+        for k, v in n.items():
+            launches[k] = launches.get(k, 0) + v
+
+    cfg = get_config("xlstm-350m")
+    d_up, H, dh, chunk = mlstm_dims(cfg)
+    sh, sdh = slstm_dims(cfg)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    n_params = param_count(params)
+    gib = n_params * 2 / 2 ** 30
+    print(f"xlstm path (11): xlstm-350m at its full published config, "
+          f"{cfg.n_layers} layers ({cfg.block_pattern} x {cfg.n_units}), "
+          f"d_model {cfg.d_model}, mLSTM d_up {d_up} in {H} heads of {dh} "
+          f"(chunk {chunk}), sLSTM {sh} heads of {sdh}, no FFN, vocab "
+          f"{cfg.vocab_size}; {n_params:,} parameters (untied head), "
+          f"{gib:.2f} GiB in bf16 (their f32 leaves counted at 2 bytes); "
+          f"nothing cut")
+    g = torch.Generator(device=dev).manual_seed(4)
+    stats = []
+    for i, a in enumerate(SERVE_XLSTM):
+        prompt = torch.randint(0, cfg.vocab_size,
+                               (a["batch"], a["prompt_len"]), generator=g,
+                               device=dev)
+        name = (f"serve path (11a) xlstm-350m bf16, {a['batch']} x "
+                f"{a['prompt_len']}-token prompt(s), {a['gen']} tokens")
+        n, st = serve_request(dev, name, cfg, params, prompt, a["gen"], (),
+                              ("rmsnorm", "slstm"), profile=i == 0)
+        want = xlstm_request_launches(cfg, a["gen"])
+        got = {k: n.get(k, 0) for k in want}
+        print(f"{name}: launches {got}, derived {want}")
+        require(got == want, f"{name}: launches {got}, not {want}")
+        add(n)
+        stats.append(st)
+    del params
+    torch.cuda.empty_cache()
+    f32 = cfg.replace(dtype="float32")
+    params = init_params(f32, torch.Generator(device=dev).manual_seed(0))
+    f = SERVE_XLSTM_F32
+    prompt = torch.randint(0, cfg.vocab_size, (f["batch"], f["prompt_len"]),
+                           generator=g, device=dev)
+    with torch.inference_mode():
+        full = logits_fn(f32, params, {"tokens": prompt})
+        halves = logits_fn(f32.replace(xlstm=dataclasses.replace(
+            f32.xlstm, chunk=f32.xlstm.chunk // 2)), params,
+            {"tokens": prompt})
+        spread = float((full - halves).abs().max() / full.abs().max())
+    tol = max(F32_DECODE_TOL, XLSTM_DECODE_MARGIN * spread)
+    print(f"serve path (11a) xlstm-350m f32: the forward's rounding spread "
+          f"(logits_fn at chunk {f32.xlstm.chunk} against "
+          f"{f32.xlstm.chunk // 2}, over the {f['prompt_len']}-token prompt) "
+          f"{spread:.3e} of max|logit|; decode tolerance {tol:.3e}")
+    del full, halves
+    n, _ = serve_request(dev, "serve path (11a) xlstm-350m f32", f32, params,
+                         prompt, f["gen"], f["steps"], ("rmsnorm", "slstm"),
+                         decode_tol=tol, profile=False)
+    require(n.get("slstm") == xlstm_request_launches(f32, f["gen"])["slstm"],
+            f"serve path (11a) f32: slstm launches {n.get('slstm')}")
+    add(n)
+    del params
+    torch.cuda.empty_cache()
+    print(f"serve path (11a): {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    run = train.setup(XLSTM_ARGV)
+    sfl = dataclasses.replace(run.sfl, perturbation_dist="counter")
+    name = "xlstm path (11b) xlstm-350m MU-SplitFed"
+    per_round = zo_round_launches(run.cfg, sfl, run.params)
+    res, _, n, chunks = drive(dev, name, run, sfl, XLSTM_KERNELS)
+    rounds = len(res.round_loss)
+    want = {k: v * rounds for k, v in per_round.items()}
+    got = {k: n.get(k, 0) for k in want}
+    print(f"{name}: launches over {rounds} rounds {got}, derived from the "
+          f"round's structure {want} ({per_round} a round)")
+    require(got == want, f"{name}: launches {got}, not {want}")
+    add(n)
+    peak = max(c[2] for c in chunks)
+    secs = [round(c[1], 3) for c in chunks]
+    print(f"{name}: round seconds {secs}; peak {peak:.2f} GiB against "
+          f"{gib:.2f} GiB of parameters (ratio {peak / gib:.3f})")
+    del run, res
+    torch.cuda.empty_cache()
+    print(f"xlstm round path (11b): {time.perf_counter() - t0:.1f} s")
+    a, b = stats
+    print(f"xlstm path: 4 x 512 prefill {a['prefill_ms']:.1f} ms, decode "
+          f"{a['decode_ms']:.2f} ms a step, {a['tok_s']:.1f} tokens/s, peak "
+          f"{a['peak']:.2f} GiB; 1 x 4096 prefill {b['prefill_ms']:.1f} ms, "
+          f"decode {b['decode_ms']:.2f} ms a step, {b['tok_s']:.1f} "
+          f"tokens/s, peak {b['peak']:.2f} GiB; round seconds {secs}; path "
+          f"11 {time.perf_counter() - t_path:.1f} s in all")
+    return launches
+
+
 def phase_small_serve(dev):
     """Serving on the card against the CPU in f32 (the plain versions
     there): mixtral-8x22b SMOKE past its window, qwen3-14b SMOKE (qk-norm),
-    deepseek-v2-236b SMOKE (MLA, the compressed-cache decode) and
-    jamba-1.5-large-398b SMOKE (the Mamba state's in-place decode), widened
+    deepseek-v2-236b SMOKE (MLA, the compressed-cache decode),
+    jamba-1.5-large-398b SMOKE (the Mamba state's in-place decode) and
+    xlstm-350m SMOKE (the mLSTM's chunks of 16 and its tail over a 40-token
+    prompt, the sLSTM kernel at S = 40 and 1 on the in-place state), widened
     by ``configs.card_smoke_config`` (1 kv head for the GQA models), at
     SMOKE's capacity factor: tokens equal, and
     the prefill and every decode step's logits within 1e-4 of
@@ -3693,7 +4088,8 @@ def phase_small_serve(dev):
     from repro_torch.utils import tree
     for arch, S, gen in (("mixtral-8x22b", 40, 8), ("qwen3-14b", 24, 8),
                          ("deepseek-v2-236b", 24, 8),
-                         ("jamba-1.5-large-398b", 24, 8)):
+                         ("jamba-1.5-large-398b", 24, 8),
+                         ("xlstm-350m", 40, 8)):
         cfg = card_smoke_config(arch, 1)
         params = init_params(cfg, torch.Generator().manual_seed(0))
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, S))
@@ -3768,6 +4164,7 @@ def main() -> int:
     norm_bwd = phase_rmsnorm_bwd(dev)
     scan = phase_selective_scan(dev)
     scan_bwd = phase_selective_scan_bwd(dev)
+    slstm_res = phase_slstm(dev)
     t_small = time.perf_counter()
     phase_small_round(dev)
     phase_small_fo(dev)
@@ -3790,7 +4187,8 @@ def main() -> int:
         ("path 7", lambda: phase_async(dev)),
         ("path 8", lambda: phase_serve(dev)),
         ("path 9", lambda: phase_mla(dev)),
-        ("path 10", lambda: phase_jamba(dev))]
+        ("path 10", lambda: phase_jamba(dev)),
+        ("path 11", lambda: phase_xlstm(dev))]
     launches, seconds, zo_summary = {}, {}, None
     for label, fn in paths:
         t0 = time.perf_counter()
@@ -3828,7 +4226,11 @@ def main() -> int:
              "src/repro/models/ssm.py:70", scan),
             # no Pallas kernel: XLA's autodiff of that scan and gate
             ("selective_scan_bwd", src + "selective_scan_bwd.cu",
-             "src/repro/models/ssm.py:70", scan_bwd)]
+             "src/repro/models/ssm.py:70", scan_bwd),
+            # no Pallas kernel: the reference's jnp _slstm_step under a
+            # lax.scan over the tokens (XLA)
+            ("slstm", src + "slstm.cu", "src/repro/models/ssm.py:319",
+             slstm_res)]
     for name, *_ in rows:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was launched on no path")

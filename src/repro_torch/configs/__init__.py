@@ -1,3 +1,3 @@
 from repro_torch.configs.base import (MambaConfig, ModelConfig, MoEConfig,
-                                     SFLConfig)
+                                     SFLConfig, XLSTMConfig)
 from repro_torch.configs.registry import card_smoke_config, get_config

@@ -2,9 +2,8 @@
 
 Frozen dataclasses with the reference's fields and defaults, so a config
 built here compares field for field with its JAX counterpart.
-``MoEConfig`` (mixtral-8x22b, deepseek-v2-236b) and ``MambaConfig``
-(jamba-1.5-large-398b) are copied too; the sub-config of the family not
-ported yet (xLSTM) keeps its field, typed loosely.
+``MoEConfig`` (mixtral-8x22b, deepseek-v2-236b), ``MambaConfig``
+(jamba-1.5-large-398b) and ``XLSTMConfig`` (xlstm-350m) are copied too.
 """
 from __future__ import annotations
 
@@ -32,6 +31,14 @@ class MambaConfig:
     dt_rank: int = 0            # 0 -> ceil(d_model / 16)
     chunk: int = 64             # the reference's scan block; the port's
                                 # selective-scan kernel runs whole sequences
+
+
+@dataclass(frozen=True)
+class XLSTMConfig:
+    n_heads: int = 4
+    chunk: int = 64             # mLSTM chunkwise-parallel block length
+    proj_factor: float = 2.0    # mLSTM up-projection factor
+    slstm_proj_factor: float = 1.3334
 
 
 @dataclass(frozen=True)
@@ -69,7 +76,7 @@ class ModelConfig:
     # --- block pattern ---
     block_pattern: Tuple[str, ...] = ("attn",)
     mamba: Optional[MambaConfig] = None
-    xlstm: Optional[Any] = None
+    xlstm: Optional[XLSTMConfig] = None
 
     # --- encoder/decoder ---
     is_encoder_decoder: bool = False

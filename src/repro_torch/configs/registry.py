@@ -1,8 +1,8 @@
 """Architecture registry for the port: ``--arch <id>`` lookup. The dense
 attention decoders (LayerNorm and RMSNorm), the GQA mixture of experts
 (mixtral-8x22b), the MLA mixture of experts with shared experts
-(deepseek-v2-236b) and the Mamba hybrid (jamba-1.5-large-398b) are
-ported; the other families are queued in ROADMAP.md."""
+(deepseek-v2-236b), the Mamba hybrid (jamba-1.5-large-398b) and xLSTM
+(xlstm-350m) are ported; the other families are queued in ROADMAP.md."""
 from __future__ import annotations
 
 import importlib
@@ -19,6 +19,7 @@ _MODULES: Dict[str, str] = {
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "deepseek-v2-236b": "repro_torch.configs.deepseek_v2_236b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 
 
@@ -39,7 +40,10 @@ def card_smoke_config(name: str, n_kv_heads: int = 1) -> ModelConfig:
     (192, 128) pair instead (nope 128, rope 64, v 128, 2 heads), its
     latent ranks and MoE (capacity factor included) as in SMOKE; a Mamba
     config's d_inner follows d_model (256 at expand 2) and its d_state
-    stays SMOKE's. The small card-vs-CPU checks run on it."""
+    stays SMOKE's; an xLSTM config keeps SMOKE's ``xlstm`` (4 heads, chunk
+    16), so d_model 128 gives the mLSTM d_up 256 (head dim 64) and the
+    sLSTM head dim 32 (the sLSTM kernel's one-block case). The small
+    card-vs-CPU checks run on it."""
     cfg = get_config(name, smoke=True).replace(
         d_model=128, n_heads=2, n_kv_heads=n_kv_heads, dtype="float32")
     if cfg.attn_impl == "mla":

@@ -35,7 +35,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("zo_update.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "rmsnorm.cu", "threefry.cu", "selective_scan.cu",
-           "selective_scan_bwd.cu")
+           "selective_scan_bwd.cu", "slstm.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -130,6 +130,13 @@ SIGNATURES = {
     # N, dtype, plan (int[7]): the instance's lanes, channels a block,
     # tokens a chunk, threads, registers, shared memory, blocks an SM
     "selective_scan_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
+    # x_pre, b, r, c0, n0, m0, h0, hs, c, n, m, h (out), B, S, H, dh,
+    # dtype, stream
+    "slstm_launch": (_VOIDP,) * 12 + (ctypes.c_int,) * 5 + (_VOIDP,),
+    # dh, dtype, plan (int[8]): blocks a cluster, columns a block, threads,
+    # splits of the sum over d, registers, dynamic shared memory, blocks an
+    # SM, clusters the card holds at once
+    "slstm_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
 }
 # entry points that return other than a C int
 RESTYPES = {"flash_attention_bwd_scratch_floats": ctypes.c_longlong,

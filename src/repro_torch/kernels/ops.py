@@ -23,6 +23,7 @@ import torch
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_pair
 from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.kernels.slstm import slstm
 from repro_torch.kernels.threefry import threefry_sumsq, threefry_update
 from repro_torch.kernels.zo_update import zo_replay_flat, zo_update_flat
 from repro_torch.utils import tree
@@ -94,3 +95,9 @@ def selective_scan_op(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0, *,
     kernel (the plain backward on the CPU)."""
     return selective_scan(x, dt, z, Bc, Cc, A_log, D, dt_bias, h0,
                           h_out=h_out)
+
+
+def slstm_op(x_pre, b, r, c, n, m, h, *, out=None):
+    """The sLSTM recurrence over a sequence in one call (``kernels/slstm.py``;
+    on the CPU its plain version)."""
+    return slstm(x_pre, b, r, c, n, m, h, out=out)

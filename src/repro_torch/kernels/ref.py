@@ -347,6 +347,53 @@ def selective_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the sLSTM recurrence
+# ---------------------------------------------------------------------------
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """log(sigmoid(x)) as jax.nn.log_sigmoid forms it, -softplus(-x):
+    min(x, 0) - log1p(exp(-|x|)), exact at both tails."""
+    return torch.clamp(x, max=0.0) - torch.log1p(torch.exp(-x.abs()))
+
+
+def slstm_ref(x_pre: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
+              c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+              h: torch.Tensor):
+    """The sLSTM recurrence over a sequence, one token at a time in f32
+    (``repro.models.ssm``'s ``_slstm_step`` under its ``lax.scan``):
+
+        pre = (x_pre_t + b) + Σ_d h[d]·r[g, head, d, :]   (gates z, i, f, o)
+        lf = log_sigmoid(f),  m' = max(lf + m, i)
+        c = exp(lf + m - m')·c + exp(i - m')·tanh(z)
+        n = max(exp(lf + m - m')·n + exp(i - m'), exp(-m'))
+        h = sigmoid(o)·c / n
+
+    x_pre: (B, S, 4·D) in the model type, its last dimension laid out
+    (gate, head, column); b: (4·D,) f32; r: (4, H, dh, dh) f32; c, n, m, h:
+    (B, H, dh) f32, D = H·dh. Returns (hs (B, S, D) in x_pre's type, the
+    final (c, n, m, h), f32). h stays f32 from token to token; only hs is
+    rounded."""
+    f32 = torch.float32
+    B, S, _ = x_pre.shape
+    _, H, dh, _ = r.shape
+    xb = (x_pre.to(f32) + b).reshape(B, S, 4, H, dh)
+    hs = torch.empty((B, S, H * dh), dtype=f32, device=x_pre.device)
+    for t in range(S):
+        pre = xb[:, t] + torch.einsum("bhd,ghde->bghe", h, r)
+        z_r, i_r, f_r, o_r = pre.unbind(1)
+        lf = log_sigmoid(f_r)
+        m_new = torch.maximum(lf + m, i_r)
+        i_g = torch.exp(i_r - m_new)
+        f_g = torch.exp(lf + m - m_new)
+        c = f_g * c + i_g * torch.tanh(z_r)
+        n = torch.maximum(f_g * n + i_g, torch.exp(-m_new))
+        h = torch.sigmoid(o_r) * c / n
+        m = m_new
+        hs[:, t] = h.reshape(B, H * dh)
+    return hs.to(x_pre.dtype), (c, n, m, h)
+
+
+# ---------------------------------------------------------------------------
 # threefry gaussian noise (jax.random.normal at one leaf)
 # ---------------------------------------------------------------------------
 

@@ -10,6 +10,8 @@ Runs on the card unless ``--device cpu`` is given:
         --arch deepseek-v2-236b --smoke --device cpu   # MLA, shared experts
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch jamba-1.5-large-398b --smoke --device cpu   # Mamba hybrid
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch xlstm-350m --smoke --device cpu --prompt-len 40   # xLSTM
 
 Observability, as in the reference: every ``generate`` call records the
 serve.requests / serve.tokens counters, the serve.generate_seconds

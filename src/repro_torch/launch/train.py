@@ -52,6 +52,8 @@ Runs on the card unless ``--device cpu`` is given:
         --algorithm fedavg
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch jamba-1.5-large-398b --smoke --device cpu --rounds 2 --seq 16
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch xlstm-350m --smoke --device cpu --rounds 2 --seq 40
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --rounds 2 --seq 16 --ckpt-dir ckpt --ckpt-every 2   # then --rounds 4
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
@@ -69,7 +71,10 @@ attention (ROADMAP.md, queue 1, item 6). The Mamba hybrid
 (jamba-1.5-large-398b) trains with the zeroth-order algorithms and with
 FedAvg and FedLoRA (``--algorithm fedavg|fedlora``: its gradient goes
 through the selective scan's backward kernel; FedLoRA's adapters are the
-attention block's wq and wv).
+attention block's wq and wv). xLSTM (xlstm-350m) trains with the
+zeroth-order algorithms only: FedAvg and FedLoRA raise NotImplementedError
+there, since the sLSTM kernel has no backward yet (ROADMAP.md, queue 1,
+item 6.4).
 """
 from __future__ import annotations
 

@@ -1,8 +1,10 @@
 """Decoder LM, the split-point machinery and the serving paths
 (counterpart of ``repro.models.transformer`` for decoders whose
-``block_pattern`` is made of ``attn`` blocks (GQA or MLA) and ``mamba``
-blocks, dense or mixture-of-experts: the attention decoders' ``("attn",)``
-and jamba's 8-block hybrid).
+``block_pattern`` is made of ``attn`` blocks (GQA or MLA), ``mamba``
+blocks and xLSTM's ``mlstm`` and ``slstm`` blocks, dense or
+mixture-of-experts: the attention decoders' ``("attn",)``, jamba's 8-block
+hybrid and xlstm-350m's mlstm ×3, slstm). An xLSTM block has no
+feed-forward, whatever ``d_ff`` says.
 
 Parameters are a nested dict of tensors whose per-layer leaves are stacked
 along a leading ``n_units`` dim, as in the reference: the ZO noise is laid
@@ -32,9 +34,14 @@ block position, stacked over the units, as the reference does:
   (n_units, B, S, qk_rope_dim)}, no window; decode rebuilds the heads'
   keys and values through the absorbed weights;
 - Mamba: the recurrent state {"h" (n_units, B, d_inner, d_state) f32,
-  "conv" (n_units, B, d_conv - 1, d_inner)}.
-``decode_step`` writes the new token's entries (a Mamba block's new h and
-conv) into the cache in place.
+  "conv" (n_units, B, d_conv - 1, d_inner)};
+- mLSTM: {"C" (n_units, B, H, dh, dh), "n" (n_units, B, H, dh), "m"
+  (n_units, B, H)}, f32;
+- sLSTM: {"c", "n", "m", "h"} (n_units, B, H, dh), f32;
+every "m" stabiliser starting at -1e30, as the reference's ``init_cache``
+patches it.
+``decode_step`` writes the new token's entries (a Mamba, mLSTM or sLSTM
+block's new state) into the cache in place.
 Prefill attends through the flash kernel (GQA with the window where the
 prompt exceeds it; the reference's banded form ``_banded_swa`` computes
 the same and is not ported; MLA at its (192, 128) head dims), and keeps
@@ -63,37 +70,48 @@ Params = Dict[str, Any]
 MOE_AUX_COEF = 0.01
 
 
+_PORTED_BLOCKS = {"attn", "mamba", "mlstm", "slstm"}
+_XLSTM_BLOCKS = ("mlstm", "slstm")
+
+
 def _require_ported(cfg: ModelConfig) -> None:
-    """Admit patterns of GQA or MLA ``attn`` blocks and ``mamba`` blocks,
-    dense or MoE."""
-    if (not set(cfg.block_pattern) <= {"attn", "mamba"}
+    """Admit patterns of GQA or MLA ``attn`` blocks, ``mamba`` blocks and
+    xLSTM's ``mlstm`` and ``slstm`` blocks, dense or MoE."""
+    if (not set(cfg.block_pattern) <= _PORTED_BLOCKS
             or cfg.attn_impl not in ("gqa", "mla")
             or cfg.is_encoder_decoder or cfg.n_image_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: only decoders of GQA or MLA attn blocks and Mamba "
-            f"blocks (dense or MoE) are ported; xLSTM, cross-attention and "
-            f"encoder-decoder models follow (ROADMAP.md, queue 1, item 6)")
+            f"{cfg.name}: only decoders of GQA or MLA attn blocks, Mamba "
+            f"blocks and xLSTM blocks (dense or MoE) are ported; "
+            f"cross-attention and encoder-decoder models follow (ROADMAP.md, "
+            f"queue 1, item 6)")
 
 
 # ===========================================================================
 # init
 # ===========================================================================
 
-def _has_ffn(cfg: ModelConfig) -> bool:
-    """Every ported block (attention or Mamba) has its feed-forward where
-    the config has one."""
+def _has_ffn(cfg: ModelConfig, btype: str) -> bool:
+    """An attention or Mamba block has its feed-forward where the config
+    has one; an xLSTM block is self-contained and has none."""
+    if btype in _XLSTM_BLOCKS:
+        return False
     return cfg.d_ff > 0 or cfg.moe is not None
+
+
+_INIT_CORE = {"mamba": ssm.init_mamba, "mlstm": ssm.init_mlstm,
+              "slstm": ssm.init_slstm, "attn": attn.init_attn}
 
 
 def _init_block(cfg: ModelConfig, gen: torch.Generator, btype: str,
                 pos_in_unit: int, lead) -> Params:
     """Block ``pos_in_unit`` of the pattern, stacked over ``lead``: norm1
-    and its core (attention or Mamba), then norm2 and its feed-forward, an
-    MoE where ``cfg.layer_uses_moe(pos_in_unit)`` holds."""
+    and its core (attention, Mamba, mLSTM or sLSTM), then, where
+    ``_has_ffn`` holds, norm2 and its feed-forward, an MoE where
+    ``cfg.layer_uses_moe(pos_in_unit)`` holds."""
     block = {"norm1": init_norm(cfg, cfg.d_model, gen.device, lead),
-             "core": (ssm.init_mamba(cfg, gen, lead) if btype == "mamba"
-                      else attn.init_attn(cfg, gen, lead))}
-    if _has_ffn(cfg):
+             "core": _INIT_CORE[btype](cfg, gen, lead)}
+    if _has_ffn(cfg, btype):
         block["norm2"] = init_norm(cfg, cfg.d_model, gen.device, lead)
         block["ffn"] = (moe_lib.init_moe(cfg, gen, lead)
                         if cfg.layer_uses_moe(pos_in_unit)
@@ -155,12 +173,17 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor):
     return apply_mlp(cfg, p["ffn"], h), None
 
 
+# the recurrent blocks' full-sequence forwards: (y, final state)
+_FORWARD = {"mamba": ssm.mamba_forward, "mlstm": ssm.mlstm_forward,
+            "slstm": ssm.slstm_forward}
+
+
 def _apply_block(cfg: ModelConfig, p: Params, btype: str, x: torch.Tensor,
                  positions: torch.Tensor, *, causal: bool):
     """One block, full sequence: (x, aux or None)."""
     h = apply_norm(cfg, p["norm1"], x)
-    if btype == "mamba":
-        x = x + ssm.mamba_forward(cfg, p["core"], h)[0]
+    if btype in _FORWARD:
+        x = x + _FORWARD[btype](cfg, p["core"], h)[0]
     else:
         core = (attn.mla_attention if cfg.attn_impl == "mla"
                 else attn.gqa_attention)
@@ -376,10 +399,18 @@ def _chunked_ce(x: torch.Tensor, head: torch.Tensor, labels: torch.Tensor,
 # serving: cache init / prefill / decode
 # ===========================================================================
 
+_STATE_INIT = {"mamba": ssm.mamba_init_state, "mlstm": ssm.mlstm_init_state,
+               "slstm": ssm.slstm_init_state}
+
+
 def _block_cache_init(cfg: ModelConfig, btype: str, batch: int,
                       seq_len: int, lead, device) -> Params:
-    if btype == "mamba":
-        return ssm.mamba_init_state(cfg, batch, lead, device)
+    """A recurrent block's initial state (its "m" at -1e30: the
+    reference's ``init_cache`` stacks zeros and then patches every "m"
+    leaf to -1e30, which gives the same tree), or an attention block's
+    zero cache."""
+    if btype in _STATE_INIT:
+        return _STATE_INIT[btype](cfg, batch, lead, device)
     init = (attn.mla_init_cache if cfg.attn_impl == "mla"
             else attn.gqa_init_cache)
     return init(cfg, batch, seq_len, lead, device)
@@ -392,11 +423,17 @@ def init_cache(cfg: ModelConfig, batch: int, seq_len: int, *,
     ``attention.gqa_cache_len``; MLA {"c_kv", "k_rope"} (n_units, B,
     seq_len, r) and (n_units, B, seq_len, rope), in the model type; Mamba
     {"h" (n_units, B, d_inner, d_state) f32, "conv" (n_units, B, d_conv -
-    1, d_inner) in the model type}."""
+    1, d_inner) in the model type}; mLSTM {"C", "n", "m"} and sLSTM {"c",
+    "n", "m", "h"}, f32, "m" at -1e30."""
     _require_ported(cfg)
     return {f"b{j}": _block_cache_init(cfg, bt, batch, seq_len,
                                        (cfg.n_units,), device)
             for j, bt in enumerate(cfg.block_pattern)}
+
+
+# the recurrent blocks' one-token steps, each writing its state in place
+_DECODE = {"mamba": ssm.mamba_decode, "mlstm": ssm.mlstm_decode,
+           "slstm": ssm.slstm_decode}
 
 
 def _decode_block(cfg: ModelConfig, p: Params, btype: str, x: torch.Tensor,
@@ -404,8 +441,8 @@ def _decode_block(cfg: ModelConfig, p: Params, btype: str, x: torch.Tensor,
     """One block at one token: x after it. Its cache entries (this unit's
     views) are written in place."""
     h = apply_norm(cfg, p["norm1"], x)
-    if btype == "mamba":
-        y, _ = ssm.mamba_decode(cfg, p["core"], h, cache)
+    if btype in _DECODE:
+        y, _ = _DECODE[btype](cfg, p["core"], h, cache)
     else:
         decode = (attn.mla_decode if cfg.attn_impl == "mla"
                   else attn.gqa_decode)
@@ -420,7 +457,8 @@ def decode_step(cfg: ModelConfig, params: Params, token: torch.Tensor,
                 cache: Params, pos: int):
     """One-token decode. token: (B, 1) int; pos: the token's absolute
     position. Writes the token's cache entries (k and v, MLA's c_kv and
-    k_rope, a Mamba block's h and conv) into ``cache`` (in place) and
+    k_rope, a Mamba block's h and conv, an xLSTM block's state) into
+    ``cache`` (in place) and
     returns (logits (B, 1, V) in the model type, cache)."""
     _require_ported(cfg)
     x = params["embed"][token]
@@ -468,10 +506,10 @@ def _prefill_block(cfg: ModelConfig, p: Params, btype: str,
     latent and the rope key the attention rebuilt its keys and values
     from, right-padded; Mamba: the state after the prompt ({"h", "conv"};
     a prompt shorter than d_conv - 1 keeps the zero conv state, as the
-    reference does)."""
+    reference does); mLSTM and sLSTM: the state after the prompt."""
     h = apply_norm(cfg, p["norm1"], x)
-    if btype == "mamba":
-        y, cache = ssm.mamba_forward(cfg, p["core"], h)
+    if btype in _FORWARD:
+        y, cache = _FORWARD[btype](cfg, p["core"], h)
         x = x + y
     elif cfg.attn_impl == "mla":
         q, k, v, cache = attn.mla_qkv(cfg, p["core"], h, positions)

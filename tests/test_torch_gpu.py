@@ -63,6 +63,19 @@ saves chunk starts equal to the one that does not, its chunk starts
 equal to h_last of the sequence's heads; the autograd path on the card
 against the CPU's within the same; small f32 FedAvg and FedLoRA rounds
 of jamba SMOKE, card against CPU, within 1e-4.
+
+The sLSTM recurrence (xLSTM) against its plain version ref.slstm_ref at
+head dims 16, 32 and 256 (one block a head, and clusters of 8), S 1, 40
+and 512, from the initial and from a nonzero state: f32 hs and the final
+c, n, h within 1e-5 of each largest magnitude and m within 1e-5 of
+max(|m|, 1) (the kernel sums the recurrent product over d in another
+order); bf16 hs within two bf16 ulps of each element plus 1e-5 of
+max|hs| (an f32 difference can move the rounding), the state as in f32.
+Two launches are bit-equal, and the state given as ``out`` (decode's
+in-place state) gives the same results. Small f32 MU-SplitFed and GAS
+rounds of xlstm-350m widened by card_smoke_config (sLSTM head dim 32),
+card against CPU within 1e-4, and its serving, tokens equal and logits
+within 1e-4.
 """
 import numpy as np
 import pytest
@@ -75,6 +88,7 @@ from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                         rmsnorm_bwd_plan, rmsnorm_pair,
                                         rmsnorm_pair_bwd)
 from repro_torch.kernels.selective_scan import LANES, selective_scan
+from repro_torch.kernels.slstm import slstm
 
 pytestmark = pytest.mark.gpu
 
@@ -1447,3 +1461,218 @@ def test_selective_scan_bwd_plan(cuda):
             assert barriers == 1 + 32 // sub
             assert blocks * sms >= 16384 // channels
             assert clusters * cluster >= 16384 // channels
+
+
+def slstm_inputs(B, S, H, dh, dtype, device, nonzero=True, seed=5):
+    """The sLSTM kernel's inputs as an sLSTM block gives them: x_pre a
+    normal times 2 in the model type (gates out of their linear range), b
+    with its forget quarter at 3.0, r at its init scale 1/sqrt(dh); a
+    nonzero state (c and h normal, n >= 1, m near 0) or the initial one
+    (zeros, m at -1e30)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=device)
+
+    D = H * dh
+    b = torch.zeros(4 * D, device=device)
+    b[2 * D:3 * D] = 3.0
+    x_pre = (randn(B, S, 4 * D) * 2.0).to(dtype)
+    r = randn(4, H, dh, dh) / float(np.sqrt(dh))
+    if nonzero:
+        state = (randn(B, H, dh), randn(B, H, dh).abs() + 1.0,
+                 randn(B, H, dh) * 0.5, randn(B, H, dh) * 0.5)
+    else:
+        z = torch.zeros(B, H, dh, device=device)
+        state = (z, z.clone(), torch.full_like(z, -1e30), z.clone())
+    return (x_pre, b, r) + state
+
+
+def assert_slstm_close(got, want):
+    """hs: f32 within 1e-5 of max|hs|, bf16 within two ulps of each
+    element plus 1e-5 of max|hs|; c, n, h within 1e-5 of each largest
+    magnitude, m within 1e-5 of max(|m|, 1)."""
+    (hs, st), (whs, wst) = got, want
+    assert hs.shape == whs.shape and hs.dtype == whs.dtype
+    assert bool(torch.isfinite(hs.float()).all())
+    scale = float(whs.float().abs().max())
+    d = (hs.float() - whs.float()).abs()
+    if hs.dtype == torch.bfloat16:
+        assert bool((d <= 2.0 ** -6 * whs.float().abs()
+                     + 1e-5 * scale).all())
+    else:
+        assert float(d.max()) <= 1e-5 * scale
+    for k, (a, w) in enumerate(zip(st, wst)):
+        assert a.dtype == torch.float32 and a.shape == w.shape
+        floor = 1.0 if k == 2 else 0.0
+        assert float((a - w).abs().max()) <= 1e-5 * max(
+            float(w.abs().max()), floor)
+
+
+@pytest.mark.parametrize("case", [(2, 1, 4, 16), (2, 40, 4, 16),
+                                  (2, 40, 4, 32), (3, 40, 2, 32),
+                                  (1, 1, 4, 256), (1, 40, 4, 256),
+                                  (1, 512, 4, 256), (2, 65, 2, 64)],
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("nonzero", [False, True], ids=["init", "state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_matches_plain(cuda, case, nonzero, dtype):
+    """(B, S, H, dh): xlstm SMOKE's head dim 16 and the card SMOKE's 32
+    (one block a head), xlstm-350m's 256 (clusters of 8) and 64 (of 2);
+    one token, 40, 65 and 512. One launch a call."""
+    args = slstm_inputs(*case, dtype, cuda, nonzero)
+    before = build.LAUNCHES["slstm"]
+    got = slstm(*args)
+    assert build.LAUNCHES["slstm"] == before + 1
+    assert_slstm_close(got, ref.slstm_ref(*args))
+
+
+@pytest.mark.parametrize("dh", [32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_is_deterministic_and_takes_the_state_as_out(cuda, dh,
+                                                          dtype):
+    """Two launches give bit-equal hs and state; with ``out`` the input
+    state itself (decode's in-place state) the results equal a launch
+    into a new state."""
+    args = slstm_inputs(2, 300, 4, dh, dtype, cuda)
+    hs0, st0 = slstm(*args)
+    hs1, st1 = slstm(*args)
+    assert torch.equal(hs0, hs1)
+    assert all(torch.equal(a, b) for a, b in zip(st0, st1))
+    state = [t.clone() for t in args[3:]]
+    hs2, st2 = slstm(*args[:3], *state, out=state)
+    assert all(a is b for a, b in zip(st2, state))
+    assert torch.equal(hs2, hs0)
+    assert all(torch.equal(a, b) for a, b in zip(state, st0))
+
+
+def test_slstm_plan(cuda):
+    """Each instance's launch geometry from the library: dh / 32 blocks a
+    cluster (one at dh 16 and 32), 4 gates x the block's columns x the
+    splits of the sum over d make the 256 threads, the shared memory holds
+    two h buffers and the partial sums (r is in registers), and the card
+    holds at least one cluster."""
+    import ctypes
+    from repro_torch.kernels.slstm import HEAD_DIMS
+    for dh in HEAD_DIMS:
+        for code in (0, 1):
+            plan = (ctypes.c_int * 8)()
+            assert build.library().slstm_plan(dh, code, plan) == 0
+            cs, cols, threads, splits, regs, smem, blocks, clusters = plan
+            assert cs == max(1, dh // 32) and cs * cols == dh
+            assert 4 * cols * splits == threads == 256
+            assert regs > 0 and smem == 4 * (2 * dh + threads)
+            assert blocks >= 1 and clusters >= 1
+    plan = (ctypes.c_int * 8)()
+    assert build.library().slstm_plan(48, 0, plan) != 0
+
+
+def test_slstm_raises_on_what_it_does_not_take(cuda):
+    """A wrong dtype, a head dim with no instance, a mismatched or
+    non-contiguous state, an input on the CPU and a call under autograd
+    raise."""
+    args = list(slstm_inputs(1, 8, 4, 16, torch.float32, cuda))
+    with pytest.raises(TypeError):
+        slstm(args[0].half(), *args[1:])
+    bad = list(slstm_inputs(1, 8, 2, 48, torch.float32, cuda))
+    with pytest.raises(ValueError, match="head dim 48"):
+        slstm(*bad)
+    bad = list(args)
+    bad[3] = args[3][:, :2]
+    with pytest.raises(ValueError, match="c must be"):
+        slstm(*bad)
+    bad = list(args)
+    bad[6] = torch.empty(1, 4, 32, device=cuda)[..., ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        slstm(*bad)
+    bad = list(args)
+    bad[2] = args[2].cpu()
+    with pytest.raises(ValueError, match="r must be"):
+        slstm(*bad)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        slstm(args[0].clone().requires_grad_(), *args[1:])
+
+
+@pytest.mark.parametrize("algorithm", ["mu_splitfed", "gas"])
+def test_xlstm_round_card_matches_cpu(cuda, algorithm):
+    """One small f32 round of xlstm-350m SMOKE widened by
+    card_smoke_config (d_model 128: mLSTM heads of 64, sLSTM heads of 32),
+    counter noise and seed replay (GAS with a stale client), on the card
+    against the CPU: parameters, metrics and GAS's buffer within 1e-4; the
+    card's round launches the sLSTM kernel."""
+    from repro_torch.configs import SFLConfig, card_smoke_config
+    from repro_torch.core import prng
+    from repro_torch.core.baselines import gas_init_state, gas_round
+    from repro_torch.core.splitfed import mu_splitfed_round
+    from repro_torch.models import init_params, untie_params
+    from repro_torch.utils import tree
+    cfg = card_smoke_config("xlstm-350m")
+    params = untie_params(cfg, init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 2, 64))
+    sfl = SFLConfig(n_clients=2, tau=2, n_perturbations=2, cut_units=2,
+                    perturbation_dist="counter")
+    outs = []
+    for d in ("cpu", cuda):
+        b = {"tokens": torch.from_numpy(toks).to(d),
+             "labels": torch.from_numpy(np.roll(toks, -1, -1)).to(d)}
+        p = tree.tree_map(lambda a: a.to(d), params)
+        before = build.LAUNCHES["slstm"]
+        extra = []
+        if algorithm == "gas":
+            st = gas_init_state(cfg, sfl, p, b)
+            p, st, m = gas_round(cfg, sfl, p, st, b,
+                                 torch.tensor([1.0, 0.0], device=d),
+                                 prng.PRNGKey(3), aggregation="seed_replay")
+            extra = [*st.h_buffer.values()]
+        else:
+            p, m = mu_splitfed_round(cfg, sfl, p, b,
+                                     torch.tensor([1.0, 0.5], device=d),
+                                     prng.PRNGKey(3),
+                                     aggregation="seed_replay")
+        outs.append((tree.leaves(p), m, extra,
+                     build.LAUNCHES["slstm"] - before))
+    (p0, m0, e0, _), (p1, m1, e1, n) = outs
+    assert n > 0
+    for a, b in zip(p1, p0):
+        assert float((a.cpu().float() - b.float()).abs().max()) <= 1e-4
+    for f in m0._fields:
+        assert float((getattr(m1, f).cpu() - getattr(m0, f)).abs().max()) \
+            <= 1e-4
+    for a, b in zip(e1, e0):
+        assert float((a.cpu() - b).abs().max()) <= 1e-4
+
+
+def test_xlstm_serving_card_matches_cpu(cuda):
+    """xlstm-350m SMOKE widened by card_smoke_config, f32: serve.generate
+    of 8 greedy tokens after a 40-token prompt (the mLSTM's chunks of 16
+    and its tail) on the card against the CPU, tokens equal and the full
+    forward over prompt and tokens within 1e-4 of max(|logits|, 1); the
+    card's request launches slstm once a unit in the prefill and in every
+    decode step, and rmsnorm."""
+    from repro_torch.configs import card_smoke_config
+    from repro_torch.launch import serve
+    from repro_torch.models import init_params, logits_fn
+    from repro_torch.utils import tree
+    cfg = card_smoke_config("xlstm-350m")
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40)))
+    outs = []
+    for d in ("cpu", cuda):
+        p = tree.tree_map(lambda a: a.to(d), params)
+        before = dict(build.LAUNCHES)
+        out = serve.generate(cfg, p, {"tokens": toks.to(d)}, 40, 8)
+        n = {k: build.LAUNCHES[k] - before.get(k, 0)
+             for k in ("slstm", "rmsnorm")}
+        with torch.inference_mode():
+            full = logits_fn(cfg, p, {"tokens": torch.cat([toks.to(d), out],
+                                                          1)})
+        outs.append((out.cpu(), full.cpu(), n))
+    (t0, l0, _), (t1, l1, n) = outs
+    assert torch.equal(t0, t1)
+    assert float((l1 - l0).abs().max()) <= \
+        1e-4 * max(float(l0.abs().max()), 1.0)
+    # the prefill's and the 8 decode steps' launches (generate steps once
+    # a token, the last one's logits unused), one a unit each
+    assert n["slstm"] == cfg.n_units * 9 and n["rmsnorm"] > 0

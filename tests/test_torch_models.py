@@ -89,15 +89,15 @@ def test_forward_halves_match_reference(arch, dtype, cut):
 @pytest.mark.parametrize("arch", ["olmo-1b", "paper-opt-1.3b", "qwen3-14b",
                                   "internlm2-1.8b", "mistral-nemo-12b",
                                   "mixtral-8x22b", "deepseek-v2-236b",
-                                  "jamba-1.5-large-398b"])
+                                  "jamba-1.5-large-398b", "xlstm-350m"])
 def test_configs_match_reference(arch):
     """Every field equal; the nested MoEConfig (mixtral, deepseek-v2,
-    jamba) and MambaConfig (jamba) field by field, since the two packages'
-    classes differ."""
+    jamba), MambaConfig (jamba) and XLSTMConfig (xlstm) field by field,
+    since the two packages' classes differ."""
     for smoke in (False, True):
         j = dict(j_get_config(arch, smoke=smoke).__dict__)
         t = dict(t_get_config(arch, smoke=smoke).__dict__)
-        for sub in ("moe", "mamba"):
+        for sub in ("moe", "mamba", "xlstm"):
             js, ts = j.pop(sub), t.pop(sub)
             assert (ts is None) == (js is None)
             if js is not None:
@@ -107,7 +107,7 @@ def test_configs_match_reference(arch):
 
 def test_unported_arch_names_roadmap():
     with pytest.raises(KeyError, match="ROADMAP"):
-        t_get_config("xlstm-350m")
+        t_get_config("whisper-tiny")
 
 
 def test_converter_round_trip(arch):

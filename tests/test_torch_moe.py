@@ -353,10 +353,9 @@ def _port_config(arch):
     return ModelConfig(**kw)
 
 
-@pytest.mark.parametrize("arch", ["xlstm-350m", "llama-3.2-vision-90b",
-                                  "whisper-tiny"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-90b", "whisper-tiny"])
 def test_unported_families_raise_naming_the_queue(arch):
-    """The families not ported yet (xLSTM, the VLM's cross-attention, the
+    """The families not ported yet (the VLM's cross-attention, the
     encoder-decoder), built field for field from the
     reference's SMOKE configs, raise NotImplementedError naming ROADMAP
     queue 1 item 6 at init_params and init_cache."""

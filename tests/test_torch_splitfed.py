@@ -200,7 +200,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.moe", "repro_torch.models.ssm",
             "repro_torch.kernels.selective_scan",
             "repro_torch.configs.mixtral_8x22b",
-            "repro_torch.configs.jamba_1_5_large_398b"} <= set(mods)
+            "repro_torch.configs.jamba_1_5_large_398b",
+            "repro_torch.kernels.slstm",
+            "repro_torch.configs.xlstm_350m"} <= set(mods)
     assert len(mods) >= 40
 
 
@@ -211,6 +213,7 @@ def test_port_imports_neither_jax_nor_repro():
                                     "tools/rmsnorm_bwd_sweep.py",
                                     "tools/scan_ab.py",
                                     "tools/scan_bwd_ab.py",
+                                    "tools/slstm_sweep.py",
                                     "tools/zo_sweep.py",
                                     "tools/threefry_sweep.py"])
 def test_chip_scripts_import_neither_jax_nor_repro(script):
