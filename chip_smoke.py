@@ -64,13 +64,15 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      bit-equal and z, B and C read in place; its geometry first (cluster
      size, barriers a chunk, registers, shared memory, blocks an SM); the
      sLSTM recurrence (slstm) against its plain version at path 11's
-     round, prefill and decode shapes (head dim 256, clusters of 8
-     blocks) in bf16 (and f32 but the prefill) and at the card SMOKE's and
-     SMOKE's head dims 32 and 16 in f32, from a nonzero state: hs within
-     1e-5 of max|hs| (f32) or two bf16 ulps of each element, the state
-     within 1e-5; two launches bit-equal, the state as out equal; each
-     instance's geometry first (cluster size, columns, registers, shared
-     memory, clusters at once), each case's time a token step beside;
+     round, prefill, 4 x 512 serving prefill and decode shapes (head dim
+     256, a cluster a head and group of batch rows) in bf16 (and f32 at
+     the round and decode) and at the card SMOKE's and SMOKE's head dims
+     32 and 16 in f32, from a nonzero state: hs within 1e-5 of max|hs|
+     (f32) or two bf16 ulps of each element, the state within 1e-5; two
+     launches bit-equal, the state as out equal; each instance's geometry
+     first (cluster size, batch rows a cluster, columns, registers, shared
+     memory, clusters at once) and each case's waves, each case's time a
+     token step beside;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
@@ -191,7 +193,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      its prefill's under "tokens_4096" and its decode's under "decode",
      and its backward's row at the round shape, the 4096-token case under
      "tokens_4096"; the sLSTM's row at path 11's round shape, its prefill's
-     under "tokens_4096" and its decode's under "decode"), then the result
+     under "tokens_4096", its 4 x 512 serving prefill's under
+     "serve_prefill" and its decode's under "decode"), then the result
      line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
@@ -1678,22 +1681,29 @@ def phase_selective_scan_bwd(dev) -> dict:
     return res
 
 
-# the sLSTM kernel's cases (B, S, H, dh): path 11's round and prefill and
-# its decode at xlstm-350m's head dim 256 (4 heads, d_model 1024), the card
-# SMOKE's head dim 32 (card_smoke_config: the small rounds and serving) and
-# SMOKE's 16 (the CPU tests' size); (label, shape, dtypes)
+# the sLSTM kernel's cases (B, S, H, dh): path 11's round, prefill, 4 x 512
+# serving prefill and its decode at xlstm-350m's head dim 256 (4 heads,
+# d_model 1024), the card SMOKE's head dim 32 (card_smoke_config: the small
+# rounds and serving) and SMOKE's 16 (the CPU tests' size); (label, shape,
+# dtypes)
 SLSTM_CASES = (("round (path 11)", (1, 512, 4, 256),
                 (torch.bfloat16, torch.float32)),
                ("prefill (path 11)", (1, 4096, 4, 256), (torch.bfloat16,)),
+               ("serve prefill (path 11)", (4, 512, 4, 256),
+                (torch.bfloat16,)),
                ("decode (path 11)", (4, 1, 4, 256),
                 (torch.bfloat16, torch.float32)),
                ("card SMOKE", (2, 64, 4, 32), (torch.float32,)),
                ("SMOKE", (2, 40, 4, 16), (torch.float32,)))
-# the sLSTM kernel's instances <type, columns a block, head dim> (an older
-# source's <type, columns> matches too)
+# the sLSTM kernel's instances <type, columns a block, head dim, batch rows
+# a cluster> (an older source's <type, columns[, head dim]> matches too)
 SLSTM_KERNEL = re.compile(r"slstm_kernelI(f|13__nv_bfloat16)Li(\d+)E"
-                          r"(?:Li(\d+)E)?E")
-SLSTM_KERNELS = 10
+                          r"(?:Li(\d+)E)?(?:Li(\d+)E)?E")
+# f32 and bf16 at 5 head dims, each with a group of batch rows a cluster
+# (B > 1) and with one (B = 1)
+SLSTM_KERNELS = 20
+# the fields slstm_plan fills
+SLSTM_PLAN = 20
 # f32 operations of the sLSTM recurrence per (token, column) beside the
 # product: the bias and the three sums of the pre-activations (8), the log
 # sigmoid (4: exp, log1p, min, subtraction), m' and the two exponentials'
@@ -1720,14 +1730,15 @@ def slstm_ops(B: int, S: int, H: int, dh: int) -> int:
 
 def report_ptxas_slstm(out: str) -> None:
     """Print ptxas's registers, shared memory and spills for each sLSTM
-    kernel instance (f32 and bf16 at head dims 16, 32, 64, 128 and 256);
-    none may spill."""
+    kernel instance (f32 and bf16 at head dims 16, 32, 64, 128 and 256,
+    with 4 batch rows a cluster and with 1); none may spill."""
     name, seen = None, set()
     for line in out.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             m = SLSTM_KERNEL.search(line)
             name = (f"slstm_kernel<{'f32' if m.group(1) == 'f' else 'bf16'}, "
-                    f"{m.group(2)}, {m.group(3)}>" if m else None)
+                    + ", ".join(g for g in m.groups()[1:] if g) + ">"
+                    if m else None)
             continue
         if name is None or not line.strip() or "Compile time" in line:
             continue
@@ -1797,34 +1808,54 @@ def phase_slstm(dev) -> dict:
     (``check_slstm``); two launches bit-equal, and the state given as
     ``out`` (decode's in-place state) equal to a launch into a new one.
     First each instance's launch geometry (``slstm_plan``: blocks a
-    cluster, columns a block, threads, splits of the sum over d,
+    cluster (a head), columns a block, threads, splits of the sum over d,
     registers, dynamic shared memory, blocks an SM, clusters the card
-    holds). Times: the kernel's device time per call (device_ms), per
-    token step beside it, the plain version's by CUDA events; the bound
-    from ``slstm_bytes`` and ``slstm_ops`` on the f32 cores. No PyTorch
-    call computes this function, so the library column is null. Returns
-    the round case's numbers (bf16), with prefill's under "tokens_4096"
-    and decode's under "decode"."""
+    holds, batch rows a cluster, slots of the x_pre ring, mbarriers a
+    buffer, outputs a thread; for the instance of a group of batch rows a
+    cluster (B > 1) and of one (B = 1)), and at each case its clusters and
+    the waves they take.
+    Times: the kernel's device time per call (device_ms), per token step
+    beside it, the plain version's by CUDA events; the bound from
+    ``slstm_bytes`` and ``slstm_ops`` on the f32 cores. No PyTorch call
+    computes this function, so the library column is null. Returns the
+    round case's numbers (bf16), with prefill's under "tokens_4096", the
+    4 x 512 serving prefill's under "serve_prefill" and decode's under
+    "decode"."""
     import ctypes
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.slstm import slstm
+    plans = {}
     for dh in (16, 32, 256):
         for code, name in ((0, "f32"), (1, "bf16")):
-            plan = (ctypes.c_int * 8)()
+            plan = (ctypes.c_int * SLSTM_PLAN)()
             build.check(build.library().slstm_plan(dh, code, plan),
                         "slstm_plan")
-            cs, cols, threads, splits, regs, smem, blocks, clusters = plan
-            print(f"slstm_kernel<{name}, {cols}> at head dim {dh}: clusters "
-                  f"of {cs} block(s) a (batch row, head), {cols} columns x 4 "
-                  f"gates x {splits} splits = {threads} threads a block, "
-                  f"{regs} registers, {smem} bytes of dynamic shared memory, "
-                  f"{blocks} block(s) an SM, {clusters} clusters at once")
+            plans[dh, code] = tuple(plan)
+            rows, ahead, bars, outs = plan[8:12]
+            for n, (cs, cols, threads, splits, regs, smem, blocks,
+                    clusters) in ((rows, plan[:8]), (1, plan[12:20])):
+                print(f"slstm_kernel<{name}, {cols}, {dh}, {n}> (B "
+                      f"{'> 1' if n > 1 else '= 1'}): clusters of {cs} "
+                      f"block(s) a (head, {n} batch row(s)), {cols} columns "
+                      f"x 4 gates / {outs} outputs a thread x {splits} "
+                      f"splits = {threads} threads a block, {regs} "
+                      f"registers, {smem} bytes of dynamic shared memory "
+                      f"(x_pre ring of {ahead} tokens, mbarriers: {bars} a "
+                      f"buffer at B > 1), {blocks} block(s) an SM, "
+                      f"{clusters} clusters at once")
     res = {"err": 0.0, "library_ms": None}
     for label, (B, S, H, dh), dtypes in SLSTM_CASES:
         for dtype in dtypes:
             args = slstm_inputs(B, S, H, dh, dtype, dev)
             what = (f"slstm {label} {str(dtype)[6:]} (B, S, H, dh) = "
                     f"{(B, S, H, dh)}")
+            plan = plans[dh, int(dtype == torch.bfloat16)]
+            cs, rows, at_once = ((plan[12], 1, plan[19]) if B == 1
+                                 else (plan[0], plan[8], plan[7]))
+            n_clusters = H * -(-B // rows)
+            print(f"{what}: {n_clusters} clusters of {cs} block(s) and "
+                  f"{rows} batch row(s) in {-(-n_clusters // at_once)} "
+                  f"wave(s)")
             got = slstm(*args)
             err = check_slstm(what, got, ref.slstm_ref(*args))
             again = slstm(*args)
@@ -1857,7 +1888,8 @@ def phase_slstm(dev) -> dict:
             if label.startswith("round"):
                 res.update(row)
             else:
-                res["tokens_4096" if S == 4096 else "decode"] = row
+                res["tokens_4096" if S == 4096 else "serve_prefill" if B > 1
+                    and S > 1 else "decode"] = row
     return res
 
 
@@ -4257,8 +4289,8 @@ def main() -> int:
          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "shape": r["shape"],
-         **{k: r[k] for k in ("mla", "pair", "tokens_4096", "decode")
-            if k in r}}
+         **{k: r[k] for k in ("mla", "pair", "tokens_4096", "decode",
+                              "serve_prefill") if k in r}}
         for name, source, rep, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -133,9 +133,12 @@ SIGNATURES = {
     # x_pre, b, r, c0, n0, m0, h0, hs, c, n, m, h (out), B, S, H, dh,
     # dtype, stream
     "slstm_launch": (_VOIDP,) * 12 + (ctypes.c_int,) * 5 + (_VOIDP,),
-    # dh, dtype, plan (int[8]): blocks a cluster, columns a block, threads,
-    # splits of the sum over d, registers, dynamic shared memory, blocks an
-    # SM, clusters the card holds at once
+    # dh, dtype, plan (int[20]): the instance of a group of batch rows a
+    # cluster (B > 1): blocks a cluster, columns a block, threads, splits
+    # of the sum over d, registers, dynamic shared memory, blocks an SM,
+    # clusters the card holds at once; batch rows a cluster, slots of the
+    # x_pre ring, mbarriers a buffer, outputs a thread; then the one-row
+    # instance's (B = 1) first eight fields
     "slstm_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
 }
 # entry points that return other than a C int

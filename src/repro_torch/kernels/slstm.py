@@ -27,7 +27,7 @@ from repro_torch.kernels import ref as _ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the head dims the kernel takes (csrc: takes): one block a head at 16 and
-# 32, clusters of dh / 32 blocks above
+# 32, clusters of dh / 32 blocks above (dh / 16 at B = 1)
 HEAD_DIMS = (16, 32, 64, 128, 256)
 
 

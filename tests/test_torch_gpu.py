@@ -65,14 +65,17 @@ against the CPU's within the same; small f32 FedAvg and FedLoRA rounds
 of jamba SMOKE, card against CPU, within 1e-4.
 
 The sLSTM recurrence (xLSTM) against its plain version ref.slstm_ref at
-head dims 16, 32 and 256 (one block a head, and clusters of 8), S 1, 40
-and 512, from the initial and from a nonzero state: f32 hs and the final
+head dims 16, 32, 64 and 256 (one block a head, and clusters of dh / 16
+blocks a head and group of batch rows), S 1 to 512, B from 1 to several
+groups of batch rows with a ragged last one, from the initial and from a
+nonzero state: f32 hs and the final
 c, n, h within 1e-5 of each largest magnitude and m within 1e-5 of
 max(|m|, 1) (the kernel sums the recurrent product over d in another
 order); bf16 hs within two bf16 ulps of each element plus 1e-5 of
 max|hs| (an f32 difference can move the rounding), the state as in f32.
-Two launches are bit-equal, and the state given as ``out`` (decode's
-in-place state) gives the same results. Small f32 MU-SplitFed and GAS
+Two launches are bit-equal, the state given as ``out`` (decode's
+in-place state) gives the same results, and so does an x_pre that is not
+16-byte aligned. Small f32 MU-SplitFed and GAS
 rounds of xlstm-350m widened by card_smoke_config (sLSTM head dim 32),
 card against CPU within 1e-4, and its serving, tokens equal and logits
 within 1e-4.
@@ -1509,18 +1512,44 @@ def assert_slstm_close(got, want):
             float(w.abs().max()), floor)
 
 
-@pytest.mark.parametrize("case", [(2, 1, 4, 16), (2, 40, 4, 16),
-                                  (2, 40, 4, 32), (3, 40, 2, 32),
-                                  (1, 1, 4, 256), (1, 40, 4, 256),
-                                  (1, 512, 4, 256), (2, 65, 2, 64)],
+def slstm_rows() -> int:
+    """The batch rows a cluster of the kernel (slstm_plan's field 8)."""
+    import ctypes
+    plan = (ctypes.c_int * 20)()
+    assert build.library().slstm_plan(256, 1, plan) == 0
+    return plan[8]
+
+
+# (B, S, H, dh), or a B from the kernel's batch rows a cluster, R: "R+1"
+# leaves a ragged last group, "3R+1" several groups and a ragged one
+SLSTM_SHAPES = [(2, 1, 4, 16), (2, 40, 4, 16), (2, 40, 4, 32), (3, 40, 2, 32),
+                (1, 1, 4, 256), (1, 40, 4, 256), (1, 512, 4, 256),
+                (2, 65, 2, 64), (4, 512, 4, 256), (4, 1, 4, 256),
+                ("R+1", 40, 4, 256), ("3R+1", 40, 4, 256),
+                ("3R+1", 33, 2, 64), ("R+1", 1, 4, 256), (1, 40, 2, 16),
+                (1, 33, 4, 32)]
+
+
+def slstm_shape(case):
+    B, *rest = case
+    if isinstance(B, str):
+        R = slstm_rows()
+        B = {"R+1": R + 1, "3R+1": 3 * R + 1}[B]
+    return (B, *rest)
+
+
+@pytest.mark.parametrize("case", SLSTM_SHAPES,
                          ids=lambda c: "x".join(map(str, c)))
 @pytest.mark.parametrize("nonzero", [False, True], ids=["init", "state"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_slstm_matches_plain(cuda, case, nonzero, dtype):
     """(B, S, H, dh): xlstm SMOKE's head dim 16 and the card SMOKE's 32
-    (one block a head), xlstm-350m's 256 (clusters of 8) and 64 (of 2);
-    one token, 40, 65 and 512. One launch a call."""
-    args = slstm_inputs(*case, dtype, cuda, nonzero)
+    (one block a head), xlstm-350m's 256 and 64 (clusters of dh / 16);
+    one token, 33, 40, 65 and 512; path 11's 4 x 512 serving prefill and
+    4-row decode (one cluster a head), a B with a ragged last group of
+    batch rows and one of several groups, and B = 1 (the one-row
+    instance) at each head dim. One launch a call."""
+    args = slstm_inputs(*slstm_shape(case), dtype, cuda, nonzero)
     before = build.LAUNCHES["slstm"]
     got = slstm(*args)
     assert build.LAUNCHES["slstm"] == before + 1
@@ -1533,8 +1562,9 @@ def test_slstm_is_deterministic_and_takes_the_state_as_out(cuda, dh,
                                                           dtype):
     """Two launches give bit-equal hs and state; with ``out`` the input
     state itself (decode's in-place state) the results equal a launch
-    into a new state."""
-    args = slstm_inputs(2, 300, 4, dh, dtype, cuda)
+    into a new state. B spans two groups of batch rows and a ragged
+    third."""
+    args = slstm_inputs(2 * slstm_rows() + 1, 300, 4, dh, dtype, cuda)
     hs0, st0 = slstm(*args)
     hs1, st1 = slstm(*args)
     assert torch.equal(hs0, hs1)
@@ -1547,24 +1577,57 @@ def test_slstm_is_deterministic_and_takes_the_state_as_out(cuda, dh,
 
 
 def test_slstm_plan(cuda):
-    """Each instance's launch geometry from the library: dh / 32 blocks a
-    cluster (one at dh 16 and 32), 4 gates x the block's columns x the
-    splits of the sum over d make the 256 threads, the shared memory holds
-    two h buffers and the partial sums (r is in registers), and the card
-    holds at least one cluster."""
+    """Each instance's launch geometry from the library, for a group of
+    batch rows a cluster (B > 1) and for one (B = 1): one block a head at
+    dh 16 and 32, a cluster of dh / columns blocks above; 4 gates x the
+    block's columns x the splits of the sum over d make the threads times
+    the outputs a thread, each thread's rows of r a multiple of 4, a gate
+    thread for each of the group's rows and the block's columns; the
+    shared memory holds the mbarriers (one a buffer, or one a buffer and
+    source block), two h buffers and two sets of partial sums of the
+    group's rows and the x_pre ring; the card holds at least one cluster,
+    and at dh 256 the 4 heads x the groups of path 11's 4 serving rows in
+    one wave."""
     import ctypes
     from repro_torch.kernels.slstm import HEAD_DIMS
     for dh in HEAD_DIMS:
-        for code in (0, 1):
-            plan = (ctypes.c_int * 8)()
+        for code, elem in ((0, 4), (1, 2)):
+            plan = (ctypes.c_int * 20)()
             assert build.library().slstm_plan(dh, code, plan) == 0
-            cs, cols, threads, splits, regs, smem, blocks, clusters = plan
-            assert cs == max(1, dh // 32) and cs * cols == dh
-            assert 4 * cols * splits == threads == 256
-            assert regs > 0 and smem == 4 * (2 * dh + threads)
-            assert blocks >= 1 and clusters >= 1
-    plan = (ctypes.c_int * 8)()
+            rows, ahead, bars, outs = plan[8:12]
+            assert rows >= 1 and ahead >= 2 and outs >= 1
+            for n, (cs, cols, threads, splits, regs, smem, blocks,
+                    clusters) in ((rows, plan[:8]), (1, plan[12:20])):
+                assert cs * cols == dh and (cs == 1) == (dh <= 32)
+                assert 4 * cols * splits == threads * outs
+                assert threads % 32 == 0 and n * cols <= threads
+                assert (dh // splits) % 4 == 0
+                nbar = 1 if bars == 1 else cs
+                assert smem == (-(-2 * nbar * 8 // 16) * 16
+                                + 4 * (2 * n * dh + 2 * splits * n * 4 * cols)
+                                + elem * ahead * n * 4 * cols)
+                assert regs > 0 and blocks >= 1 and clusters >= 1
+            if dh == 256:
+                assert 4 * -(-4 // rows) <= plan[7]
+    plan = (ctypes.c_int * 20)()
     assert build.library().slstm_plan(48, 0, plan) != 0
+
+
+def test_slstm_takes_an_unaligned_x_pre(cuda):
+    """An x_pre that is contiguous but not 16-byte aligned (a view from an
+    element's offset) is read element by element and gives the same hs
+    and state as an aligned copy."""
+    for dtype in (torch.float32, torch.bfloat16):
+        args = slstm_inputs(slstm_rows() + 1, 24, 4, 256, dtype, cuda)
+        x = args[0]
+        flat = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+        shifted = flat[1:].view(x.shape)
+        shifted.copy_(x)
+        assert shifted.data_ptr() % 16 != 0 and shifted.is_contiguous()
+        got = slstm(shifted, *args[1:])
+        want = slstm(*args)
+        assert torch.equal(got[0], want[0])
+        assert all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
 
 
 def test_slstm_raises_on_what_it_does_not_take(cuda):

@@ -219,14 +219,18 @@ def test_port_imports_neither_jax_nor_repro():
 def test_chip_scripts_import_neither_jax_nor_repro(script):
     """The card's machine has no jax: the scripts run there import the
     port and torch only (checked in a fresh interpreter); each sweep's
-    edits still apply to the committed kernel source it names."""
+    edits (VARIANTS, and SWEEP and TIMELINE where it has them) still
+    apply to the committed kernel source it names."""
     code = (
         "import importlib.util, sys\n"
         f"spec = importlib.util.spec_from_file_location('s', {str(ROOT / script)!r})\n"
         "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m)\n"
         "if hasattr(m, 'VARIANTS'):\n"
         "    src = (m.build.CSRC / m.SOURCE).read_text()\n"
-        "    for edits in m.VARIANTS.values(): m.variant_source(src, edits)\n"
+        "    for edits in [*m.VARIANTS.values(),\n"
+        "                  *getattr(m, 'SWEEP', {}).values(),\n"
+        "                  getattr(m, 'TIMELINE', [])]:\n"
+        "        m.variant_source(src, edits)\n"
         "bad = [n for n in sys.modules if n.split('.')[0] in "
         "('jax', 'jaxlib', 'repro') or n.startswith('jax')]\n"
         "assert not bad, bad\n")
