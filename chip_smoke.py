@@ -9,12 +9,13 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
   2. build the kernels from src/repro_torch/kernels/csrc (one nvcc process
      per source, all at once) and print the seconds; beside them,
      flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-     threefry.cu, rmsnorm.cu, selective_scan.cu, selective_scan_bwd.cu
-     and slstm.cu with -Xptxas -v: the kernels' registers, shared memory,
-     stack frames and spills are printed (the bf16 flash kernels, every
-     flash backward kernel, each (d_qk, d_v) pair's, every rmsnorm backward
-     kernel, the thirteen selective-scan kernels, forward and backward,
-     and the ten sLSTM kernels must not spill); the
+     threefry.cu, rmsnorm.cu, selective_scan.cu, selective_scan_bwd.cu,
+     slstm.cu and slstm_bwd.cu with -Xptxas -v: the kernels' registers,
+     shared memory, stack frames and spills are printed (the bf16 flash
+     kernels, every flash backward kernel, each (d_qk, d_v) pair's, every
+     rmsnorm backward kernel, the thirteen selective-scan kernels, forward
+     and backward, the forty sLSTM kernels, inference and saving, and the
+     twenty sLSTM backward kernels must not spill); the
      built library's
      SASS must hold HMMA (tensor-core) instructions in the bf16 flash
      kernels (cuobjdump -sass; the check says so if the toolkit has no
@@ -72,7 +73,16 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      launches bit-equal, the state as out equal; each instance's geometry
      first (cluster size, batch rows a cluster, columns, registers, shared
      memory, clusters at once) and each case's waves, each case's time a
-     token step beside;
+     token step beside; and the sLSTM backward (slstm_bwd) against its
+     plain version (ref.slstm_bwd_ref) at path 11's round shape in bf16
+     and f32, its grouped rows (4,512) and a 4096-token chain in bf16,
+     from a nonzero state with nonzero cotangents, both on the saving
+     forward's record: dx_pre within 2^-7 (bf16) or 1e-5 (f32), db, dr
+     and the state's cotangents within 1e-5, of each output's largest
+     magnitude; two launches bit-equal; the saving forward's hs and state
+     bit-equal to the inference forward's, its record within the
+     forward's tolerance of the plain record;
+     each case's time a token step beside the forward's;
   4. small f32 rounds on the card against the same rounds on the CPU
      (MU-SplitFed under counter, gaussian and sphere noise, dense and
      seed_replay; vanilla SplitFed; GAS with a stale client; each on
@@ -81,7 +91,8 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      FedAvg with SGD and AdamW, FedLoRA, and FedAvg with SGD on
      deepseek-v2-236b at (192, 128); MU-SplitFed and GAS, FedAvg with SGD
      and FedLoRA on jamba-1.5-large-398b SMOKE widened to d_head 64;
-     MU-SplitFed and GAS on xlstm-350m SMOKE at d_model 128) and
+     MU-SplitFed and GAS, FedAvg with SGD and FedLoRA on xlstm-350m SMOKE
+     at d_model 128) and
      small f32
      serving (mixtral-8x22b past its window, qwen3-14b, deepseek-v2-236b,
      jamba-1.5-large-398b, xlstm-350m), then
@@ -184,7 +195,11 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      round; every request's and the run's zo_update, zo_replay, rmsnorm
      and slstm launches equal to the counts derived from their structure
      (``xlstm_request_launches``, ``zo_round_launches``: 76 sLSTM launches
-     a round);
+     a round); (c) one FedAvg round (SGD) and (d) one FedLoRA round
+     through the driver (M=2, batch 1, seq 512), the sLSTM backward
+     launched for each client's 6 sLSTM blocks, every leaf (FedAvg) or
+     every LoRA B (FedLoRA; A's gradient is 0 at the reference's B = 0)
+     moved and FedLoRA's base untouched, each peak beside its reckoning;
   5. one JSON line with every kernel's numbers (launches summed over the
      paths; the flash row and the flash backward's row carry their MLA
      instance's numbers under "mla", with the launches the wrappers
@@ -194,8 +209,10 @@ Phases (each raises on failure; the exit code is 0 only if all pass):
      and its backward's row at the round shape, the 4096-token case under
      "tokens_4096"; the sLSTM's row at path 11's round shape, its prefill's
      under "tokens_4096", its 4 x 512 serving prefill's under
-     "serve_prefill" and its decode's under "decode"), then the result
-     line.
+     "serve_prefill" and its decode's under "decode"; its backward's row
+     at the round shape (ms the whole call, the chain's launch under
+     "chain_ms"), the 4096-token chain under "tokens_4096" and the grouped
+     rows under "grouped_rows"), then the result line.
 
 Timing: CUDA events around repeated launches after a warm-up (for the
 noise kernels at the path leaves, with the SM clock read by nvidia-smi
@@ -209,7 +226,8 @@ device memory; the event-timed loop is printed beside them, labelled as
 host-paced. Bounds: the larger of
 bytes / 3.35 TB/s and operations / the card's peak for their type (989
 TFLOP/s bf16 tensor cores for attention on bf16 inputs, 67 TFLOP/s on the
-f32 CUDA cores for the noise kernels, the norm and the sLSTM recurrence,
+f32 CUDA cores for the noise kernels, the norm and the sLSTM recurrence
+and its backward,
 and for the selective scan its exponentials, logarithms and reciprocals on
 the SFU at 16 a clock an SM, 132 SMs at 1980 MHz); published H100 SXM
 numbers at a 700 W limit.
@@ -490,8 +508,8 @@ def phase_card():
 def phase_build():
     """Build the package's kernel library and, at the same time, -Xptxas -v
     builds of flash_attention.cu, flash_attention_bwd.cu, zo_update.cu,
-    threefry.cu, rmsnorm.cu, selective_scan.cu, selective_scan_bwd.cu and
-    slstm.cu.
+    threefry.cu, rmsnorm.cu, selective_scan.cu, selective_scan_bwd.cu,
+    slstm.cu and slstm_bwd.cu.
     Returns the zo
     kernels' SASS instructions per gaussian and the threefry kernels' per
     element."""
@@ -507,7 +525,7 @@ def phase_build():
         for src in ("flash_attention.cu", "flash_attention_bwd.cu",
                     "zo_update.cu", "threefry.cu", "rmsnorm.cu",
                     "selective_scan.cu", "selective_scan_bwd.cu",
-                    "slstm.cu")}
+                    "slstm.cu", "slstm_bwd.cu")}
     try:
         build.library()
     finally:
@@ -522,7 +540,7 @@ def phase_build():
     report_ptxas_norm_bwd(ptxas_out["rmsnorm.cu"])
     report_ptxas_scan(ptxas_out["selective_scan.cu"]
                       + ptxas_out["selective_scan_bwd.cu"])
-    report_ptxas_slstm(ptxas_out["slstm.cu"])
+    report_ptxas_slstm(ptxas_out["slstm.cu"] + ptxas_out["slstm_bwd.cu"])
     lib = build.library()
     for d, dv in FLASH_PAIRS:
         print(f"flash_fwd_bf16_kernel<{d}, {dv}>: dynamic shared memory "
@@ -1696,12 +1714,17 @@ SLSTM_CASES = (("round (path 11)", (1, 512, 4, 256),
                ("card SMOKE", (2, 64, 4, 32), (torch.float32,)),
                ("SMOKE", (2, 40, 4, 16), (torch.float32,)))
 # the sLSTM kernel's instances <type, columns a block, head dim, batch rows
-# a cluster> (an older source's <type, columns[, head dim]> matches too)
+# a cluster, the backward's record> (an older source's <type, columns[,
+# head dim[, rows]]> matches too)
 SLSTM_KERNEL = re.compile(r"slstm_kernelI(f|13__nv_bfloat16)Li(\d+)E"
-                          r"(?:Li(\d+)E)?(?:Li(\d+)E)?E")
+                          r"(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Lb([01])E)?E")
+# and the backward's <type, columns a block, head dim, batch rows a cluster>
+SLSTM_BWD_KERNEL = re.compile(r"slstm_bwd_kernelI(f|13__nv_bfloat16)"
+                              r"Li(\d+)ELi(\d+)ELi(\d+)EE")
 # f32 and bf16 at 5 head dims, each with a group of batch rows a cluster
-# (B > 1) and with one (B = 1)
-SLSTM_KERNELS = 20
+# (B > 1) and with one (B = 1), each an inference and a saving instance;
+# and the backward's twenty
+SLSTM_KERNELS = 60
 # the fields slstm_plan fills
 SLSTM_PLAN = 20
 # f32 operations of the sLSTM recurrence per (token, column) beside the
@@ -1728,17 +1751,31 @@ def slstm_ops(B: int, S: int, H: int, dh: int) -> int:
     return B * S * H * (8 * dh * dh + SLSTM_GATE_OPS * dh)
 
 
+def slstm_kernel_name(line: str):
+    """'slstm_kernel<type, columns, head dim, rows[, save]>' or
+    'slstm_bwd_kernel<type, columns, head dim, rows>' for a ptxas line
+    naming one, else None."""
+    for kernel, pattern in (("slstm_kernel", SLSTM_KERNEL),
+                            ("slstm_bwd_kernel", SLSTM_BWD_KERNEL)):
+        m = pattern.search(line)
+        if m:
+            args = ["f32" if m.group(1) == "f" else "bf16"]
+            args += [g for g in m.groups()[1:4] if g]
+            if m.groups()[4:] == ("1",):
+                args.append("save")
+            return f"{kernel}<{', '.join(args)}>"
+    return None
+
+
 def report_ptxas_slstm(out: str) -> None:
     """Print ptxas's registers, shared memory and spills for each sLSTM
     kernel instance (f32 and bf16 at head dims 16, 32, 64, 128 and 256,
-    with 4 batch rows a cluster and with 1); none may spill."""
+    with a group of batch rows a cluster and with 1; inference and
+    saving) and each of its backward's; none may spill."""
     name, seen = None, set()
     for line in out.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
-            m = SLSTM_KERNEL.search(line)
-            name = (f"slstm_kernel<{'f32' if m.group(1) == 'f' else 'bf16'}, "
-                    + ", ".join(g for g in m.groups()[1:] if g) + ">"
-                    if m else None)
+            name = slstm_kernel_name(line)
             continue
         if name is None or not line.strip() or "Compile time" in line:
             continue
@@ -1820,7 +1857,8 @@ def phase_slstm(dev) -> dict:
     computes this function, so the library column is null. Returns the
     round case's numbers (bf16), with prefill's under "tokens_4096", the
     4 x 512 serving prefill's under "serve_prefill" and decode's under
-    "decode"."""
+    "decode", and each case's us a token step under
+    "us_per_token_by_case"."""
     import ctypes
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.slstm import slstm
@@ -1843,7 +1881,7 @@ def phase_slstm(dev) -> dict:
                       f"(x_pre ring of {ahead} tokens, mbarriers: {bars} a "
                       f"buffer at B > 1), {blocks} block(s) an SM, "
                       f"{clusters} clusters at once")
-    res = {"err": 0.0, "library_ms": None}
+    res = {"err": 0.0, "library_ms": None, "us_per_token_by_case": {}}
     for label, (B, S, H, dh), dtypes in SLSTM_CASES:
         for dtype in dtypes:
             args = slstm_inputs(B, S, H, dh, dtype, dev)
@@ -1880,6 +1918,7 @@ def phase_slstm(dev) -> dict:
                   f"{plain_ms:.4f} ms  library none  bound {b_ms:.4f} ms "
                   f"({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
                   f"ms)  two launches bit-equal, the state as out equal")
+            res["us_per_token_by_case"][B, S, dh, dtype] = ms / S * 1e3
             if dtype != torch.bfloat16 or label.startswith(("card", "SMOKE")):
                 continue
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -1890,6 +1929,197 @@ def phase_slstm(dev) -> dict:
             else:
                 res["tokens_4096" if S == 4096 else "serve_prefill" if B > 1
                     and S > 1 else "decode"] = row
+    return res
+
+
+# the sLSTM backward's cases (B, S, H, dh): path 11 (c)'s round shape, a
+# group of batch rows (the B > 1 instance at path 11's serving rows) and
+# the chain at 4096 tokens, at xlstm-350m's head dim 256; (label, shape,
+# dtypes)
+SLSTM_BWD_CASES = (("round (path 11)", (1, 512, 4, 256),
+                    (torch.bfloat16, torch.float32)),
+                   ("grouped rows", (4, 512, 4, 256), (torch.bfloat16,)),
+                   ("chain 4096", (1, 4096, 4, 256), (torch.bfloat16,)))
+SLSTM_BWD_NAMES = ("dx_pre", "db", "dr", "dc0", "dn0", "dm0", "dh0")
+# f32 operations of the sLSTM backward per (token, column) beside the
+# products: the token's forward again without its sums (24 of
+# SLSTM_GATE_OPS), dhs plus the recurrent part (1), dpre_o (5), dc' and
+# dn' (6), the max of n' (3), df_g, di_g and dpre_z (9), dpre_i and dm'
+# (6), the max of m' (2), dpre_f (3) and the carried dc and dn (2)
+SLSTM_BWD_GATE_OPS = 61
+# fields of slstm_bwd_plan
+SLSTM_BWD_PLAN = 16
+
+
+def slstm_bwd_bytes(B: int, S: int, H: int, dh: int, elem: int) -> int:
+    """Bytes the sLSTM backward must move: the forward's record (8 f32 a
+    (token, column): the chain's 7 and h for dr) and dhs (D a token, the
+    model type) read, dx_pre (4·D) written, r read and dr and db written
+    once, the final state's cotangents read and the initial state's
+    written."""
+    D = H * dh
+    return (B * S * D * (8 * 4 + elem + 4 * elem) + 2 * 4 * H * dh * dh * 4
+            + 4 * D * 4 + 8 * B * D * 4)
+
+
+def slstm_bwd_ops(B: int, S: int, H: int, dh: int) -> int:
+    """f32 operations of the sLSTM backward with db and dr: the transposed
+    recurrent product and dr's product, 8·dh² a head, batch row and token
+    each (2 operations a multiply-add), SLSTM_BWD_GATE_OPS a (token,
+    column), and db's sum (4 a (token, column))."""
+    return B * S * H * (16 * dh * dh + (SLSTM_BWD_GATE_OPS + 4) * dh)
+
+
+def check_slstm_bwd(what: str, got, want) -> float:
+    """dx_pre within 2^-7 (bf16: rounded to it on both sides) or 1e-5
+    (f32) of its largest magnitude; db, dr and the initial state's
+    cotangents (f32) within 1e-5 of theirs; types and shapes equal.
+    Returns the largest |Δ| over them."""
+    worst = 0.0
+    for k, (name, g, w) in enumerate(zip(SLSTM_BWD_NAMES, got, want)):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"{what} {name}: {g.shape} {g.dtype} vs {w.shape} {w.dtype}")
+        require(bool(torch.isfinite(g.float()).all()),
+                f"{what} {name}: non-finite")
+        tol = 2.0 ** -7 if k == 0 and g.dtype == torch.bfloat16 else 1e-5
+        scale = float(w.float().abs().max())
+        err = max_err(g, w)
+        require(err <= tol * scale, f"{what} {name}: max |Δ| {err:.3e} of "
+                f"{scale:.3e} outside {tol:.1e} of it")
+        worst = max(worst, err)
+    return worst
+
+
+def check_slstm_record(what: str, got, want) -> None:
+    """The saving forward's record against ``ref.slstm_record_ref``: the
+    pre-activations and c, n, h within 1e-5 of each field's largest
+    magnitude (the forward's tolerance), m within 1e-5 of max(|m|, 1)
+    past token 0 and equal to the initial m at token 0."""
+    require(got.shape == want.shape and got.dtype == want.dtype,
+            f"{what}: record {got.shape} {got.dtype} vs {want.shape}")
+    for k in range(8):
+        g, w = got[:, :, k], want[:, :, k]
+        if k == 6:
+            require(torch.equal(g[:, 0], w[:, 0]),
+                    f"{what}: the record's m at token 0 is not m0")
+            g, w = g[:, 1:], w[:, 1:]
+        floor = 1.0 if k == 6 else 0.0
+        err = max_err(g, w) if w.numel() else 0.0
+        require(err <= 1e-5 * max(float(w.abs().max()) if w.numel() else 0,
+                                  floor),
+                f"{what}: the record's field {k} is {err:.3e} off the plain "
+                f"record")
+
+
+def phase_slstm_bwd(dev, fwd_us: dict) -> dict:
+    """The sLSTM backward (``slstm_bwd``: the reverse recurrence in one
+    launch from the saving forward's record, then dr's full-f32 product
+    and db's sum) against its plain version (``ref.slstm_bwd_ref``, the
+    reverse loop in PyTorch ops) on the same record, so both take each
+    max of a token's forward as the kernel's forward took it, at
+    SLSTM_BWD_CASES, from a nonzero state with nonzero dhs and
+    final-state cotangents (``check_slstm_bwd``); the saving forward's hs
+    and final state bit-equal to the inference forward's, its record
+    within the forward's tolerance of the plain record
+    (``check_slstm_record``, ``ref.slstm_record_ref``); two calls
+    bit-equal. First each instance's geometry (``slstm_bwd_plan``). Times:
+    the call's device time (device_ms over copies of the record past L2)
+    and its chain launch's alone, per token step beside the forward's
+    (``fwd_us``, phase_slstm's us a step by shape), the saving forward's
+    beside the inference forward's, the plain version's by CUDA events
+    (one call); the bound from ``slstm_bwd_bytes`` and ``slstm_bwd_ops``
+    on the f32 cores. No PyTorch call computes this function, so the
+    library column is null. Returns the round case's numbers (bf16), with
+    the 4096-token chain's under "tokens_4096" and the grouped rows' under
+    "grouped_rows"."""
+    import ctypes
+    from repro_torch.kernels import build, ref
+    from repro_torch.kernels.slstm import _launch, slstm_bwd
+    for dh in (16, 32, 256):
+        for code, name in ((0, "f32"), (1, "bf16")):
+            plan = (ctypes.c_int * SLSTM_BWD_PLAN)()
+            build.check(build.library().slstm_bwd_plan(dh, code, plan),
+                        "slstm_bwd_plan")
+            for n, (cs, cols, threads, rows, regs, smem, blocks,
+                    clusters) in (("groups", plan[:8]), ("1", plan[8:])):
+                print(f"slstm_bwd_kernel<{name}, {cols}, {dh}> (batch rows "
+                      f"a cluster: {n}): clusters of {cs} block(s), {cols} "
+                      f"columns, {threads} threads a block ({rows} rows of "
+                      f"r a warp), {regs} registers, {smem} bytes of "
+                      f"dynamic shared memory, {blocks} block(s) an SM, "
+                      f"{clusters} clusters at once")
+    res = {"err": 0.0, "library_ms": None}
+    for label, (B, S, H, dh), dtypes in SLSTM_BWD_CASES:
+        for dtype in dtypes:
+            args = slstm_inputs(B, S, H, dh, dtype, dev)
+            what = (f"slstm_bwd {label} {str(dtype)[6:]} (B, S, H, dh) = "
+                    f"{(B, S, H, dh)}")
+            g = torch.Generator(device=dev).manual_seed(9)
+            dhs = torch.randn(B, S, H * dh, generator=g, device=dev).to(dtype)
+            dfin = [torch.randn(B, H, dh, generator=g, device=dev)
+                    for _ in range(4)]
+            hs, st, saved = _launch(*args[:3], args[3:], None, save=True)
+            hs0, st0, _ = _launch(*args[:3], args[3:], None)
+            require(torch.equal(hs, hs0) and all(
+                torch.equal(a, b) for a, b in zip(st, st0)),
+                f"{what}: the saving forward differs from the inference one")
+            del hs, st, hs0, st0
+            check_slstm_record(what, saved, ref.slstm_record_ref(*args))
+            got = slstm_bwd(saved, args[2], dhs, dfin)
+            want, plain_ms = event_ms(lambda: ref.slstm_bwd_ref(
+                *args, dhs, *dfin, saved=saved))
+            err = check_slstm_bwd(what, got, want)
+            rel = max(max_err(a, b) / float(b.float().abs().max())
+                      for a, b in zip(got, want))
+            del want
+            again = slstm_bwd(saved, args[2], dhs, dfin)
+            require(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"{what}: two calls differ")
+            del got, again
+            res["err"] = max(res["err"], err)
+            nbytes = slstm_bwd_bytes(B, S, H, dh, dtype.itemsize)
+            sets = [(saved, dhs)] + [
+                (saved.clone(), dhs.clone())
+                for _ in range(min(3, L2_BYTES // nbytes + 1))]
+            by_kernel = {}
+            ms = device_ms(lambda t: slstm_bwd(t[0], args[2], t[1], dfin),
+                           sets, 5 if S >= 4096 else 10, by_kernel=by_kernel)
+            del sets
+            require(ms > 0, f"{what}: the profiler recorded no device time")
+            chain = [v for k, v in by_kernel.items() if "slstm_bwd_kernel" in k]
+            require(len(chain) == 1, f"{what}: the chain's launch is not "
+                    f"among the profiled kernels {sorted(by_kernel)}")
+            chain_ms = chain[0]
+            fwd = {}
+            fwd_ms = device_ms(lambda t: _launch(*t[:3], t[3:], None), [args],
+                               5 if S >= 4096 else 10)
+            save_ms = device_ms(lambda t: _launch(*t[:3], t[3:], None,
+                                                  save=True), [args],
+                                5 if S >= 4096 else 10)
+            fwd["inference"], fwd["saving"] = fwd_ms, save_ms
+            b_ms, b_by = bound(nbytes, slstm_bwd_ops(B, S, H, dh), "f32_core")
+            us = chain_ms / S * 1e3
+            print(f"{what}: max|Δ| {err:.3e} ({rel:.3e} of its output's "
+                  f"largest magnitude at most)  call {ms:.4f} ms (the chain "
+                  f"{chain_ms:.4f} ms, {us:.3f} us a token step against the "
+                  f"forward's {fwd_us.get((B, S, dh, dtype), float('nan')):.3f}"
+                  f"; dr and db {ms - chain_ms:.4f} ms)  plain "
+                  f"{plain_ms:.4f} ms  library none  bound {b_ms:.4f} ms "
+                  f"({b_by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms)  "
+                  f"two calls bit-equal; forward {fwd_ms:.4f} ms, saving "
+                  f"{save_ms:.4f} ms, bit-equal; by launch "
+                  + ", ".join(f"{k[:40]} {v:.4f} ms"
+                              for k, v in by_kernel.items()))
+            if dtype != torch.bfloat16:
+                continue
+            row = dict(ms=ms, chain_ms=chain_ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, us_per_token=us,
+                       forward_ms=fwd,
+                       shape=f"(B, S, H, dh) = {(B, S, H, dh)} bf16")
+            if label.startswith("round"):
+                res.update(row)
+            else:
+                res["tokens_4096" if S == 4096 else "grouped_rows"] = row
     return res
 
 
@@ -2443,13 +2673,16 @@ def small_rounds(dev, arch: str, n_kv_heads: int, cases):
 # olmo-1b (on deepseek-v2-236b's MLA it moved one by 2.7e-4, so MLA's
 # round runs SGD here; its AdamW round is held against the reference on
 # the CPU, tests/test_torch_mla_grad.py); jamba's FedAvg and FedLoRA
-# through the selective scan's backward at the card SMOKE's d_state 4
+# through the selective scan's backward at the card SMOKE's d_state 4;
+# xlstm's through the sLSTM backward at the card SMOKE's head dim 32
 FO_SMALL = (("fedavg", "sgd", 1e-2, "olmo-1b"),
             ("fedavg", "adamw", 1e-3, "olmo-1b"),
             ("fedlora", "sgd", 1e-2, "qwen3-14b"),
             ("fedavg", "sgd", 1e-2, "deepseek-v2-236b"),
             ("fedavg", "sgd", 1e-2, "jamba-1.5-large-398b"),
-            ("fedlora", "sgd", 1e-2, "jamba-1.5-large-398b"))
+            ("fedlora", "sgd", 1e-2, "jamba-1.5-large-398b"),
+            ("fedavg", "sgd", 1e-2, "xlstm-350m"),
+            ("fedlora", "sgd", 1e-2, "xlstm-350m"))
 
 
 def phase_small_fo(dev):
@@ -2461,7 +2694,9 @@ def phase_small_fo(dev):
     (192, 128) (the flash backward at that pair, the rmsnorm backward of
     its kv_norm and q_norm), FedAvg with SGD and FedLoRA on
     jamba-1.5-large-398b (the selective scan's backward at d_state 4; the
-    adapters on its attention block), each widened by
+    adapters on its attention block), FedAvg with SGD and FedLoRA on
+    xlstm-350m (no attention: the sLSTM backward at head dim 32 and the
+    rmsnorm backward; the adapters on the mLSTM blocks), each widened by
     ``card_smoke_config``."""
     import numpy as np
     from repro_torch.configs import card_smoke_config
@@ -2478,7 +2713,8 @@ def phase_small_fo(dev):
         toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
                                                  (2, 2, 64))
         keys = ("flash_attention_bwd", "rmsnorm_bwd",
-                "flash_attention_bwd (192, 128)", "selective_scan_bwd")
+                "flash_attention_bwd (192, 128)", "selective_scan_bwd",
+                "slstm_bwd")
         outs = {}
         for d in ("cpu", dev):
             p = tree.tree_map(lambda a: a.to(d), params)
@@ -2503,11 +2739,13 @@ def phase_small_fo(dev):
         require(err <= 1e-4, f"small round ({what}): card and CPU disagree")
         mla = cfg.attn_impl == "mla"
         mamba = "mamba" in cfg.block_pattern
-        require(n["flash_attention_bwd"] > 0 and (
+        xlstm = "slstm" in cfg.block_pattern
+        require((xlstm or n["flash_attention_bwd"] > 0) and (
             algorithm == "fedavg" or n["rmsnorm_bwd"] > 0) and (
             not mla or min(n["rmsnorm_bwd"],
                            n["flash_attention_bwd (192, 128)"]) > 0) and (
-            not mamba or n["selective_scan_bwd"] > 0),
+            not mamba or n["selective_scan_bwd"] > 0) and (
+            not xlstm or min(n["rmsnorm_bwd"], n["slstm_bwd"]) > 0),
             f"small round ({what}): a backward kernel did not launch")
 
 
@@ -3944,6 +4182,19 @@ XLSTM_KERNELS = ("zo_update", "zo_replay", "rmsnorm", "slstm")
 # the reference's own decode steps are 1.5-2.1e-6 off its logits_fn, the
 # port's 1.7-2.8e-6, and the port's chunk 32 against chunk 64 6.0e-6
 XLSTM_DECODE_MARGIN = 4.0
+# path 11 (c) and (d): one FedAvg round (one local SGD step) and one
+# FedLoRA round (rank 4, alpha 16 on the mLSTM blocks' wq and wv) through
+# the driver at the full published config, M=2, batch 1, seq 512, at
+# lr_client 1e-2 (the small rounds' SGD rate: at the driver's 5e-4 a bf16
+# weight's step falls below its half ulp for most elements). Every sLSTM
+# block lies behind b0's adapters, so both run the sLSTM backward 6 times
+# a client. FedAvg holds at least FEDAVG_MIN_BYTES_PER_PARAM_BYTE x the
+# parameter bytes (the global tree, a client copy, its gradients and an
+# f32 running sum; path 9 (c) measured 5.40x), FedLoRA about 1.1-1.65x
+# (path 10 (c) 1.098x, path 5 1.65x)
+XLSTM_FO_ARGV = ["--arch", "xlstm-350m", "--clients", "2", "--batch", "1",
+                 "--seq", "512", "--rounds", "1", "--chunk-size", "1",
+                 "--lr-client", "1e-2"]
 
 
 def xlstm_request_launches(cfg, gen: int) -> dict:
@@ -3984,6 +4235,109 @@ def zo_round_launches(cfg, sfl, params) -> dict:
                                   + server_fwd * server_units)}
 
 
+def xlstm_fo_round(dev, algorithm: str) -> dict:
+    """Path 11 (c) FedAvg or (d) FedLoRA: one round of xlstm-350m at its
+    full published config through the driver (``XLSTM_FO_ARGV``) with
+    ``drive``: the peak reckoned first and measured after, with the
+    round's seconds; slstm_bwd launched M x (the sLSTM blocks) times, the
+    rmsnorm backward too; the loss finite; FedAvg moves every leaf (each
+    compared whole with a host copy taken before), FedLoRA every LoRA B
+    (A's gradient is B's product, 0 at the reference's init B = 0, so each
+    A stays as it was) and leaves the base untouched; then, from the
+    allocator's trace of one more round (``peak_sites``), what is live at
+    its peak by the port's line that allocated it. Returns the
+    launches."""
+    from repro_torch.core import engine
+    from repro_torch.core.baselines import fedavg_round, fedlora_round
+    from repro_torch.launch import train
+    from repro_torch.models import param_count
+    from repro_torch.utils import tree
+    letter = "c" if algorithm == "fedavg" else "d"
+    name = f"{'FedAvg' if algorithm == 'fedavg' else 'FedLoRA'} path (11{letter}) xlstm-350m"
+    torch.cuda.empty_cache()
+    run = train.setup([*XLSTM_FO_ARGV, "--algorithm", algorithm])
+    gib = param_count(run.params) * 2 / 2 ** 30
+    nbytes = sum(a.numel() * a.element_size()
+                 for a in tree.leaves(run.params)) / 2 ** 30
+    card = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    ratio = (FEDAVG_MIN_BYTES_PER_PARAM_BYTE if algorithm == "fedavg"
+             else FEDLORA_ROUND_BYTES_PER_PARAM_BYTE)
+    M = run.sfl.n_clients
+    blocks = run.cfg.n_units * run.cfg.block_pattern.count("slstm")
+    print(f"{name}: reckoned peak {'at least ' if algorithm == 'fedavg' else ''}"
+          f"{ratio} x {gib:.2f} GiB of parameters = {ratio * gib:.2f} GiB of "
+          f"the card's {card:.1f} ({nbytes:.2f} GiB as allocated, the f32 "
+          f"leaves at 4 bytes); sLSTM backwards derived: {M} clients x "
+          f"{blocks} sLSTM blocks = {M * blocks}")
+    host = [a.cpu() for a in tree.leaves(run.params)]
+    init = (engine.get_algorithm("fedlora").init_state(run.cfg, run.sfl,
+                                                       run.params, None)
+            if algorithm == "fedlora" else None)
+    init_host = None if init is None else [
+        (path, a.cpu()) for path, a in tree.path_leaves(init)]
+    res, _, n, chunks = drive(dev, name, run, run.sfl, (
+        "rmsnorm", "rmsnorm_bwd", "slstm", "slstm_bwd"),
+        frozen=algorithm == "fedlora")
+    print(f"{name}: launches slstm {n.get('slstm')}, slstm_bwd "
+          f"{n.get('slstm_bwd')}, rmsnorm {n.get('rmsnorm')}, rmsnorm_bwd "
+          f"{n.get('rmsnorm_bwd')}")
+    require(n.get("slstm_bwd") == M * blocks,
+            f"{name}: {n.get('slstm_bwd')} sLSTM backwards, not the derived "
+            f"{M * blocks}")
+    leaves = [a.cpu() for a in tree.leaves(res.params)]
+    moved = [not torch.equal(a, b) for a, b in zip(leaves, host)]
+    if algorithm == "fedavg":
+        require(all(moved), f"{name}: {moved.count(False)} of {len(moved)} "
+                f"leaves did not move")
+        print(f"{name}: all {len(moved)} leaves moved")
+    else:
+        require(not any(moved), f"{name}: the base moved")
+        lora = dict((path, a.cpu()) for path, a in tree.path_leaves(res.state))
+        for path, a0 in init_host:
+            same = torch.equal(lora[path], a0)
+            require(same == path.endswith("/A"),
+                    f"{name}: adapter {path} {'did not move' if same else 'moved'}")
+        print(f"{name}: the base untouched; all {len(init_host) // 2} LoRA B "
+              f"moved, each A as initialised")
+    peak = max(c[2] for c in chunks)
+    print(f"{name}: a round {chunks[0][1]:.3f} s, peak {peak:.2f} GiB against "
+          f"the reckoning {ratio * gib:.2f} GiB; measured ratio "
+          f"{peak / gib:.3f} of the {gib:.2f} GiB of parameters")
+    require(peak < card, f"{name}: peak {peak:.2f} GiB over the card")
+    state = engine.get_algorithm(algorithm).init_state(run.cfg, run.sfl,
+                                                       res.params, None)
+    g = torch.Generator(device=dev).manual_seed(run.args.seed)
+    toks = torch.randint(run.cfg.vocab_size,
+                         (M, run.args.batch, run.args.seq + 1), generator=g,
+                         device=dev)
+    batches = {"tokens": toks[..., :-1], "labels": toks[..., 1:]}
+    mask = torch.ones(M, device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.memory._record_memory_history(enabled="all", context="all",
+                                             stacks="python")
+    try:
+        if algorithm == "fedavg":
+            out = fedavg_round(run.cfg, res.params, batches, mask,
+                               run.args.lr_client, eta_g=run.sfl.lr_global)
+        else:
+            out = fedlora_round(run.cfg, res.params, state, batches, mask,
+                                run.args.lr_client, eta_g=run.sfl.lr_global)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    del out
+    top, sites = peak_sites(snap["device_traces"][0])
+    print(f"{name}: one more round's peak {top / 2 ** 30:.3f} GiB above the "
+          f"{base / 2 ** 30:.3f} GiB before it; live at the peak:")
+    for b, site in sites:
+        print(f"  {b / 2 ** 30:8.3f} GiB  {site}")
+    del run, res, init, host, leaves, state, snap
+    torch.cuda.empty_cache()
+    return n
+
+
 def phase_xlstm(dev) -> dict:
     """Path 11: xlstm-350m at its full published config, on the card's own
     ``logits_fn`` as the reference:
@@ -4001,8 +4355,10 @@ def phase_xlstm(dev) -> dict:
          counter noise set after setup) with ``drive``: 3 rounds, one a
          chunk, then one profiled round; zo_update, zo_replay, rmsnorm and
          slstm launches equal to 3 x ``zo_round_launches``; peak memory
-         beside the parameter bytes.
-    Prints each part's seconds; returns the launches summed over a-b."""
+         beside the parameter bytes;
+      c. one FedAvg round through the driver (``xlstm_fo_round``);
+      d. one FedLoRA round the same way.
+    Prints each part's seconds; returns the launches summed over a-d."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
     from repro_torch.models import init_params, logits_fn, param_count
@@ -4093,6 +4449,11 @@ def phase_xlstm(dev) -> dict:
     del run, res
     torch.cuda.empty_cache()
     print(f"xlstm round path (11b): {time.perf_counter() - t0:.1f} s")
+    for algorithm, part in (("fedavg", "11c"), ("fedlora", "11d")):
+        t0 = time.perf_counter()
+        add(xlstm_fo_round(dev, algorithm))
+        print(f"xlstm {algorithm} path ({part}): "
+              f"{time.perf_counter() - t0:.1f} s")
     a, b = stats
     print(f"xlstm path: 4 x 512 prefill {a['prefill_ms']:.1f} ms, decode "
           f"{a['decode_ms']:.2f} ms a step, {a['tok_s']:.1f} tokens/s, peak "
@@ -4197,6 +4558,7 @@ def main() -> int:
     scan = phase_selective_scan(dev)
     scan_bwd = phase_selective_scan_bwd(dev)
     slstm_res = phase_slstm(dev)
+    slstm_bwd_res = phase_slstm_bwd(dev, slstm_res.pop("us_per_token_by_case"))
     t_small = time.perf_counter()
     phase_small_round(dev)
     phase_small_fo(dev)
@@ -4262,7 +4624,10 @@ def main() -> int:
             # no Pallas kernel: the reference's jnp _slstm_step under a
             # lax.scan over the tokens (XLA)
             ("slstm", src + "slstm.cu", "src/repro/models/ssm.py:319",
-             slstm_res)]
+             slstm_res),
+            # no Pallas kernel: XLA's autodiff of that scan
+            ("slstm_bwd", src + "slstm_bwd.cu",
+             "src/repro/models/ssm.py:319", slstm_bwd_res)]
     for name, *_ in rows:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was launched on no path")
@@ -4290,7 +4655,8 @@ def main() -> int:
          "bound_by": r["bound_by"], "library_ms": r["library_ms"],
          "shape": r["shape"],
          **{k: r[k] for k in ("mla", "pair", "tokens_4096", "decode",
-                              "serve_prefill") if k in r}}
+                              "serve_prefill", "grouped_rows", "chain_ms",
+                              "us_per_token", "forward_ms") if k in r}}
         for name, source, rep, r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

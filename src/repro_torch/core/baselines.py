@@ -25,9 +25,9 @@ g + η_g·Σ w_m·(p_m - g) in f32. The reference stacks the M trained copies;
 the port trains the clients one after another and keeps an f32 running
 sum, so its peak memory is one client copy plus that sum. A model with
 Mamba blocks (jamba) differentiates its selective scan through the scan's
-backward kernel. A model with xLSTM blocks (xlstm-350m) raises
-NotImplementedError in both first-order rounds, on either device: the
-sLSTM kernel has no backward yet.
+backward kernel, and one with xLSTM blocks (xlstm-350m) its sLSTM
+recurrence through the sLSTM's backward kernel (the mLSTM's chunks are
+PyTorch's autograd).
 """
 from __future__ import annotations
 
@@ -186,16 +186,6 @@ def _grads(loss_of, params: Params) -> Params:
                                  for x, g in zip(xs, gs)])
 
 
-def _require_backward(cfg: ModelConfig) -> None:
-    """The first-order rounds differentiate the whole model; an xLSTM
-    model's sLSTM recurrence has no backward kernel (refused on either
-    device, so that the CPU does not train what the card cannot)."""
-    if {"mlstm", "slstm"} & set(cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: FedAvg and FedLoRA need the sLSTM recurrence's "
-            f"backward, which is not ported (ROADMAP.md, queue 1, item 6.4)")
-
-
 def _client_batch(batches, m: int, e=None):
     return {k: (v[m] if e is None else v[m, e]) for k, v in batches.items()}
 
@@ -229,7 +219,6 @@ def fedavg_round(cfg: ModelConfig, params: Params, batches, active_mask,
     global parameters and a fresh optimizer state, then the FedAvg
     aggregate. Local batches: leaves (M, E, b, S) when local_steps > 1,
     else (M, b, S)."""
-    _require_backward(cfg)
     init_opt, update = make_optimizer(optimizer)
 
     def local(m):
@@ -251,7 +240,6 @@ def fedlora_round(cfg: ModelConfig, params: Params, lora, batches,
     """Clients take one SGD step on the LoRA adapters only (the base
     parameters never move); only (A, B) are aggregated. Returns the new
     adapter tree."""
-    _require_backward(cfg)
 
     def local(m):
         b = _client_batch(batches, m)

@@ -19,7 +19,8 @@ kernels; the flash forward's and backward's are also counted by head-dim
 pair, under ``"flash_attention (d_qk, d_v)"`` and
 ``"flash_attention_bwd (d_qk, d_v)"``. ``selective_scan_bwd.cu`` includes
 ``selective_scan.cu`` (its constants and helpers, not its entry points),
-which SOURCES holds too, so the hash covers what it compiles.
+which SOURCES holds too, so the hash covers what it compiles;
+``slstm_bwd.cu`` includes ``slstm.cu`` the same way.
 """
 from __future__ import annotations
 
@@ -35,7 +36,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("zo_update.cu", "flash_attention.cu", "flash_attention_bwd.cu",
            "rmsnorm.cu", "threefry.cu", "selective_scan.cu",
-           "selective_scan_bwd.cu", "slstm.cu")
+           "selective_scan_bwd.cu", "slstm.cu", "slstm_bwd.cu")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 BASE_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC")
@@ -133,6 +134,17 @@ SIGNATURES = {
     # x_pre, b, r, c0, n0, m0, h0, hs, c, n, m, h (out), B, S, H, dh,
     # dtype, stream
     "slstm_launch": (_VOIDP,) * 12 + (ctypes.c_int,) * 5 + (_VOIDP,),
+    # the same with the backward's record after h: saved (B, S, 8, D) f32
+    "slstm_save_launch": (_VOIDP,) * 13 + (ctypes.c_int,) * 5 + (_VOIDP,),
+    # saved, dhs, r, dc, dn, dm, dh (the final state's cotangents, each or
+    # null), dx, dpre (or null), dc0, dn0, dm0, dh0 (out), B, S, H, dh,
+    # dtype, stream
+    "slstm_bwd_launch": (_VOIDP,) * 13 + (ctypes.c_int,) * 5 + (_VOIDP,),
+    # dh, dtype, plan (int[16]): the backward's instance of a group of
+    # batch rows a cluster (B > 1): blocks a cluster, columns a block,
+    # threads, rows of r a warp, registers, dynamic shared memory, blocks
+    # an SM, clusters the card holds at once; then the one-row instance's
+    "slstm_bwd_plan": (ctypes.c_int, ctypes.c_int, _VOIDP),
     # dh, dtype, plan (int[20]): the instance of a group of batch rows a
     # cluster (B > 1): blocks a cluster, columns a block, threads, splits
     # of the sum over d, registers, dynamic shared memory, blocks an SM,

@@ -116,6 +116,15 @@
 // step. At B = 4 (8 blocks, 2 rows a cluster) the product of two rows
 // takes about 830 and 8 st.async about 260. What each part costs end to
 // end (the sweep's diagnostics) is in PERF.md.
+//
+// The backward's record (the SAVE instances, launched under autograd by
+// slstm_save_launch): at token t the gate thread also writes, into
+// saved[b, t, :, column] (B, S, 8, D) f32, the four pre-activations and
+// c, n, m and h as they were before the token (h0 at t = 0): 32 bytes a
+// (token, column), 16 MiB at (1, 512, 1024). slstm_bwd.cu runs the chain
+// backward from it, taking each max as this kernel took it, and dr's
+// product reads h there. The other instances are the inference ones,
+// unchanged by the record: its stores are compiled out.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -267,13 +276,13 @@ constexpr size_t smem_bytes() {
          + sizeof(T) * kAhead * R * 4 * G::CB;
 }
 
-template <typename T, int CB, int DH, int R>
+template <typename T, int CB, int DH, int R, bool SAVE>
 __global__ void __launch_bounds__(Geo<CB, DH>::NT, 1)
 slstm_kernel(const T* __restrict__ x_pre, const float* __restrict__ bias,
              const float* __restrict__ r, const float* c0, const float* n0,
              const float* m0, const float* h0, T* __restrict__ hs,
-             float* c_out, float* n_out, float* m_out, float* h_out, int B,
-             int S, int H) {
+             float* c_out, float* n_out, float* m_out, float* h_out,
+             float* __restrict__ saved, int B, int S, int H) {
   using G = Geo<CB, DH>;
   constexpr int NO = G::NO, NOT = G::NOT, KS = G::KS, L = G::L, NT = G::NT;
   constexpr int NBAR = G::NBAR;
@@ -330,7 +339,12 @@ slstm_kernel(const T* __restrict__ x_pre, const float* __restrict__ bias,
     bi = bias[D + colD];
     bf = bias[2 * D + colD];
     bo = bias[3 * D + colD];
+    if constexpr (SAVE) hv = h0[sidx];  // h before token 0, for the record
   }
+  // this gate thread's column of the record (SAVE): saved[b, t, k, colD]
+  float* srow = SAVE && gate ? saved + static_cast<size_t>(b0 + gb) * S * 8
+                                          * D + colD
+                             : nullptr;
 
   // x_pre of token tt (nb rows x 4 gates x CB columns) into its ring slot,
   // by the top threads: 16-byte cp.async where x_pre is 16-byte aligned,
@@ -438,6 +452,17 @@ slstm_kernel(const T* __restrict__ x_pre, const float* __restrict__ bias,
       const float pi = __fadd_rn(__fadd_rn(xi, bi), rec[1]);
       const float pf = __fadd_rn(__fadd_rn(xf, bf), rec[2]);
       const float po = __fadd_rn(__fadd_rn(xo, bo), rec[3]);
+      if constexpr (SAVE) {  // the backward's record of token t
+        float* sr = srow + static_cast<size_t>(t) * 8 * D;
+        sr[0] = pz;
+        sr[D] = pi;
+        sr[2 * D] = pf;
+        sr[3 * D] = po;
+        sr[4 * D] = c;
+        sr[5 * D] = n;
+        sr[6 * D] = m;
+        sr[7 * D] = hv;
+      }
       const float lf = log_sigmoid(pf);
       const float lfm = __fadd_rn(lf, m);
       const float mn = fmaxf(lfm, pi);
@@ -501,16 +526,16 @@ cudaError_t with_instance(int dh, F&& f) {
 
 // The instance's launch attributes, set once: its dynamic shared memory
 // and, above 8 blocks a cluster, the non-portable cluster size.
-template <typename T, int CB, int DH, int R>
+template <typename T, int CB, int DH, int R, bool SAVE = false>
 cudaError_t prepare() {
   static cudaError_t err = [] {
     using G = Geo<CB, DH>;
     cudaError_t e = cudaFuncSetAttribute(
-        slstm_kernel<T, CB, DH, R>,
+        slstm_kernel<T, CB, DH, R, SAVE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem_bytes<T, G, R>()));
     if (e == cudaSuccess && G::CS > 8) {
-      e = cudaFuncSetAttribute(slstm_kernel<T, CB, DH, R>,
+      e = cudaFuncSetAttribute(slstm_kernel<T, CB, DH, R, SAVE>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed,
                                1);
     }
@@ -543,23 +568,31 @@ struct Launch {
   void *hs, *c_out, *n_out, *m_out, *h_out;
   int B, S, H;
   cudaStream_t st;
+  void* saved;  // the backward's record, or null: the inference instance
 
-  template <int CB, int DH, int R>
-  cudaError_t launch() const {
-    cudaError_t err = prepare<T, CB, DH, R>();
+  template <int CB, int DH, int R, bool SAVE>
+  cudaError_t launch_as() const {
+    cudaError_t err = prepare<T, CB, DH, R, SAVE>();
     if (err != cudaSuccess) return err;
     cudaLaunchAttribute attr;
     const cudaLaunchConfig_t cfg = config_of<T, CB, DH, R>(H, B, st, &attr);
     err = cudaLaunchKernelEx(
-        &cfg, slstm_kernel<T, CB, DH, R>, static_cast<const T*>(x_pre),
-        static_cast<const float*>(bias), static_cast<const float*>(r),
-        static_cast<const float*>(c0), static_cast<const float*>(n0),
-        static_cast<const float*>(m0), static_cast<const float*>(h0),
-        static_cast<T*>(hs), static_cast<float*>(c_out),
-        static_cast<float*>(n_out), static_cast<float*>(m_out),
-        static_cast<float*>(h_out), B, S, H);
+        &cfg, slstm_kernel<T, CB, DH, R, SAVE>,
+        static_cast<const T*>(x_pre), static_cast<const float*>(bias),
+        static_cast<const float*>(r), static_cast<const float*>(c0),
+        static_cast<const float*>(n0), static_cast<const float*>(m0),
+        static_cast<const float*>(h0), static_cast<T*>(hs),
+        static_cast<float*>(c_out), static_cast<float*>(n_out),
+        static_cast<float*>(m_out), static_cast<float*>(h_out),
+        static_cast<float*>(saved), B, S, H);
     if (err != cudaSuccess) return err;
     return cudaGetLastError();
+  }
+
+  template <int CB, int DH, int R>
+  cudaError_t launch() const {
+    return saved ? launch_as<CB, DH, R, true>()
+                 : launch_as<CB, DH, R, false>();
   }
 
   // B = 1 takes the instance of one row a cluster, with kCols1 columns a
@@ -579,17 +612,17 @@ cudaError_t plan_of(int* plan) {
   if (err != cudaSuccess) return err;
   const size_t smem = smem_bytes<T, G, R>();
   cudaFuncAttributes fa;
-  err = cudaFuncGetAttributes(&fa, slstm_kernel<T, CB, DH, R>);
+  err = cudaFuncGetAttributes(&fa, slstm_kernel<T, CB, DH, R, false>);
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, slstm_kernel<T, CB, DH, R>, G::NT, smem);
+      &blocks, slstm_kernel<T, CB, DH, R, false>, G::NT, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
   const cudaLaunchConfig_t cfg = config_of<T, CB, DH, R>(1, 1, nullptr, &attr);
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, slstm_kernel<T, CB, DH, R>,
-                                       &cfg);
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, slstm_kernel<T, CB, DH, R, false>, &cfg);
   if (err != cudaSuccess) return err;
   plan[0] = G::CS;
   plan[1] = CB;
@@ -623,6 +656,37 @@ struct Plan {
 
 }  // namespace
 
+#ifndef SLSTM_KERNEL_ONLY  // slstm_bwd.cu includes the helpers above only
+
+namespace {
+
+// Both entry points: the inference instances, or with a record the SAVE
+// ones.
+int launch_entry(const void* x_pre, const void* bias, const void* r,
+                 const void* c0, const void* n0, const void* m0,
+                 const void* h0, void* hs, void* c_out, void* n_out,
+                 void* m_out, void* h_out, void* saved, int B, int S, int H,
+                 int dh, int dtype, void* stream) {
+  if (B <= 0 || (B + kRows - 1) / kRows > 65535 || S <= 0 || H <= 0
+      || !takes(dh)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = with_instance(dh, Launch<float>{x_pre, bias, r, c0, n0, m0, h0, hs,
+                                          c_out, n_out, m_out, h_out, B, S,
+                                          H, st, saved});
+  } else if (dtype == 1) {
+    err = with_instance(dh, Launch<__nv_bfloat16>{
+                                x_pre, bias, r, c0, n0, m0, h0, hs, c_out,
+                                n_out, m_out, h_out, B, S, H, st, saved});
+  }
+  return static_cast<int>(err);
+}
+
+}  // namespace
+
 // x_pre (B, S, 4 * H * dh) in the model type (dtype 0: float32, 1:
 // bfloat16), bias (4 * H * dh) f32, r (4, H, dh, dh) f32, c0, n0, m0, h0
 // (B, H, dh) f32, all contiguous; hs (B, S, H * dh) in
@@ -635,22 +699,24 @@ extern "C" int slstm_launch(const void* x_pre, const void* bias,
                             void* c_out, void* n_out, void* m_out,
                             void* h_out, int B, int S, int H, int dh,
                             int dtype, void* stream) {
-  if (B <= 0 || (B + kRows - 1) / kRows > 65535 || S <= 0 || H <= 0
-      || !takes(dh)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = with_instance(dh, Launch<float>{x_pre, bias, r, c0, n0, m0, h0, hs,
-                                          c_out, n_out, m_out, h_out, B, S,
-                                          H, st});
-  } else if (dtype == 1) {
-    err = with_instance(dh, Launch<__nv_bfloat16>{
-                                x_pre, bias, r, c0, n0, m0, h0, hs, c_out,
-                                n_out, m_out, h_out, B, S, H, st});
-  }
-  return static_cast<int>(err);
+  return launch_entry(x_pre, bias, r, c0, n0, m0, h0, hs, c_out, n_out, m_out,
+                      h_out, nullptr, B, S, H, dh, dtype, stream);
+}
+
+// slstm_launch with the backward's record: saved (B, S, 8, H * dh) f32,
+// contiguous, receives each token's pre-activations and the state before
+// it (the SAVE instances; the same geometry, hs and final state as
+// slstm_launch's). The final state must not alias the initial one.
+extern "C" int slstm_save_launch(const void* x_pre, const void* bias,
+                                 const void* r, const void* c0,
+                                 const void* n0, const void* m0,
+                                 const void* h0, void* hs, void* c_out,
+                                 void* n_out, void* m_out, void* h_out,
+                                 void* saved, int B, int S, int H, int dh,
+                                 int dtype, void* stream) {
+  if (saved == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_entry(x_pre, bias, r, c0, n0, m0, h0, hs, c_out, n_out, m_out,
+                      h_out, saved, B, S, H, dh, dtype, stream);
 }
 
 // The launch geometry of the (dh, dtype) instances into plan[20]: that of
@@ -667,3 +733,5 @@ extern "C" int slstm_plan(int dh, int dtype, int* plan) {
   if (dtype == 1) err = with_instance(dh, Plan<__nv_bfloat16>{plan});
   return static_cast<int>(err);
 }
+
+#endif  // SLSTM_KERNEL_ONLY

@@ -393,6 +393,123 @@ def slstm_ref(x_pre: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
     return hs.to(x_pre.dtype), (c, n, m, h)
 
 
+def _tie_share(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The share of max(a, b)'s cotangent that goes to a: 1 where a > b,
+    0 where a < b, half at a tie (as jax.grad and torch.maximum split
+    it)."""
+    return torch.where(a > b, 1.0, torch.where(a < b, 0.0, 0.5))
+
+
+def slstm_record_ref(x_pre: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
+                     c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                     h: torch.Tensor) -> torch.Tensor:
+    """The record the sLSTM kernel's saving forward writes for its
+    backward, from ``slstm_ref``'s recurrence: (B, S, 8, D) f32 with, at
+    token t, the pre-activations of gates z, i, f, o (each (D,), laid out
+    (head, column)), then c, n, m and h as they were before the token."""
+    f32 = torch.float32
+    B, S, _ = x_pre.shape
+    _, H, dh, _ = r.shape
+    D = H * dh
+    xb = (x_pre.to(f32) + b).reshape(B, S, 4, H, dh)
+    rec = torch.empty((B, S, 8, D), dtype=f32, device=x_pre.device)
+    for t in range(S):
+        pre = xb[:, t] + torch.einsum("bhd,ghde->bghe", h, r)
+        rec[:, t, :4] = pre.reshape(B, 4, D)
+        for k, v in enumerate((c, n, m, h)):
+            rec[:, t, 4 + k] = v.reshape(B, D)
+        z_r, i_r, f_r, o_r = pre.unbind(1)
+        lfm = log_sigmoid(f_r) + m
+        m_new = torch.maximum(lfm, i_r)
+        i_g = torch.exp(i_r - m_new)
+        f_g = torch.exp(lfm - m_new)
+        c = f_g * c + i_g * torch.tanh(z_r)
+        n = torch.maximum(f_g * n + i_g, torch.exp(-m_new))
+        h = torch.sigmoid(o_r) * c / n
+        m = m_new
+    return rec
+
+
+def slstm_bwd_ref(x_pre: torch.Tensor, b: torch.Tensor, r: torch.Tensor,
+                  c: torch.Tensor, n: torch.Tensor, m: torch.Tensor,
+                  h: torch.Tensor, dhs: torch.Tensor, dc=None, dn=None,
+                  dm=None, dh=None, saved=None):
+    """The gradient of ``slstm_ref`` by an explicit reverse recurrence in
+    f32: from its inputs, dhs (hs's cotangent, in x_pre's type) and the
+    final state's cotangents dc, dn, dm, dh ((B, H, dh) f32; None for
+    zero), returns (dx_pre in x_pre's type, db (4·D,), dr (4, H, dh, dh),
+    dc0, dn0, dm0, dh0), each in its input's shape.
+
+    Each token's pre-activations and the state before it come from the
+    record ``saved`` (B, S, 8, D) where given, as the kernel takes them
+    from its saving forward's (so both take each max the same way), else
+    from ``slstm_record_ref``. Then for t = S-1 .. 0, with o = σ(pre_o),
+    zt = tanh(pre_z), nn = f_g·n + i_g, e = exp(-m') and g_h the cotangent
+    of h_t (dhs_t plus the recurrent part from token t+1, or dh at the
+    last token):
+        dpre_o = g_h·c'/n'·o(1-o),  dc' += g_h·o/n',  dn' -= g_h·h/n'
+        n' = max(nn, e): dn' to nn, or to e with dm' -= e·dn'
+        df_g = dc'·c + dnn·n,  di_g = dc'·zt + dnn
+        dpre_z = dc'·i_g·(1 - zt²),  dc = dc'·f_g,  dn = dnn·f_g
+        dpre_i = di_g·i_g,  dm' -= di_g·i_g + df_g·f_g
+        dlfm = df_g·f_g;  m' = max(lf + m, pre_i): dm' to lfm, or to pre_i
+        dm = dlfm,  dpre_f = dlfm·σ(-pre_f)
+        g_h(t-1) = Σ_{g,e} r[g, head, d, e]·dpre_g[e]
+        dr[g, head] += h_{t-1} ⊗ dpre_g,  db += dpre
+    with each max's cotangent split half and half at a tie, as jax.grad
+    and torch.maximum split it."""
+    f32 = torch.float32
+    B, S, _ = x_pre.shape
+    _, H, dh_, _ = r.shape
+    if saved is None:
+        saved = slstm_record_ref(x_pre, b, r, c, n, m, h)
+    rec = saved.reshape(B, S, 8, H, dh_)
+
+    def zero_or(t):
+        return (torch.zeros(B, H, dh_, dtype=f32, device=x_pre.device)
+                if t is None else t.to(f32))
+    dc, dn, dm, g_h = zero_or(dc), zero_or(dn), zero_or(dm), zero_or(dh)
+    dhs = dhs.to(f32).reshape(B, S, H, dh_)
+    dpre = torch.empty((B, S, 4, H, dh_), dtype=f32, device=x_pre.device)
+    dr = torch.zeros_like(r, dtype=f32)
+    for t in range(S - 1, -1, -1):
+        z_r, i_r, f_r, o_r, c, n, m, h_prev = rec[:, t].unbind(1)
+        lfm = log_sigmoid(f_r) + m
+        m_new = torch.maximum(lfm, i_r)
+        i_g = torch.exp(i_r - m_new)
+        f_g = torch.exp(lfm - m_new)
+        zt = torch.tanh(z_r)
+        c_new = f_g * c + i_g * zt
+        nn = f_g * n + i_g
+        e = torch.exp(-m_new)
+        n_new = torch.maximum(nn, e)
+        o = torch.sigmoid(o_r)
+        h_new = o * c_new / n_new
+        g_h = dhs[:, t] + g_h
+        dpo = g_h * c_new / n_new * o * (1.0 - o)
+        dcn = dc + g_h * o / n_new
+        dnw = dn - g_h * h_new / n_new
+        dnn = dnw * _tie_share(nn, e)
+        dmn = dm - e * (dnw - dnn)
+        dfg = dcn * c + dnn * n
+        dig = dcn * zt + dnn
+        dpz = dcn * i_g * (1.0 - zt * zt)
+        dc, dn = dcn * f_g, dnn * f_g
+        dpi = dig * i_g
+        dmn = dmn - dpi - dfg * f_g
+        share = _tie_share(lfm, i_r)
+        dlfm = dfg * f_g + dmn * share
+        dpi = dpi + dmn * (1.0 - share)
+        dm = dlfm
+        dpf = dlfm * torch.sigmoid(-f_r)
+        step = torch.stack([dpz, dpi, dpf, dpo], 1)            # (B,4,H,dh)
+        dpre[:, t] = step
+        dr += torch.einsum("bhd,bghe->ghde", h_prev, step)
+        g_h = torch.einsum("bghe,ghde->bhd", step, r)
+    return (dpre.reshape(B, S, 4 * H * dh_).to(x_pre.dtype),
+            dpre.sum((0, 1)).reshape(4 * H * dh_), dr, dc, dn, dm, g_h)
+
+
 # ---------------------------------------------------------------------------
 # threefry gaussian noise (jax.random.normal at one leaf)
 # ---------------------------------------------------------------------------

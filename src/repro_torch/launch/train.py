@@ -72,9 +72,9 @@ attention (ROADMAP.md, queue 1, item 6). The Mamba hybrid
 FedAvg and FedLoRA (``--algorithm fedavg|fedlora``: its gradient goes
 through the selective scan's backward kernel; FedLoRA's adapters are the
 attention block's wq and wv). xLSTM (xlstm-350m) trains with the
-zeroth-order algorithms only: FedAvg and FedLoRA raise NotImplementedError
-there, since the sLSTM kernel has no backward yet (ROADMAP.md, queue 1,
-item 6.4).
+zeroth-order algorithms and with FedAvg and FedLoRA (its gradient goes
+through the sLSTM recurrence's backward kernel; FedLoRA's adapters are
+the mLSTM blocks' wq and wv).
 """
 from __future__ import annotations
 

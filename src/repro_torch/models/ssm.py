@@ -32,8 +32,9 @@ runs its ``w_x`` product, then its recurrence over all S tokens in one
 launch of the sLSTM kernel (``kernels/slstm.py``; on the CPU
 ``ref.slstm_ref``), then the GeGLU out-projection. Both decodes write the
 new state into the given state's tensors in place, as ``mamba_decode``
-does. Neither has a backward yet: the first-order rounds refuse an xLSTM
-model (``core/baselines.py``).
+does. Under autograd (the first-order rounds) the mLSTM's gradient is
+PyTorch's autograd of its chunks, and the sLSTM recurrence's is its
+backward kernel (``csrc/slstm_bwd.cu``; on the CPU ``ref.slstm_bwd_ref``).
 """
 from __future__ import annotations
 

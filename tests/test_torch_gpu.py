@@ -78,7 +78,18 @@ in-place state) gives the same results, and so does an x_pre that is not
 16-byte aligned. Small f32 MU-SplitFed and GAS
 rounds of xlstm-350m widened by card_smoke_config (sLSTM head dim 32),
 card against CPU within 1e-4, and its serving, tokens equal and logits
-within 1e-4.
+within 1e-4. The sLSTM backward (slstm_bwd, from the saving forward's
+record) against ref.slstm_bwd_ref at head dims 16 to 256, S 1, 33, 40, 65
+and 512, B 1, R+1 and several groups with a ragged one, from the initial
+and a nonzero state, with nonzero dhs and final-state cotangents: dx_pre
+within 2^-7 (bf16) or 1e-5 (f32) of its largest magnitude, db, dr and the
+initial state's cotangents within 1e-5 of theirs (the kernel sums the
+transposed product over the cluster's blocks, and dr over B*S, in
+another order); two launches bit-equal; the saving forward's hs and state
+bit-equal to the inference forward's, its record holding the initial
+state; under autograd the card against the CPU within the same; small
+f32 FedAvg and FedLoRA rounds of xlstm-350m, card against CPU within
+1e-4.
 """
 import numpy as np
 import pytest
@@ -91,7 +102,7 @@ from repro_torch.kernels.rmsnorm import (rmsnorm, rmsnorm_bwd,
                                         rmsnorm_bwd_plan, rmsnorm_pair,
                                         rmsnorm_pair_bwd)
 from repro_torch.kernels.selective_scan import LANES, selective_scan
-from repro_torch.kernels.slstm import slstm
+from repro_torch.kernels.slstm import SAVED, slstm, slstm_bwd
 
 pytestmark = pytest.mark.gpu
 
@@ -788,22 +799,26 @@ def fo_small_round(algorithm, optimizer, device, arch=None):
     ("fedavg", "sgd", None), ("fedavg", "adamw", None),
     ("fedlora", "sgd", None), ("fedavg", "sgd", "deepseek-v2-236b"),
     ("fedavg", "sgd", "jamba-1.5-large-398b"),
-    ("fedlora", "sgd", "jamba-1.5-large-398b")])
+    ("fedlora", "sgd", "jamba-1.5-large-398b"),
+    ("fedavg", "sgd", "xlstm-350m"), ("fedlora", "sgd", "xlstm-350m")])
 def test_fo_round_card_matches_cpu(cuda, algorithm, optimizer, arch):
     """One small f32 first-order round on the card (the forward and
     backward kernels; on deepseek-v2-236b the flash backward at (192, 128)
     and the rmsnorm backward of the MLA norms; on jamba-1.5-large-398b the
-    selective scan's backward at d_state 4) against the same round on the
-    CPU (their plain versions): the new tree within 1e-4."""
+    selective scan's backward at d_state 4; on xlstm-350m, which has no
+    attention, the sLSTM backward at head dim 32) against the same round
+    on the CPU (their plain versions): the new tree within 1e-4."""
     before = dict(build.LAUNCHES)
     got = fo_small_round(algorithm, optimizer, cuda, arch)
-    keys = ("flash_attention_bwd",)
+    keys = () if arch == "xlstm-350m" else ("flash_attention_bwd",)
     if algorithm == "fedlora":
         keys += ("rmsnorm_bwd",)
     if arch == "deepseek-v2-236b":
         keys += ("rmsnorm_bwd", "flash_attention_bwd (192, 128)")
     if arch == "jamba-1.5-large-398b":
         keys += ("rmsnorm_bwd", "selective_scan_bwd")
+    if arch == "xlstm-350m":
+        keys += ("rmsnorm_bwd", "slstm_bwd")
     for k in keys:
         assert build.LAUNCHES[k] > before.get(k, 0)
     want = fo_small_round(algorithm, optimizer, torch.device("cpu"), arch)
@@ -1632,7 +1647,7 @@ def test_slstm_takes_an_unaligned_x_pre(cuda):
 
 def test_slstm_raises_on_what_it_does_not_take(cuda):
     """A wrong dtype, a head dim with no instance, a mismatched or
-    non-contiguous state, an input on the CPU and a call under autograd
+    non-contiguous state, an input on the CPU and ``out`` under autograd
     raise."""
     args = list(slstm_inputs(1, 8, 4, 16, torch.float32, cuda))
     with pytest.raises(TypeError):
@@ -1652,8 +1667,198 @@ def test_slstm_raises_on_what_it_does_not_take(cuda):
     bad[2] = args[2].cpu()
     with pytest.raises(ValueError, match="r must be"):
         slstm(*bad)
-    with pytest.raises(NotImplementedError, match="no backward"):
-        slstm(args[0].clone().requires_grad_(), *args[1:])
+    with pytest.raises(ValueError, match="out is not taken"):
+        slstm(args[0].clone().requires_grad_(), *args[1:],
+              out=[t.clone() for t in args[3:]])
+
+
+def slstm_saving(args):
+    """The forward that writes the backward's record: (hs, state,
+    saved)."""
+    from repro_torch.kernels.slstm import _launch
+    return _launch(args[0], args[1], args[2], args[3:], None, save=True)
+
+
+def slstm_cotangents(B, S, H, dh, dtype, device, seed=9):
+    """dhs (B, S, H * dh) in ``dtype`` and the final state's four
+    cotangents (B, H, dh) f32, normal."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    dhs = torch.randn(B, S, H * dh, generator=g, device=device).to(dtype)
+    return dhs, [torch.randn(B, H, dh, generator=g, device=device)
+                 for _ in range(4)]
+
+
+def assert_slstm_grads_close(got, want):
+    """(dx_pre, db, dr, dc0, dn0, dm0, dh0): dx_pre within 2^-7 (bf16) or
+    1e-5 (f32) of its largest magnitude, the rest (f32) within 1e-5 of
+    theirs; finite, shapes and dtypes equal."""
+    for k, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, k
+        assert bool(torch.isfinite(g.float()).all()), k
+        tol = 2.0 ** -7 if k == 0 and g.dtype == torch.bfloat16 else 1e-5
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max()), (k, err)
+
+
+def assert_record_close(got, want):
+    """The saving forward's record against ref.slstm_record_ref: the
+    pre-activations and c, n, h within 1e-5 of each field's largest
+    magnitude (the forward's tolerance: the recurrent product sums in
+    another order), m within 1e-5 of max(|m|, 1) past token 0 and equal
+    to the initial m at token 0."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    for k in range(8):
+        g, w = got[:, :, k], want[:, :, k]
+        if k == 6:
+            assert torch.equal(g[:, 0], w[:, 0])
+            g, w = g[:, 1:], w[:, 1:]
+            if w.numel() == 0:
+                continue
+        floor = 1.0 if k == 6 else 0.0
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * max(float(w.abs().max()), floor), (k, err)
+
+
+# (B, S, H, dh) as SLSTM_SHAPES: every head dim, both instances (B = 1 and
+# groups of R rows), ragged and several groups, one token to 512
+SLSTM_BWD_SHAPES = [(2, 1, 4, 16), (2, 40, 4, 16), (1, 40, 2, 16),
+                    (2, 40, 4, 32), (1, 33, 4, 32), (3, 40, 2, 32),
+                    (2, 65, 2, 64), ("3R+1", 33, 2, 64), (1, 40, 2, 128),
+                    ("R+1", 40, 2, 128), (1, 1, 4, 256), (1, 40, 4, 256),
+                    (1, 512, 4, 256), ("R+1", 40, 4, 256),
+                    (4, 512, 4, 256), ("R+1", 1, 4, 256)]
+
+
+@pytest.mark.parametrize("case", SLSTM_BWD_SHAPES,
+                         ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("nonzero", [False, True], ids=["init", "state"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_bwd_matches_plain(cuda, case, nonzero, dtype):
+    """The backward from the saving forward's record, with nonzero dhs and
+    final-state cotangents, against ref.slstm_bwd_ref on the same record
+    (so both take each max of the token's forward as the kernel's forward
+    took it: a plain forward's own pre-activations differ by rounding and
+    could fall on the other side of a near tie): every gradient within
+    its tolerance; one launch a call."""
+    args = slstm_inputs(*slstm_shape(case), dtype, cuda, nonzero)
+    _, _, saved = slstm_saving(args)
+    dhs, dfin = slstm_cotangents(*slstm_shape(case), dtype, cuda)
+    before = build.LAUNCHES["slstm_bwd"]
+    got = slstm_bwd(saved, args[2], dhs, dfin)
+    assert build.LAUNCHES["slstm_bwd"] == before + 1
+    assert_slstm_grads_close(got, ref.slstm_bwd_ref(*args, dhs, *dfin,
+                                                    saved=saved))
+
+
+@pytest.mark.parametrize("dh", [32, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_bwd_is_deterministic_and_saving_changes_no_result(cuda, dh,
+                                                                 dtype):
+    """The saving forward gives hs and a final state bit-equal to the
+    inference forward's, and its record holds the initial state, (f32)
+    each token's h before it, and agrees with the plain record
+    (``assert_record_close``); two backward launches are bit-equal in
+    every output, with and without db and dr (dx and the state's
+    cotangents equal between the two). B spans two groups of batch rows
+    and a ragged third."""
+    B, S, H = 2 * slstm_rows() + 1, 300, 4
+    args = slstm_inputs(B, S, H, dh, dtype, cuda)
+    hs0, st0 = slstm(*args)
+    hs1, st1, saved = slstm_saving(args)
+    assert torch.equal(hs0, hs1)
+    assert all(torch.equal(a, b) for a, b in zip(st0, st1))
+    assert tuple(saved.shape) == (B, S, SAVED, H * dh)
+    for k, s0 in enumerate(args[3:]):
+        assert torch.equal(saved[:, 0, 4 + k], s0.reshape(B, H * dh))
+    if dtype == torch.float32:
+        assert torch.equal(saved[:, 1:, 7], hs0[:, :-1])
+    assert_record_close(saved, ref.slstm_record_ref(*args))
+    dhs, dfin = slstm_cotangents(B, S, H, dh, dtype, cuda)
+    g0 = slstm_bwd(saved, args[2], dhs, dfin)
+    g1 = slstm_bwd(saved, args[2], dhs, dfin)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    g2 = slstm_bwd(saved, args[2], dhs, dfin, params=False)
+    assert g2[1] is None and g2[2] is None
+    assert all(torch.equal(g0[k], g2[k]) for k in (0, 3, 4, 5, 6))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_slstm_autograd_card_matches_cpu(cuda, dtype):
+    """``slstm`` under autograd (every input requiring a gradient, a
+    ragged group of batch rows) on the card, its backward the kernel,
+    against the same on the CPU, where the plain forward and backward run:
+    hs and the state as the forward's tolerance, every gradient as
+    slstm_bwd's; one forward and one backward launch."""
+    B = slstm_rows() + 1
+    args = slstm_inputs(B, 40, 4, 64, dtype, cuda)
+    dhs, dfin = slstm_cotangents(B, 40, 4, 64, dtype, cuda)
+    outs = {}
+    for d in (cuda, torch.device("cpu")):
+        ins = [t.detach().to(d).requires_grad_() for t in args]
+        before = dict(build.LAUNCHES)
+        hs, st = slstm(*ins)
+        grads = torch.autograd.grad((hs, *st), ins,
+                                    (dhs.to(d), *(t.to(d) for t in dfin)))
+        n = {k: build.LAUNCHES[k] - before.get(k, 0)
+             for k in ("slstm", "slstm_bwd")}
+        outs[d.type] = ((hs.detach().cpu(), tuple(t.detach().cpu()
+                                                 for t in st)),
+                        [g.cpu() for g in grads], n)
+    (fc, gc, nc), (fg, gg, ng) = outs["cuda"], outs["cpu"]
+    assert nc == {"slstm": 1, "slstm_bwd": 1}
+    assert ng == {"slstm": 0, "slstm_bwd": 0}
+    assert_slstm_close(fc, fg)
+    assert_slstm_grads_close(gc, gg)
+
+
+def test_slstm_bwd_plan(cuda):
+    """The backward's geometry from the library for both instances: the
+    forward's clusters and columns, a warp for each 32 rows of r (16 where
+    a block has fewer rows than that a warp) and at least one for the gate
+    threads, the shared memory of its buffers and ring; the card holds at
+    least one cluster, and at dh 256 path 11's 4 heads in one wave."""
+    import ctypes
+    from repro_torch.kernels.slstm import HEAD_DIMS
+    for dh in HEAD_DIMS:
+        for code, elem in ((0, 4), (1, 2)):
+            fwd = (ctypes.c_int * 20)()
+            assert build.library().slstm_plan(dh, code, fwd) == 0
+            plan = (ctypes.c_int * 16)()
+            assert build.library().slstm_bwd_plan(dh, code, plan) == 0
+            for n, (cs, cols, threads, rows, regs, smem, blocks,
+                    clusters), f in ((fwd[8], plan[:8], fwd[:2]),
+                                     (1, plan[8:], fwd[12:14])):
+                assert (cs, cols) == tuple(f) and cs * cols == dh
+                assert threads % 32 == 0 and n * cols <= threads
+                assert rows * threads // 32 == dh and rows in (16, 32)
+                assert smem == 16 + 4 * (2 * n * dh + 2 * n * 4 * cols
+                                         + 4 * n * 7 * cols) + elem * 4 * n \
+                    * cols
+                assert regs > 0 and blocks >= 1 and clusters >= 1
+            if dh == 256:
+                assert 4 <= plan[15]
+    plan = (ctypes.c_int * 16)()
+    assert build.library().slstm_bwd_plan(48, 0, plan) != 0
+
+
+def test_slstm_bwd_raises_on_what_it_does_not_take(cuda):
+    """CPU tensors, a wrong dtype, a head dim with no instance, a record
+    of the wrong shape or type and a mismatched cotangent raise."""
+    args = slstm_inputs(2, 8, 4, 16, torch.float32, cuda)
+    _, _, saved = slstm_saving(args)
+    dhs, dfin = slstm_cotangents(2, 8, 4, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        slstm_bwd(saved.cpu(), args[2].cpu(), dhs.cpu())
+    with pytest.raises(TypeError):
+        slstm_bwd(saved, args[2], dhs.half())
+    with pytest.raises(ValueError, match="head dim 48"):
+        slstm_bwd(saved, torch.empty(4, 2, 48, 48, device=cuda), dhs)
+    with pytest.raises(ValueError, match="saved must be"):
+        slstm_bwd(saved[:, :4], args[2], dhs)
+    with pytest.raises(ValueError, match="saved must be"):
+        slstm_bwd(saved.double(), args[2], dhs)
+    with pytest.raises(ValueError, match="dn must be"):
+        slstm_bwd(saved, args[2], dhs, [None, dfin[1][:1], None, None])
 
 
 @pytest.mark.parametrize("algorithm", ["mu_splitfed", "gas"])

@@ -214,6 +214,7 @@ def test_port_imports_neither_jax_nor_repro():
                                     "tools/scan_ab.py",
                                     "tools/scan_bwd_ab.py",
                                     "tools/slstm_sweep.py",
+                                    "tools/slstm_bwd_sweep.py",
                                     "tools/zo_sweep.py",
                                     "tools/threefry_sweep.py"])
 def test_chip_scripts_import_neither_jax_nor_repro(script):

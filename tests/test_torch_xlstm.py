@@ -49,7 +49,6 @@ from repro_torch.configs import SFLConfig as TSFL
 from repro_torch.configs import card_smoke_config
 from repro_torch.configs import get_config as t_get_config
 from repro_torch.core import prng
-from repro_torch.core.baselines import fedavg_round, fedlora_round
 from repro_torch.core.splitfed import mu_splitfed_round
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve
@@ -59,7 +58,6 @@ from repro_torch.models import (client_forward, decode_step, init_cache,
                                 server_forward, split_dims, split_params,
                                 ssm, untie_params)
 from repro_torch.models.convert import from_jax_params, to_jax_params
-from repro_torch.optim import init_lora
 from repro_torch.utils import tree
 
 ARCH = "xlstm-350m"
@@ -450,25 +448,6 @@ def test_driver_and_serve_main_run_xlstm_on_the_cpu(capsys):
                        "--batch", "2", "--prompt-len", "20", "--gen", "3"])
     assert tuple(toks.shape) == (2, 3)
     assert "generated (2, 3)" in capsys.readouterr().out
-
-
-@pytest.mark.parametrize("algorithm", ["fedavg", "fedlora"])
-def test_first_order_rounds_refuse_xlstm(algorithm):
-    """FedAvg and FedLoRA raise NotImplementedError naming queue 1 item
-    6.4 on xlstm-350m (the sLSTM kernel has no backward yet), on the CPU
-    as on the card; the port's init_lora adapts the mLSTM cores' wq and wv
-    as the reference's does."""
-    _, tcfg, _, tp = _model()
-    _, tb = _batches()
-    mask = torch.tensor([1.0, 0.5])
-    with pytest.raises(NotImplementedError, match=r"queue 1, item 6\.4"):
-        if algorithm == "fedavg":
-            fedavg_round(tcfg, tp, tb, mask, 1e-2)
-        else:
-            lora = init_lora(tcfg, tp, 4, prng.PRNGKey(0))
-            assert sorted(lora["units"]) == ["b0", "b1", "b2"]
-            assert sorted(lora["units"]["b0"]["core"]) == ["wq", "wv"]
-            fedlora_round(tcfg, tp, lora, tb, mask, 1e-2)
 
 
 def test_converter_round_trips_xlstm_parameters_and_cache():

@@ -285,15 +285,16 @@ def start_build(name: str, text: str, out_dir: Path):
 
 
 def ptxas_report(log: str) -> list:
-    """ptxas's lines for the sLSTM kernels: '<type, columns[, head dim]>:
-    registers, spills'."""
+    """ptxas's lines for the sLSTM kernels: '<type, columns[, head dim[,
+    rows[, save]]]>: registers, spills'."""
     out, name = [], None
     for line in log.splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             m = chip_smoke.SLSTM_KERNEL.search(line)
             name = m and ", ".join(
                 ["bf16" if m.group(1) != "f" else "f32"]
-                + [g for g in m.groups()[1:] if g])
+                + [g for g in m.groups()[1:4] if g]
+                + (["save"] if m.group(5) == "1" else []))
             continue
         if name and ("registers" in line or "spill" in line):
             out.append(f"<{name}>: {line.split(':', 1)[-1].strip()}")
